@@ -1,0 +1,330 @@
+"""KMS two-phase multi-key bootstrapping (eprint 2022/1460), + block variant.
+
+Port of mktfhe_tpu/schemes/kms.py, the `pallas_ntt=True` path: every NTT
+of `bootstrap` goes through the CUDA kernel wrapper kernels/ntt.py (on CPU
+tensors, its plain twin).  LWE ciphertexts live on the 2^32 torus (int32
+carriers), ring accumulators on the 2^64 torus (int64 carriers, exact via
+3-4 CRT primes).
+
+Phase 1 (per party): a single-key blind rotation over an RLEV accumulator
+whose rows carry the LEV gadget constants, producing the party's "lev key"
+in the NTT domain.  The reference's `lax.scan` over key bits is a Python
+loop here, and its vmap over parties a loop over parties, which keeps the
+peak device memory to one party's temporaries.
+Phase 2 (sequential merge): per party, LEV-multiply the accumulator's
+digits by the lev key, relinearize through the party's rlk and public keys
+(hybrid product), and extend the accumulator by one mask component.
+Key switch: modulus switch 2^64 -> 2^32, then the per-party int8-limb key
+switch (schemes/common.py).
+
+The scheme stores NTT-domain keys without Shoup companions: products of
+runtime residues are reduced with int64 `%`, which gives the same
+canonical residues and halves key memory.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ciphertext.decomp import balanced_decomp
+from ..ciphertext.gsw import external_product_hat, rgsw_encrypt
+from ..ciphertext.keys import (
+    binary_lwe_key,
+    binary_ring_key,
+    block_binary_lwe_key,
+    partial_ring_key,
+)
+from ..ciphertext.lwe import Lwe
+from ..ciphertext.rlwe import gadget_gvec
+from ..ciphertext.unienc import gen_b, sample_crs, unienc_encrypt
+from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
+from ..ring.context import RingCtx, make_ring_ctx
+from ..ring.modring import MAX_PRODUCT_TERMS, addmod, mulsum_mod, negmod, prime_column
+from ..ring.ntt import fwd_ntt
+from ..ring.torus import from_crt, lift, negacyclic_roll, wrap_i32
+from .common import (
+    build_ksk,
+    initial_acc,
+    keyswitch_per_party,
+    limb_dot,
+    mod_switch_2n,
+    sample_extract_coeffs,
+    signed_onehot,
+)
+from .params import KmsBlockParams, KmsParams
+
+
+class KmsPartyKey(NamedTuple):
+    """One party's bootstrapping material, torus domain."""
+
+    pub_b: torch.Tensor  # [l_uni, N] int64, public key vs the CRS (unikey)
+    brk: torch.Tensor  # [n, 2, l_gsw, 2, N] int64, RGSW(s_i) under gswkey
+    rlk_d: torch.Tensor  # [l_uni, N] int64, UniEnc(gswkey) d-vector
+    rlk_f: torch.Tensor  # [l_uni, 2, N] int64, UniEnc(gswkey) RLEV part
+    ksk_b: torch.Tensor  # [NLIMB, rows] int8 (encrypts unikey coeffs, u32)
+    ksk_a: torch.Tensor  # [NLIMB, rows, n] int8
+
+
+@dataclass(frozen=True)
+class KmsScheme:
+    """Aggregated runtime state: NTT-domain keys as int32 residues."""
+
+    crs_hat: torch.Tensor  # [l_uni, npr, N]
+    pub_b_hat: torch.Tensor  # [k, l_uni, npr, N]
+    brk_hat: torch.Tensor  # [k, n, 2, l_gsw, 2, npr, N]
+    rlk_d_hat: torch.Tensor  # [k, l_uni, npr, N]
+    rlk_f_hat: torch.Tensor  # [k, l_uni, 2, npr, N]
+    ksk_b: torch.Tensor  # [k, NLIMB, rows] int8
+    ksk_a: torch.Tensor  # [k, NLIMB, rows, n] int8
+    mono_hat: torch.Tensor  # [2N, npr, N] (block variant; empty otherwise)
+
+
+AnyKmsParams = KmsParams | KmsBlockParams
+
+
+def _ctx(params: AnyKmsParams) -> RingCtx:
+    return make_ring_ctx(params.big_n, params.ring_torus_bits, params.ring_nprimes)
+
+
+def crs(gen: torch.Generator, params: AnyKmsParams) -> torch.Tensor:
+    """Common reference string [l_uni, N], on the generator's device."""
+    return sample_crs(gen, params.l_uni, _ctx(params))
+
+
+def party_keygen(gen: torch.Generator, crs_polys: torch.Tensor, params: AnyKmsParams):
+    """Independent per-party keygen; `gen` lives on the device of crs_polys.
+
+    Returns (lwe_key [int32], gsw_key, uni_key, KmsPartyKey).
+    """
+    ctx = _ctx(params)
+    is_block = isinstance(params, KmsBlockParams)
+    if is_block:
+        lwe_key = block_binary_lwe_key(gen, params.d, params.ell, torch.int32)
+        uni_key = partial_ring_key(gen, 1, lwe_key, ctx)
+    else:
+        lwe_key = binary_lwe_key(gen, params.n, torch.int32)
+        uni_key = binary_ring_key(gen, 1, ctx)
+    gsw_key = binary_ring_key(gen, 1, ctx)
+
+    pub_b = gen_b(gen, crs_polys, uni_key, params.beta, ctx)
+    rlk = unienc_encrypt(
+        gen, gsw_key.key[0], crs_polys, uni_key, params.beta,
+        params.l_uni, params.log_b_uni, ctx,
+    )
+    brk = rgsw_encrypt(
+        gen, lwe_key.key.to(ctx.dtype), gsw_key, params.beta,
+        params.l_gsw, params.log_b_gsw, ctx,
+    )
+    # ksk encrypts the (binary) uni-key coefficients on the 2^32 torus under
+    # the party's LWE key; the block variant covers only the tail beyond n.
+    coeffs = uni_key.key[0].to(torch.int32)
+    if is_block:
+        coeffs = coeffs[params.n :]
+    ksk_b, ksk_a = build_ksk(gen, coeffs, lwe_key, params.f, params.log_d, params.alpha)
+    return lwe_key, gsw_key, uni_key, KmsPartyKey(
+        pub_b=pub_b, brk=brk, rlk_d=rlk.d, rlk_f=rlk.f, ksk_b=ksk_b, ksk_a=ksk_a
+    )
+
+
+def monomial_table(ctx: RingCtx, device) -> torch.Tensor:
+    """NTT images of X^a - 1 for a in [0, 2N) (reference lmss.py:60-78)."""
+    n = ctx.n
+    eye = np.zeros((2 * n, n), dtype=np.int64)
+    for a in range(1, 2 * n):
+        if a < n:
+            eye[a, a] = 1
+        else:
+            eye[a, a - n] = -1
+        eye[a, 0] -= 1
+    polys = torch.from_numpy(eye).to(device=device, dtype=ctx.dtype)
+    return fwd_ntt(lift(polys, ctx.crt), ctx.plan)
+
+
+def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKmsParams) -> KmsScheme:
+    """Aggregate party keys into NTT-domain images on the CRS's device.
+
+    The brk images (2.55 GB at KMS8partyblock) are written party by party
+    into one preallocated tensor, so only one party's transform temporaries
+    are alive at a time.
+    """
+    ctx = _ctx(params)
+    dev = crs_polys.device
+
+    def hat(x):
+        return fwd_ntt(lift(x, ctx.crt), ctx.plan)
+
+    brk0 = party_keys[0].brk
+    brk_hat = torch.empty(
+        (len(party_keys), *brk0.shape[:-1], ctx.nprimes, ctx.n), dtype=torch.int32, device=dev
+    )
+    for i, pk in enumerate(party_keys):
+        brk_hat[i] = hat(pk.brk)
+    if isinstance(params, KmsBlockParams):
+        mono_hat = monomial_table(ctx, dev)
+    else:
+        mono_hat = torch.zeros((0,), dtype=torch.int32, device=dev)
+    return KmsScheme(
+        crs_hat=hat(crs_polys),
+        pub_b_hat=hat(torch.stack([pk.pub_b for pk in party_keys])),
+        brk_hat=brk_hat,
+        rlk_d_hat=hat(torch.stack([pk.rlk_d for pk in party_keys])),
+        rlk_f_hat=hat(torch.stack([pk.rlk_f for pk in party_keys])),
+        ksk_b=torch.stack([pk.ksk_b for pk in party_keys]),
+        ksk_a=torch.stack([pk.ksk_a for pk in party_keys]),
+        mono_hat=mono_hat,
+    )
+
+
+def _decomp_hat(x: torch.Tensor, l: int, log_b: int, ctx: RingCtx) -> torch.Tensor:
+    """Gadget digits of torus polys [..., N] -> NTT images [..., l, npr, N]."""
+    d = balanced_decomp(x, l, log_b).movedim(-1, -2)
+    return fwd_ntt_nat(lift(d, ctx.crt), ctx.plan)
+
+
+def _inv_to_torus(r: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
+    """int64 residues [..., npr, N] -> torus polys [..., N] (inverse NTT +
+    Garner)."""
+    return from_crt(inv_ntt_nat(r.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
+
+
+def _phase1_init(iter_rows: int, params: AnyKmsParams, ctx: RingCtx, g: int, device) -> torch.Tensor:
+    """RLEV accumulator rows [G, rows, 2, N] carrying the LEV gadget
+    constants."""
+    gvec = gadget_gvec(params.l_lev, params.log_b_lev, ctx.dtype, device)[:iter_rows]
+    acc = torch.zeros((g, iter_rows, 2, ctx.n), dtype=ctx.dtype, device=device)
+    acc[:, :, 0, 0] = gvec
+    return acc
+
+
+def phase1(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, params: KmsParams, ctx: RingCtx) -> torch.Tensor:
+    """Single-key blind rotation over an RLEV accumulator.
+
+    tildea_p: [G, n]; brk_hat_p: [n, 2, l, 2, npr, N].  Returns the party's
+    lev key in the NTT domain: [G, iter_rows, 2, npr, N] int32.
+    """
+    acc = _phase1_init(iter_rows, params, ctx, tildea_p.shape[0], tildea_p.device)
+    for j in range(params.n):
+        dhat = _decomp_hat(acc, params.l_gsw, params.log_b_gsw, ctx)
+        e = _inv_to_torus(external_product_hat(dhat, brk_hat_p[j], ctx), ctx)
+        acc = acc + negacyclic_roll(e, tildea_p[:, j, None, None]) - e
+    return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
+
+
+def phase1_block(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, mono_hat: torch.Tensor, params: KmsBlockParams, ctx: RingCtx) -> torch.Tensor:
+    """Block-binary phase 1: one decomposition + forward NTT per block, its
+    ell monomial-weighted external products accumulated in the evaluation
+    domain, one inverse NTT per block."""
+    ell, d = params.ell, params.d
+    assert ell <= MAX_PRODUCT_TERMS
+    g = tildea_p.shape[0]
+    p = prime_column(ctx.nprimes, tildea_p.device)
+    acc = _phase1_init(iter_rows, params, ctx, g, tildea_p.device)
+    brk = brk_hat_p.reshape(d, ell, *brk_hat_p.shape[1:])
+    ta = tildea_p.long().reshape(g, d, ell)
+    for blk in range(d):
+        dhat = _decomp_hat(acc, params.l_gsw, params.log_b_gsw, ctx)
+        tacc = 0
+        for m in range(ell):
+            ehat = external_product_hat(dhat, brk[blk, m], ctx)  # [G, rows, 2, npr, N]
+            tacc = tacc + ehat * mono_hat[ta[:, blk, m]][:, None, None]
+        acc = acc + _inv_to_torus(torch.remainder(tacc, p), ctx)
+    return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
+
+
+def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
+    """One merge step of phase 2 with this step's key material explicit:
+    rd [l_uni, npr, N] (party p1's rlk d-vector), rf [l_uni, 2, npr, N]
+    (its rlk RLEV part), pub_h [p1-1, l_uni, npr, N] (the earlier parties'
+    public keys).  acc: [G, k+1, N] (components > p1 are zero); levkey:
+    [G, iter, 2, npr, N].  Returns the new acc with component p1 filled.
+    """
+    p = prime_column(ctx.nprimes, acc.device)
+    iter_rows = levkey.shape[1]
+
+    # LEV contraction of acc's components 0..p1-1 against the lev key;
+    # only the first iter_rows digits engage.
+    dhat = _decomp_hat(acc[:, :p1], params.l_lev, params.log_b_lev, ctx)[:, :, :iter_rows]
+    x = mulsum_mod(dhat, levkey[:, None, :, 0], -3, p)  # [G, p1, npr, N]
+    y = mulsum_mod(dhat, levkey[:, None, :, 1], -3, p)
+    y_t = _inv_to_torus(y, ctx)  # [G, p1, N]
+
+    # hybrid product of y with this party's rlk
+    yhat = _decomp_hat(y_t, params.l_uni, params.log_b_uni, ctx)  # [G, p1, l, npr, N]
+    u = mulsum_mod(rd, yhat, -3, p)
+    v = negmod(mulsum_mod(crs_hat, yhat[:, 0], -3, p), p)
+    if p1 > 1:
+        vi = mulsum_mod(pub_h, yhat[:, 1:], -3, p)  # [G, p1-1, npr, N]
+        v = torch.remainder(v + vi.sum(1), p)
+    v_t = _inv_to_torus(v, ctx)  # [G, N]
+
+    vhat = _decomp_hat(v_t, params.l_uni, params.log_b_uni, ctx)  # [G, l, npr, N]
+    w_b = mulsum_mod(rf[:, 0], vhat, -3, p)
+    w_a = mulsum_mod(rf[:, 1], vhat, -3, p)
+
+    tx = addmod(x, u, p)
+    tx[:, 0] = addmod(tx[:, 0], w_b, p)
+    new = _inv_to_torus(torch.cat([tx, w_a[:, None]], dim=1), ctx)  # [G, p1+1, N]
+    out = torch.zeros_like(acc)
+    out[:, : p1 + 1] = new
+    return out
+
+
+def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
+    """Two-phase multi-key blind rotation.  tildea: [G, k*n]; tildeb: [G].
+    Returns acc [G, k+1, N] int64.
+
+    Party 1's phase 2 reads only row 0 of its lev key, so its phase 1 runs
+    one RLEV row (the reference's iter=1 case); rows never mix, so that
+    row is bit-identical to the JAX engine's uniform l_lev-row sweep.
+    """
+    k = params.k
+    tild = tildea.reshape(tildea.shape[0], k, params.n)
+    levkeys = []
+    for party in range(k):
+        rows = 1 if party == 0 else params.l_lev
+        if isinstance(params, KmsBlockParams):
+            lk = phase1_block(
+                tild[:, party], scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx
+            )
+        else:
+            lk = phase1(tild[:, party], scheme.brk_hat[party], rows, params, ctx)
+        levkeys.append(lk)
+
+    acc = initial_acc(tildeb, params.big_n, k, ctx.dtype)
+    for p1 in range(1, k + 1):
+        acc = _phase2_party_mat(
+            acc, levkeys[p1 - 1], p1,
+            scheme.rlk_d_hat[p1 - 1], scheme.rlk_f_hat[p1 - 1],
+            scheme.pub_b_hat[: p1 - 1], scheme.crs_hat, params, ctx,
+        )
+    return acc
+
+
+def _keyswitch(acc: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
+    """Modulus switch 2^64 -> 2^32, then the per-party key switch (block:
+    the first n extracted coefficients of each party pass for free)."""
+    # arithmetic shift: the signed high word carries the u32 high word's bits
+    acc32 = (acc >> 32).to(torch.int32)
+    if not isinstance(params, KmsBlockParams):
+        return keyswitch_per_party(acc32, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
+    n = params.n
+    b0 = acc32[..., 0, 0]
+    arr = sample_extract_coeffs(acc32[..., 1:, :])  # [G, k, N]
+    oh = signed_onehot(balanced_decomp(arr[..., n:], params.f, params.log_d), params.log_d)
+    db, da = limb_dot(oh.reshape(*oh.shape[:-2], -1), scheme.ksk_b, scheme.ksk_a)
+    b = wrap_i32(b0.long() + db.sum(-1))
+    a = wrap_i32(arr[..., :n].long() + da).reshape(arr.shape[0], -1)
+    return Lwe(b=b, a=a)
+
+
+def bootstrap(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
+    """Multi-key gate bootstrap.  ct: Lwe on the 2^32 torus, b [G],
+    a [G, k*n]; every NTT runs through the kernel wrapper."""
+    ctx = _ctx(params)
+    tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    acc = blind_rotate(tildea, tildeb, scheme, params, ctx)
+    return _keyswitch(acc, scheme, params)
