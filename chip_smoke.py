@@ -3,16 +3,27 @@
 
 Phases, each printing one line; any failure exits non-zero:
   1. require a CUDA card; print `nvidia-smi` name and power limit;
-  2. build the NTT kernel from mktfhe_tpu_torch/csrc/ (nvcc, sm_90a);
-  3. hold the kernel against its plain PyTorch twin on the card, bit-exact,
-     forward and inverse, at the bootstrap's shapes, and time both;
-  4. keygen for KMS8partyblock on the card: crs, 8 party keygens, setup;
-  5. bootstrap a batch of NAND gates, decrypt-check it, then time a
-     data-dependent chain of two more bootstraps (decrypt-checked too) and
-     check that the bootstrap launched the NTT kernels;
-  6. hold the key switch on the card against the same code on the CPU for
+  2. build the CUDA kernels from mktfhe_tpu_torch/csrc/ (nvcc, sm_90a, one
+     process per source, started together);
+  3. hold the NTT kernel against its plain PyTorch version on the card,
+     bit-exact, forward and inverse, at the bootstrap's shapes, and time both;
+  4. keygen on the card for KMS8partyblock and KMS8party: crs, 8 party
+     keygens, setup;
+  5. hold the phase-1 sweep kernel against its plain PyTorch version on the
+     card, bit-exact, on real keys: block keys at KMS8partyblock width,
+     binary keys at KMS8party width, and a small wide-gadget case; time
+     kernel and plain version at the full number of steps;
+  6. the main path: `bootstrap_mx3` of a batch of NAND gates on
+     KMS8partyblock, decrypt-checked, then a timed data-dependent chain of
+     two more (decrypt-checked too); the sweep and NTT kernels must have
+     been launched; then one more under torch.profiler for the device time
+     by kernel;
+  7. the earlier path: one `kms.bootstrap` of the same ciphertext,
+     decrypt-checked, whose output must equal `bootstrap_mx3`'s bit for bit;
+  8. the binary-key path: one `bootstrap_mx3` on KMS8party, decrypt-checked;
+  9. hold the key switch on the card against the same code on the CPU for
      4 gates, bit-exact;
-  7. print the kernels' JSON line, then the contract line last.
+ 10. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
 """
@@ -28,6 +39,7 @@ import time
 import numpy as np
 import torch
 
+from mktfhe_tpu_torch.kernels import _build, fused_mx3
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
@@ -39,7 +51,8 @@ from mktfhe_tpu_torch.schemes.gates import (
     lwe_decrypt_bit_mk,
     lwe_ith_encrypt_bit,
 )
-from mktfhe_tpu_torch.schemes.presets import KMS_8PARTY_BLOCK
+from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
+from mktfhe_tpu_torch.schemes.presets import KMS_8PARTY, KMS_8PARTY_BLOCK
 
 BATCH = 128
 CHAIN = 2
@@ -49,6 +62,31 @@ SEED = 0
 # small N=64 / 2-prime case at the kernel's lower limits.
 NTT_SHAPES = [(3072, 4, 2048), (768, 4, 2048), (5, 2, 64)]
 TOLERANCE = 0  # exact integer arithmetic: bit-identical or wrong
+CHECK_STEPS = 4  # steps of the sweep in the kernel-vs-plain comparisons
+# a small parameter set with the wide gadget of KMS2party (log_b_gsw = 12)
+WIDE_GADGET = KmsParams(
+    n=CHECK_STEPS, alpha=16.0, f=8, log_d=2, big_n=256, beta=4.0,
+    l_gsw=3, log_b_gsw=12, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2,
+)
+
+# The card's peaks for the bounds.  Device memory: 3.35 TB/s (H100 SXM data
+# sheet).  32-bit integer arithmetic outside the tensor cores: Hopper runs
+# it on half of the lanes that give the data sheet's 67 TFLOP/s of float32,
+# 64 per SM and clock, so 33.5 T operations/s with a multiply-add counted as
+# two, like a float32 FMA.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+# 32-bit integer operations of the arithmetic as csrc/modarith.cuh writes it
+# (a multiply and an add count one each; a 64-bit add counts two)
+OPS_SHOUP_MUL = 6  # mulhi, two mullo, subtract, compare, subtract
+OPS_BUTTERFLY = OPS_SHOUP_MUL + 3 + 4  # + add_mod + sub_mod
+OPS_PRODUCT_TERM = 4  # 32x32 -> 64 multiply (lo, hi) and a 64-bit add
+OPS_BARRETT = 12  # 64x64 high product as eight 32-bit mul/adds, then as Shoup's tail
+OPS_DIGIT = 5  # mask, shift, carry add, sign test, lift
+NO_LIBRARY_CALL = (
+    "library_ms is null for every kernel: no single PyTorch call computes a negacyclic "
+    "NTT over CRT primes or a blind rotation"
+)
 
 
 def _sync_ms(fn, reps: int) -> float:
@@ -63,6 +101,13 @@ def _sync_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
+    """max |got - want| of two integer tensors (a wrapped int64 difference
+    of -2^63 counts as 2^63)."""
+    d = (got.long() - want.long()).abs()
+    return 1 << 63 if bool((d < 0).any()) else int(d.max())
+
+
 def _residues(gen, shape, device) -> torch.Tensor:
     """Uniform residues < p_i, int32 [rows, npr, N]."""
     rows, npr, n = shape
@@ -70,8 +115,24 @@ def _residues(gen, shape, device) -> torch.Tensor:
     return torch.remainder(x, prime_column(npr, device)).to(torch.int32)
 
 
+def ntt_bound(shape, forward: bool) -> dict:
+    """Least time of one transform of [rows, npr, N] u32 on the card: every
+    residue read and written once plus the twiddles, against N/2 log2 N
+    butterflies per polynomial (and N scalings by 1/N in the inverse)."""
+    rows, npr, n = shape
+    nbytes = 2 * rows * npr * n * 4 + 2 * npr * n * 4
+    ops = rows * npr * (n // 2 * (n.bit_length() - 1) * OPS_BUTTERFLY + (0 if forward else n * OPS_SHOUP_MUL))
+    return _bound(nbytes, ops)
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def check_ntt(gen, device) -> dict:
-    """Kernel vs plain twin on the card at NTT_SHAPES; times at the first."""
+    """Kernel vs plain version on the card at NTT_SHAPES; times at the first."""
     err = {"fwd": 0, "inv": 0}
     times = {}
     for shape in NTT_SHAPES:
@@ -82,8 +143,8 @@ def check_ntt(gen, device) -> dict:
         ik = kntt.inv_ntt_nat(fk, plan)
         ip = inv_ntt(fk, plan)
         torch.cuda.synchronize()
-        err["fwd"] = max(err["fwd"], int((fk.long() - fp.long()).abs().max()))
-        err["inv"] = max(err["inv"], int((ik.long() - ip.long()).abs().max()))
+        err["fwd"] = max(err["fwd"], _max_abs_diff(fk, fp))
+        err["inv"] = max(err["inv"], _max_abs_diff(ik, ip))
         if not torch.equal(ik, x):
             raise SystemExit(f"NTT round trip failed at {shape}")
         if shape == NTT_SHAPES[0]:
@@ -102,7 +163,7 @@ def check_ntt(gen, device) -> dict:
             )
     for d in ("fwd", "inv"):
         if err[d] > TOLERANCE:
-            raise SystemExit(f"NTT {d} kernel disagrees with its plain twin: max |diff| {err[d]}")
+            raise SystemExit(f"NTT {d} kernel disagrees with its plain version: max |diff| {err[d]}")
     return {"err": err, "times": times}
 
 
@@ -114,33 +175,139 @@ def keygen(gen, params):
     return [p[0] for p in parties], scheme
 
 
-def bootstrap_chain(gen, params, lwe_keys, scheme, batch: int, chain: int) -> dict:
-    """NAND bootstrap of a batch, decrypt-checked, then a timed chain of
-    `chain` dependent bootstraps, decrypt-checked."""
+def sweep_bound(params, ctx, g: int, rows: int, tildea: torch.Tensor) -> dict:
+    """Least time of one sweep on the card.  Bytes: the accumulator read and
+    written, the rotation amounts, the party's key rows, the twiddles, and
+    the monomial images that these amounts select, each once.  Operations:
+    per (gate, row, step) and prime the digits, 2l forward transforms, the
+    members' external products (and monomial products), two inverse
+    transforms; then Garner and the accumulation per coefficient."""
+    n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
+    block = isinstance(params, KmsBlockParams)
+    ell = params.ell if block else 1
+    steps = params.n // ell
+    log_n = n.bit_length() - 1
+    nbytes = 2 * g * rows * 2 * n * 8 + tildea.numel() * 4 + params.n * 2 * l * 2 * npr * n * 4 + 4 * npr * n * 4
+    if block:
+        nbytes += int(torch.unique(tildea).numel()) * npr * n * 4
+    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
+    member = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + (2 * (OPS_PRODUCT_TERM + OPS_BARRETT) if block else 0)
+    per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * ell * member + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
+    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 8 + 4
+    per_step = npr * per_prime + 2 * n * (garner + (2 if block else 8))
+    return _bound(nbytes, g * rows * steps * per_step)
+
+
+def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool) -> dict:
+    """The sweep kernel vs its plain version on the card, on `party`'s real
+    keys and uniform rotation amounts: bit-exact over CHECK_STEPS steps from
+    the LEV gadget rows; then, if `timed`, both at the full number of steps."""
     device = scheme.crs_hat.device
+    ctx = kms._ctx(params)
+    block = isinstance(params, KmsBlockParams)
+    ell = params.ell if block else 1
+    tildea = torch.randint(0, 2 * ctx.n, (g, params.n), generator=gen, device=device, dtype=torch.int32)
+    short = dataclasses.replace(params, **({"d": CHECK_STEPS} if block else {"n": CHECK_STEPS}))
+    args_short = (tildea[:, : short.n].contiguous(), scheme.brk_hat[party][: short.n], rows, scheme.mono_hat, short, ctx)
+    got = fused_mx3.phase1_sweep(*args_short)
+    want = fused_mx3.phase1_sweep_plain(*args_short)
+    torch.cuda.synchronize()
+    err = _max_abs_diff(got, want)
+    if err > TOLERANCE or not torch.equal(got, want):
+        raise SystemExit(f"sweep kernel disagrees with its plain version ({type(params).__name__}): max |diff| {err}")
+    out = {"err": err, "steps": short.n // ell}
+    if timed:
+        args = (tildea, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
+        fused_mx3.phase1_sweep(*args)  # warm-up at the full shape
+        out["ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep(*args), 3)
+        out["plain_ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep_plain(*args), 1)
+        out.update(sweep_bound(params, ctx, g, rows, tildea))
+    return out
+
+
+def gate_inputs(gen, params, lwe_keys, batch: int):
+    """NAND inputs: (c1 NAND c2, c2, m1, m2) with party 0's and party 1's bits."""
+    device = lwe_keys[0].key.device
     rng = np.random.default_rng(SEED)
     m1 = rng.integers(0, 2, batch).astype(bool)
     m2 = rng.integers(0, 2, batch).astype(bool)
-    nand = GATE_IDS["NAND"]
-    ct2 = lwe_ith_encrypt_bit(gen, torch.from_numpy(m2).to(device), 1, lwe_keys[1], params.alpha, params.k, (batch,))
+    c2 = lwe_ith_encrypt_bit(gen, torch.from_numpy(m2).to(device), 1, lwe_keys[1], params.alpha, params.k, (batch,))
     c1 = lwe_ith_encrypt_bit(gen, torch.from_numpy(m1).to(device), 0, lwe_keys[0], params.alpha, params.k, (batch,))
-    t0 = time.time()
-    out = kms.bootstrap(gate_affine(nand, c1, ct2), scheme, params)
-    want = ~(m1 & m2)
+    return gate_affine(GATE_IDS["NAND"], c1, c2), c2, m1, m2
+
+
+def checked_bootstrap(bootstrap, ct, want, scheme, params, lwe_keys, what: str):
+    """One bootstrap, its output decrypt-checked against the clear bits."""
+    out = bootstrap(ct, scheme, params)
     got = lwe_decrypt_bit_mk(out, lwe_keys).cpu().numpy()
-    first_s = time.time() - t0
     if not np.array_equal(got, want):
-        raise SystemExit(f"bootstrap decrypt mismatch: {int((got != want).sum())} of {batch} gates")
+        raise SystemExit(f"{what} decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
+    return out
+
+
+def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, lwe_keys, scheme, chain: int) -> dict:
+    """NAND bootstrap of a batch, decrypt-checked, then a timed chain of
+    `chain` dependent bootstraps, decrypt-checked."""
+    nand = GATE_IDS["NAND"]
+    want = ~(m1 & m2)
+    t0 = time.time()
+    first = out = checked_bootstrap(bootstrap, ct, want, scheme, params, lwe_keys, "bootstrap")
+    first_s = time.time() - t0
     t0 = time.time()
     for _ in range(chain):
-        out = kms.bootstrap(gate_affine(nand, out, ct2), scheme, params)
+        out = bootstrap(gate_affine(nand, out, c2), scheme, params)
         want = ~(want & m2)
     out.b.cpu()  # a hard device -> host read ends the timed chain
     dt = (time.time() - t0) / chain
     got = lwe_decrypt_bit_mk(out, lwe_keys).cpu().numpy()
     if not np.array_equal(got, want):
-        raise SystemExit(f"chain decrypt mismatch: {int((got != want).sum())} of {batch} gates")
-    return {"first_s": first_s, "batch_s": dt}
+        raise SystemExit(f"chain decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
+    return {"first_s": first_s, "batch_s": dt, "first": first}
+
+
+def profile_bootstrap(ct, scheme, params, top: int = 6) -> dict:
+    """Device time by kernel over one warm `bootstrap_mx3` (torch.profiler):
+    the sweep kernel, the NTT kernels, everything else, and the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()  # inside the context: the profiler's own start-up is not the bootstrap's
+        fused_mx3.bootstrap_mx3(ct, scheme, params).b.cpu()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+
+    def device_us(event) -> float:
+        return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+    # kernel rows only: the operator rows carry their kernels' time a second time
+    on_device = torch.autograd.DeviceType.CUDA
+    rows = sorted(
+        ((device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == on_device and device_us(e) > 0),
+        reverse=True,
+    )
+    total = sum(ms for ms, _, _ in rows)
+    return {
+        "wall_ms": wall_ms,
+        "device_ms": total,
+        "sweep_ms": sum(ms for ms, _, key in rows if "phase1_sweep_kernel" in key),
+        "ntt_ms": sum(ms for ms, _, key in rows if "ntt_nat_kernel" in key),
+        "top": [f"{key[:60]} {ms:.2f} ms x{count}" for ms, count, key in rows[:top]],
+    }
+
+
+def read_launches() -> dict:
+    return {
+        "fwd": kntt.fwd_ntt_nat.launches,
+        "inv": kntt.inv_ntt_nat.launches,
+        "sweep": fused_mx3.phase1_sweep.launches,
+    }
+
+
+def reset_launches() -> None:
+    kntt.reset_launches()
+    fused_mx3.reset_launches()
 
 
 def check_keyswitch(gen, params, scheme, gates: int = 4) -> None:
@@ -173,16 +340,24 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    lib = kntt.build()
+    sources = [kntt.SOURCE, fused_mx3.SOURCE]
+    libs = _build.build_all(sources)
     kntt.load_library()
-    print(f"[2 build] {lib.name} from csrc/{kntt.SOURCE.name} (sm_90a) in {time.time() - t0:.2f} s")
+    fused_mx3.load_library()
+    usage = "; ".join(
+        f"{src.name}: {' | '.join(_build.resource_usage(lib))}" for src, lib in zip(sources, libs)
+    )
+    print(
+        f"[2 build] {', '.join(lib.name for lib in libs)} from csrc/ (sm_90a, one nvcc each, "
+        f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {usage}"
+    )
 
-    # 3. kernel vs plain twin
+    # 3. NTT kernel vs plain version
     gen = torch.Generator(device=device).manual_seed(SEED)
     ntt = check_ntt(gen, device)
     (kf, pf), (ki, pi) = ntt["times"]["fwd"], ntt["times"]["inv"]
     print(
-        f"[3 ntt] bit-exact vs plain twin at {NTT_SHAPES} (tolerance {TOLERANCE}); "
+        f"[3 ntt] bit-exact vs plain version at {NTT_SHAPES} (tolerance {TOLERANCE}); "
         f"at {list(NTT_SHAPES[0])}: fwd kernel {kf:.4f} ms vs plain {pf:.3f} ms, "
         f"inv kernel {ki:.4f} ms vs plain {pi:.3f} ms ({smi})"
     )
@@ -193,32 +368,102 @@ def main() -> int:
     t0 = time.time()
     lwe_keys, scheme = keygen(gen, params)
     torch.cuda.synchronize()
+    block_s = time.time() - t0
+    t0 = time.time()
+    bin_keys, bin_scheme = keygen(gen, KMS_8PARTY)
+    wide_keys, wide_scheme = keygen(gen, WIDE_GADGET)
+    torch.cuda.synchronize()
     print(
         f"[4 keygen] KMS8partyblock (k={params.k}, n={params.n}, N={params.big_n}, "
-        f"npr={params.ring_nprimes}): {time.time() - t0:.2f} s, peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})"
+        f"npr={params.ring_nprimes}): {block_s:.2f} s; KMS8party (n={KMS_8PARTY.n}, "
+        f"npr={KMS_8PARTY.ring_nprimes}) and the wide-gadget set: {time.time() - t0:.2f} s; "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})"
     )
 
-    # 5. the main path: counts reset just before it, read just after
+    # 5. sweep kernel vs plain version
+    sweep_block = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True)
+    sweep_bin = check_sweep(gen, KMS_8PARTY, bin_scheme, 1, BATCH, KMS_8PARTY.l_lev, timed=True)
+    sweep_wide = check_sweep(gen, WIDE_GADGET, wide_scheme, 1, 5, WIDE_GADGET.l_lev, timed=False)
+    print(
+        f"[5 sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps: "
+        f"block keys at KMS8partyblock width, binary keys at KMS8party width "
+        f"(G={BATCH}, rows=3), wide gadget (N={WIDE_GADGET.big_n}, log_b_gsw="
+        f"{WIDE_GADGET.log_b_gsw}); one party's sweep, G={BATCH}, rows=3: block, {params.d} steps: "
+        f"kernel {sweep_block['ms']:.2f} ms vs plain {sweep_block['plain_ms']:.1f} ms (bound "
+        f"{sweep_block['bound_ms']:.2f} ms by {sweep_block['bound_by']}); binary, {KMS_8PARTY.n} "
+        f"steps: kernel {sweep_bin['ms']:.2f} ms vs plain {sweep_bin['plain_ms']:.1f} ms (bound "
+        f"{sweep_bin['bound_ms']:.2f} ms by {sweep_bin['bound_by']}) ({smi})"
+    )
+    del wide_keys, wide_scheme
+
+    # 6. the main path: counts reset just before it, read just after
+    ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, BATCH)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kntt.reset_launches()
-    boot = bootstrap_chain(gen, params, lwe_keys, scheme, BATCH, CHAIN)
-    launches = {"fwd": kntt.fwd_ntt_nat.launches, "inv": kntt.inv_ntt_nat.launches}
+    reset_launches()
+    boot = bootstrap_chain(fused_mx3.bootstrap_mx3, ct, c2, m1, m2, params, lwe_keys, scheme, CHAIN)
+    launches = read_launches()
     if min(launches.values()) == 0:
-        raise SystemExit(f"the bootstrap did not launch the NTT kernels: {launches}")
+        raise SystemExit(f"bootstrap_mx3 did not launch every kernel of its path: {launches}")
     dt = boot["batch_s"]
     print(
-        f"[5 bootstrap] KMS8partyblock NAND batch {BATCH}: decrypt OK x{1 + CHAIN}; first "
+        f"[6 bootstrap_mx3] KMS8partyblock NAND batch {BATCH}: decrypt OK x{1 + CHAIN}; first "
         f"{boot['first_s']:.2f} s; chain {dt * 1e3:.1f} ms/batch = {BATCH / dt:.2f} boots/s; "
-        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; NTT launches "
-        f"fwd {launches['fwd']} inv {launches['inv']} ({smi})"
+        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches in "
+        f"{1 + CHAIN} bootstraps: sweep {launches['sweep']}, NTT fwd {launches['fwd']} "
+        f"inv {launches['inv']} ({smi})"
     )
 
-    # 6. key switch on the card vs the CPU
-    check_keyswitch(gen, params, scheme)
-    print("[6 keyswitch] 4 gates: card == CPU, bit-exact (float64 limb matmul)")
+    prof = profile_bootstrap(ct, scheme, params)
+    if prof["device_ms"] == 0:
+        print("[6b profile] torch.profiler recorded no device time")
+    else:
+        print(
+            f"[6b profile] one warm bootstrap_mx3 under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['device_ms']:.1f} ms (idle share "
+            f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.3f}); sweep kernel "
+            f"{prof['sweep_ms']:.1f} ms, NTT kernels {prof['ntt_ms']:.2f} ms, everything else "
+            f"{prof['device_ms'] - prof['sweep_ms'] - prof['ntt_ms']:.1f} ms; largest: "
+            + "; ".join(prof["top"]) + f" ({smi})"
+        )
 
-    # 7. results
+    # 7. the earlier path, once, on the same ciphertext: same bits
+    reset_launches()
+    t0 = time.time()
+    ref = checked_bootstrap(kms.bootstrap, ct, ~(m1 & m2), scheme, params, lwe_keys, "kms.bootstrap")
+    ref_s = time.time() - t0
+    ref_launches = read_launches()
+    if ref_launches["fwd"] == 0 or ref_launches["inv"] == 0:
+        raise SystemExit(f"kms.bootstrap did not launch the NTT kernels: {ref_launches}")
+    if not (torch.equal(ref.b, boot["first"].b) and torch.equal(ref.a, boot["first"].a)):
+        raise SystemExit("bootstrap_mx3 and kms.bootstrap differ on the same ciphertext")
+    print(
+        f"[7 kms.bootstrap] same ciphertext: decrypt OK, output bit-identical to bootstrap_mx3 "
+        f"(b and a); {ref_s:.2f} s incl. warm-up; NTT launches fwd {ref_launches['fwd']} "
+        f"inv {ref_launches['inv']}, sweep {ref_launches['sweep']} ({smi})"
+    )
+
+    # 8. the binary-key path
+    bct, _, bm1, bm2 = gate_inputs(gen, KMS_8PARTY, bin_keys, BATCH)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.time()
+    checked_bootstrap(fused_mx3.bootstrap_mx3, bct, ~(bm1 & bm2), bin_scheme, KMS_8PARTY, bin_keys, "KMS8party bootstrap_mx3")
+    bin_s = time.time() - t0
+    bin_launches = read_launches()
+    if min(bin_launches.values()) == 0:
+        raise SystemExit(f"KMS8party bootstrap_mx3 did not launch every kernel of its path: {bin_launches}")
+    print(
+        f"[8 bootstrap_mx3 binary] KMS8party NAND batch {BATCH}: decrypt OK; {bin_s * 1e3:.1f} ms "
+        f"(one bootstrap, host clock to the decrypted bits); launches: sweep "
+        f"{bin_launches['sweep']}, NTT fwd {bin_launches['fwd']} inv {bin_launches['inv']} ({smi})"
+    )
+
+    # 9. key switch on the card vs the CPU
+    check_keyswitch(gen, params, scheme)
+    print("[9 keyswitch] 4 gates: card == CPU, bit-exact (float64 limb matmul)")
+
+    # 10. results
     kernels = []
     for d, name in (("fwd", "ntt_fwd_nat"), ("inv", "ntt_inv_nat")):
         k_ms, p_ms = ntt["times"][d]
@@ -231,8 +476,28 @@ def main() -> int:
             "max_abs_err": ntt["err"][d],
             "ms": k_ms,
             "plain_ms": p_ms,
+            **ntt_bound(NTT_SHAPES[0], d == "fwd"),
+            "library_ms": None,
         })
-    print(f"[7 done] {time.time() - t_start:.1f} s in all")
+    for name, res, count in (
+        ("phase1_sweep_block", sweep_block, launches["sweep"]),
+        ("phase1_sweep_binary", sweep_bin, bin_launches["sweep"]),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mktfhe_tpu_torch/csrc/phase1_sweep.cu",
+            "replaces": "mktfhe_tpu/kernels/fused_mx3.py:226",
+            "launches": count,
+            "max_abs_err": max(res["err"], sweep_wide["err"]),
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            "library_ms": None,
+        })
+    print(f"[10 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -23,30 +23,20 @@
 // with warp shuffles for the short strides, and twiddles staged in shared
 // memory.
 //
-// Built by mktfhe_tpu_torch/kernels/ntt.py with
+// Built by mktfhe_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// and called through ctypes; the C entry point returns cudaGetLastError().
+// and called through ctypes (wrapper: kernels/ntt.py); the C entry point
+// returns cudaGetLastError().  The modular arithmetic and the butterflies are
+// in modarith.cuh, shared with phase1_sweep.cu.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "modarith.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t shoup_mul(uint32_t w, uint32_t w_sh, uint32_t a, uint32_t p) {
-    const uint32_t q = __umulhi(w_sh, a);
-    const uint32_t r = w * a - q * p;  // wrapping; r in [0, 2p)
-    return r >= p ? r - p : r;
-}
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-    const uint32_t s = a + b;
-    return s >= p ? s - p : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
-    const uint32_t d = a + (p - b);
-    return d >= p ? d - p : d;
-}
+using namespace mktfhe;
 
 // x, y: [polys, n] with polys = rows * npr, prime index = poly % npr.
 // tw, tw_sh: [npr, n] (psi_brv for forward, ipsi_brv for inverse).
@@ -75,12 +65,8 @@ __global__ void ntt_nat_kernel(const uint32_t* __restrict__ x, uint32_t* __restr
         // stage with half-width t = 2^log_t pairs a[u], a[u + t] in m blocks
         for (int log_t = log_n - 1, m = 1; log_t >= 0; --log_t, m <<= 1) {
             const int blk = j >> log_t;
-            const int iu = (blk << (log_t + 1)) + (j & ((1 << log_t) - 1));
-            const int iv = iu + (1 << log_t);
-            const uint32_t u = a[iu];
-            const uint32_t v = shoup_mul(w[m + blk], w_sh[m + blk], a[iv], p);
-            a[iu] = add_mod(u, v, p);
-            a[iv] = sub_mod(u, v, p);
+            const int iu = butterfly_index(j, log_t);
+            ct_butterfly(a, iu, iu + (1 << log_t), w[m + blk], w_sh[m + blk], p);
             __syncthreads();
         }
         dst[j] = a[j];
@@ -88,12 +74,8 @@ __global__ void ntt_nat_kernel(const uint32_t* __restrict__ x, uint32_t* __restr
     } else {
         for (int log_t = 0, h = n / 2; log_t < log_n; ++log_t, h >>= 1) {
             const int blk = j >> log_t;
-            const int iu = (blk << (log_t + 1)) + (j & ((1 << log_t) - 1));
-            const int iv = iu + (1 << log_t);
-            const uint32_t u = a[iu];
-            const uint32_t v = a[iv];
-            a[iu] = add_mod(u, v, p);
-            a[iv] = shoup_mul(w[h + blk], w_sh[h + blk], sub_mod(u, v, p), p);
+            const int iu = butterfly_index(j, log_t);
+            gs_butterfly(a, iu, iu + (1 << log_t), w[h + blk], w_sh[h + blk], p);
             __syncthreads();
         }
         const uint32_t ninv = consts[3 * q + 1];

@@ -7,82 +7,36 @@ kernel on the current stream or raises; on a CPU tensor it runs the plain
 twin (ring/ntt.py), bit-identical.
 
 The kernel is compiled with nvcc at first use into mktfhe_tpu_torch/_build/
-(a shared library with a plain C interface, loaded with ctypes), named by a
-hash of its source so an edited source is rebuilt.
+(kernels/_build.py: a shared library with a plain C interface, loaded with
+ctypes).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..ring.ntt import NttPlan, fwd_ntt, inv_ntt, make_plan
+from . import _build
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ntt.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = _build.CSRC / "ntt.cu"
 MIN_N, MAX_N = 64, 2048  # one polynomial per CTA: N/2 <= 1024 threads
 MIN_NPR, MAX_NPR = 2, 4
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    found = path if os.path.exists(path) else shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the NTT kernel cannot be built")
-    return found
-
-
-def build() -> Path:
-    """Compile csrc/ntt.cu for sm_90a unless the library for this source
-    exists; returns the library path."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libmktfhe_ntt_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load(SOURCE)
     ptr = ctypes.c_void_p
     lib.mktfhe_ntt_nat.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ptr,
     ]
     lib.mktfhe_ntt_nat.restype = ctypes.c_int
-    lib.mktfhe_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.mktfhe_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -129,9 +83,7 @@ def _launch(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
             a.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
             consts.data_ptr(), polys, npr, n.bit_length() - 1, int(forward), stream,
         )
-    if err != 0:
-        msg = lib.mktfhe_cuda_error_string(err).decode()
-        raise RuntimeError(f"NTT kernel launch failed: {msg} (cudaError {err})")
+    _build.check_launch(lib, err, "NTT kernel")
     (fwd_ntt_nat if forward else inv_ntt_nat).launches += 1
     return out
 

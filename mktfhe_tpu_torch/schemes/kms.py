@@ -9,8 +9,10 @@ carriers), ring accumulators on the 2^64 torus (int64 carriers, exact via
 Phase 1 (per party): a single-key blind rotation over an RLEV accumulator
 whose rows carry the LEV gadget constants, producing the party's "lev key"
 in the NTT domain.  The reference's `lax.scan` over key bits is a Python
-loop here, and its vmap over parties a loop over parties, which keeps the
-peak device memory to one party's temporaries.
+loop here (kernels/fused_mx3.py:phase1_sweep_plain, which is also the plain
+version of the sweep kernel that `bootstrap_mx3` launches instead), and its
+vmap over parties a loop over parties, which keeps the peak device memory
+to one party's temporaries.
 Phase 2 (sequential merge): per party, LEV-multiply the accumulator's
 digits by the lev key, relinearize through the party's rlk and public keys
 (hybrid product), and extend the accumulator by one mask component.
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ciphertext.decomp import balanced_decomp
-from ..ciphertext.gsw import external_product_hat, rgsw_encrypt
+from ..ciphertext.gsw import rgsw_encrypt
 from ..ciphertext.keys import (
     binary_lwe_key,
     binary_ring_key,
@@ -39,13 +41,13 @@ from ..ciphertext.keys import (
     partial_ring_key,
 )
 from ..ciphertext.lwe import Lwe
-from ..ciphertext.rlwe import gadget_gvec
 from ..ciphertext.unienc import gen_b, sample_crs, unienc_encrypt
+from ..kernels.fused_mx3 import phase1_sweep_plain
 from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
-from ..ring.modring import MAX_PRODUCT_TERMS, addmod, mulsum_mod, negmod, prime_column
+from ..ring.modring import addmod, mulsum_mod, negmod, prime_column
 from ..ring.ntt import fwd_ntt
-from ..ring.torus import from_crt, lift, negacyclic_roll, wrap_i32
+from ..ring.torus import from_crt, lift, wrap_i32
 from .common import (
     build_ksk,
     initial_acc,
@@ -84,6 +86,9 @@ class KmsScheme:
 
 
 AnyKmsParams = KmsParams | KmsBlockParams
+# this engine's phase 1 is the sweep's loop in plain PyTorch with the NTT
+# kernel under its transforms
+_NTT_KERNEL = (fwd_ntt_nat, inv_ntt_nat)
 
 
 def _ctx(params: AnyKmsParams) -> RingCtx:
@@ -191,26 +196,13 @@ def _inv_to_torus(r: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
     return from_crt(inv_ntt_nat(r.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
 
 
-def _phase1_init(iter_rows: int, params: AnyKmsParams, ctx: RingCtx, g: int, device) -> torch.Tensor:
-    """RLEV accumulator rows [G, rows, 2, N] carrying the LEV gadget
-    constants."""
-    gvec = gadget_gvec(params.l_lev, params.log_b_lev, ctx.dtype, device)[:iter_rows]
-    acc = torch.zeros((g, iter_rows, 2, ctx.n), dtype=ctx.dtype, device=device)
-    acc[:, :, 0, 0] = gvec
-    return acc
-
-
 def phase1(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, params: KmsParams, ctx: RingCtx) -> torch.Tensor:
     """Single-key blind rotation over an RLEV accumulator.
 
     tildea_p: [G, n]; brk_hat_p: [n, 2, l, 2, npr, N].  Returns the party's
     lev key in the NTT domain: [G, iter_rows, 2, npr, N] int32.
     """
-    acc = _phase1_init(iter_rows, params, ctx, tildea_p.shape[0], tildea_p.device)
-    for j in range(params.n):
-        dhat = _decomp_hat(acc, params.l_gsw, params.log_b_gsw, ctx)
-        e = _inv_to_torus(external_product_hat(dhat, brk_hat_p[j], ctx), ctx)
-        acc = acc + negacyclic_roll(e, tildea_p[:, j, None, None]) - e
+    acc = phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows, None, params, ctx, ntt=_NTT_KERNEL)
     return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
 
 
@@ -218,20 +210,7 @@ def phase1_block(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int
     """Block-binary phase 1: one decomposition + forward NTT per block, its
     ell monomial-weighted external products accumulated in the evaluation
     domain, one inverse NTT per block."""
-    ell, d = params.ell, params.d
-    assert ell <= MAX_PRODUCT_TERMS
-    g = tildea_p.shape[0]
-    p = prime_column(ctx.nprimes, tildea_p.device)
-    acc = _phase1_init(iter_rows, params, ctx, g, tildea_p.device)
-    brk = brk_hat_p.reshape(d, ell, *brk_hat_p.shape[1:])
-    ta = tildea_p.long().reshape(g, d, ell)
-    for blk in range(d):
-        dhat = _decomp_hat(acc, params.l_gsw, params.log_b_gsw, ctx)
-        tacc = 0
-        for m in range(ell):
-            ehat = external_product_hat(dhat, brk[blk, m], ctx)  # [G, rows, 2, npr, N]
-            tacc = tacc + ehat * mono_hat[ta[:, blk, m]][:, None, None]
-        acc = acc + _inv_to_torus(torch.remainder(tacc, p), ctx)
+    acc = phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, ntt=_NTT_KERNEL)
     return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
 
 

@@ -1,0 +1,221 @@
+"""The CUDA kernels' own source, run on the CPU.
+
+There is no CUDA compiler or card where the CPU tests run, so the kernels
+in mktfhe_tpu_torch/csrc/ are otherwise only checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py).  Here the device code of each
+source -- everything above its `extern "C"` entry points -- is compiled for
+the host with g++ against a small stand-in for the CUDA runtime header: one
+std::thread per CUDA thread, a std::barrier for `__syncthreads()`, CTAs one
+after the other.  That exercises the kernels' arithmetic, indexing and
+barrier placement at small sizes, bit for bit against the plain PyTorch
+versions (tolerance 0).  It says nothing about what nvcc accepts or about
+speed.  Skips where there is no g++ with C++20.
+"""
+
+import ctypes
+import dataclasses
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from mktfhe_tpu_torch.kernels import fused_mx3
+from mktfhe_tpu_torch.kernels import ntt as kntt
+from mktfhe_tpu_torch.ring.context import make_ring_ctx
+from mktfhe_tpu_torch.ring.modring import PRIMES
+from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
+from mktfhe_tpu_torch.schemes import kms
+from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
+
+CPU = torch.device("cpu")
+
+SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __shared__ static
+struct Dim3 { int x = 0; };
+inline thread_local Dim3 threadIdx, blockIdx, blockDim;
+inline std::barrier<>* g_barrier = nullptr;
+inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
+    return (uint64_t)(((unsigned __int128)a * b) >> 64);
+}
+alignas(16) inline unsigned char g_smem[1 << 20];
+// one CTA after the other, `threads` host threads each
+template <typename F>
+void run_grid(long long ctas, int threads, F body) {
+    for (long long c = 0; c < ctas; ++c) {
+        std::barrier<> bar(threads);
+        g_barrier = &bar;
+        std::vector<std::thread> pool;
+        for (int t = 0; t < threads; ++t) pool.emplace_back([=]() {
+            threadIdx.x = t; blockIdx.x = (int)c; blockDim.x = threads;
+            body();
+        });
+        for (auto& th : pool) th.join();
+    }
+}
+"""
+
+# each kernel's dynamic shared memory becomes a pointer to the stand-in's buffer
+DYNAMIC_SHARED = {
+    "extern __shared__ __align__(16) unsigned char smem[];": "unsigned char* smem = g_smem;",
+    "extern __shared__ uint32_t a[];": "uint32_t* a = (uint32_t*)g_smem;",
+}
+
+SWEEP_ENTRY = r"""
+extern "C" void host_phase1_sweep(void* acc, const void* tildea, const void* brk, const void* mono,
+        const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
+        const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
+        int ell, int npr, int l, int log_b, int log_n) {
+    const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
+    auto kernel = mono != nullptr ? &phase1_sweep_kernel<true> : &phase1_sweep_kernel<false>;
+    run_grid(ctas, (1 << log_n) / 2, [=]() {
+        kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
+               (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
+               (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
+    });
+}
+"""
+
+NTT_ENTRY = r"""
+extern "C" void host_ntt_nat(const void* x, void* y, const void* tw, const void* tw_sh,
+        const void* consts, long long polys, int npr, int log_n, int forward) {
+    auto kernel = forward ? &ntt_nat_kernel<true> : &ntt_nat_kernel<false>;
+    run_grid(polys, (1 << log_n) / 2, [=]() {
+        kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
+               (const uint32_t*)consts, npr, log_n);
+    });
+}
+"""
+
+
+def _host_library(source, entry: str, workdir):
+    """The device code of `source` plus `entry`, compiled for the host."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel source for the host")
+    text = source.read_text()
+    device_code = text[: text.index('extern "C"')]
+    for dynamic, pointer in DYNAMIC_SHARED.items():
+        device_code = device_code.replace(dynamic, pointer)
+    assert "extern __shared__" not in device_code
+    (workdir / "cuda_runtime.h").write_text(SHIM)
+    (workdir / "modarith.cuh").write_text((source.parent / "modarith.cuh").read_text())
+    cpp = workdir / f"{source.stem}_host.cpp"
+    cpp.write_text(device_code + entry)
+    lib = workdir / f"lib{source.stem}_host.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-I", str(workdir), "-shared", "-fPIC", "-pthread",
+         "-o", str(lib), str(cpp)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0 and "c++20" in proc.stderr:
+        pytest.skip("needs a g++ with C++20 (std::barrier)")
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(lib))
+
+
+@pytest.fixture(scope="module")
+def sweep_lib(tmp_path_factory):
+    lib = _host_library(fused_mx3.SOURCE, SWEEP_ENTRY, tmp_path_factory.mktemp("sweep_host"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_phase1_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 7
+    lib.host_phase1_sweep.restype = None
+    return lib
+
+
+@pytest.fixture(scope="module")
+def ntt_lib(tmp_path_factory):
+    lib = _host_library(kntt.SOURCE, NTT_ENTRY, tmp_path_factory.mktemp("ntt_host"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_ntt_nat.argtypes = [ptr] * 5 + [ctypes.c_longlong, i32, i32, i32]
+    lib.host_ntt_nat.restype = None
+    return lib
+
+
+def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0):
+    """The wrapper's launch (fused_mx3._launch), on the host library."""
+    fused_mx3._check(ta, brk, rows, mono, params, ctx, acc0)
+    n, npr = ctx.n, ctx.nprimes
+    ell = params.ell if isinstance(params, KmsBlockParams) else 1
+    acc = acc0.clone()
+    tw_f, tw_f_sh, _ = kntt._kernel_tables(n, npr, True, CPU)
+    tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
+    consts = fused_mx3._sweep_consts(n, npr, CPU)
+    lib.host_phase1_sweep(
+        acc.data_ptr(), ta.data_ptr(), brk.data_ptr(),
+        mono.data_ptr() if isinstance(params, KmsBlockParams) else None,
+        tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
+        consts.data_ptr(), ctx.crt.prod_mod64, ta.shape[0] * rows, rows, params.n // ell, ell,
+        npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1,
+    )
+    return acc
+
+
+_COMMON = dict(alpha=16.0, f=8, log_d=2, beta=4.0, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2)
+BINARY = KmsParams(n=5, big_n=64, l_gsw=3, log_b_gsw=8, **_COMMON)
+BLOCK = KmsBlockParams(d=3, ell=3, big_n=64, l_gsw=3, log_b_gsw=8, **_COMMON)
+# (parameters, primes, gates, rows)
+SWEEP_CASES = {
+    "binary": (BINARY, 3, 3, 2),
+    "binary_row1": (BINARY, 3, 2, 1),
+    "binary_wide_gadget": (dataclasses.replace(BINARY, log_b_gsw=12), 3, 2, 2),
+    "binary_l6_4primes": (dataclasses.replace(BINARY, l_gsw=6, log_b_gsw=7), 4, 2, 1),
+    "binary_64_digit_bits": (dataclasses.replace(BINARY, l_gsw=4, log_b_gsw=16), 4, 2, 1),
+    "binary_one_digit": (dataclasses.replace(BINARY, l_gsw=1, log_b_gsw=9), 3, 2, 1),
+    "binary_n128_2primes": (dataclasses.replace(BINARY, big_n=128), 2, 2, 2),
+    "block": (BLOCK, 3, 3, 2),
+    "block_row1": (BLOCK, 3, 2, 1),
+    "block_n128_4primes": (dataclasses.replace(BLOCK, l_gsw=4, log_b_gsw=9, big_n=128), 4, 2, 2),
+    "block_ell1": (dataclasses.replace(BLOCK, ell=1, d=4), 3, 2, 2),
+    "block_n256_ell2": (dataclasses.replace(BLOCK, big_n=256, ell=2), 3, 1, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(SWEEP_CASES))
+def test_sweep_kernel_source_matches_plain(sweep_lib, name):
+    params, npr, g, rows = SWEEP_CASES[name]
+    ctx = make_ring_ctx(params.big_n, 64, npr)
+    n = ctx.n
+    rng = np.random.default_rng(len(name))
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None]
+    shape = (params.n, 2, params.l_gsw, 2, npr, n)
+    brk = torch.from_numpy((rng.integers(0, 1 << 62, size=shape) % p).astype(np.int32))
+    ta = torch.from_numpy(rng.integers(0, 2 * n, size=(g, params.n)).astype(np.int32))
+    ta[0, 0], ta[-1, -1] = 0, 2 * n - 1
+    mono = kms.monomial_table(ctx, CPU) if isinstance(params, KmsBlockParams) else None
+    acc0 = rng.integers(-(1 << 63), (1 << 63) - 1, size=(g, rows, 2, n), dtype=np.int64)
+    acc0[0, 0, 0, :8] = [-1, -(1 << 63), (1 << 63) - 1, 0, 1, -(1 << 62), (1 << 62) - 1, -2]
+    acc0 = torch.from_numpy(acc0)
+    want = fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx, acc0)
+    got = _host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0)
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+
+
+@pytest.mark.parametrize("n", [64, 256])
+@pytest.mark.parametrize("npr", [2, 3, 4])
+def test_ntt_kernel_source_matches_plain(ntt_lib, n, npr):
+    plan = make_plan(n, npr)
+    rng = np.random.default_rng(n + npr)
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None]
+    x = torch.from_numpy((rng.integers(0, 1 << 62, size=(3, npr, n)) % p).astype(np.int32))
+    for forward, plain in ((True, fwd_ntt), (False, inv_ntt)):
+        tw, tw_sh, consts = kntt._kernel_tables(n, npr, forward, CPU)
+        out = torch.empty_like(x)
+        ntt_lib.host_ntt_nat(
+            x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), consts.data_ptr(),
+            x.numel() // n, npr, n.bit_length() - 1, int(forward),
+        )
+        assert torch.equal(out, plain(x, plan))
