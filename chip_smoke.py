@@ -23,7 +23,21 @@ Phases, each printing one line; any failure exits non-zero:
   8. the binary-key path: one `bootstrap_mx3` on KMS8party, decrypt-checked;
   9. hold the key switch on the card against the same code on the CPU for
      4 gates, bit-exact;
- 10. print the kernels' JSON line, then the contract line last.
+ 10. hold the batch-minor NTT kernel against its plain version, bit-exact,
+     forward and inverse, at the shapes of the batch-minor CGGI engine and at
+     a small ragged batch, and time both;
+ 11. CGGI keygen on the card (preset CGGI) and the batch-minor key layout;
+ 12. hold the fused CGGI step kernel against its plain version on real keys
+     at 256 gates, bit-exact: a one-step launch against the plain step, a
+     short range against as many plain steps; time all 630 steps as one
+     launch, as 630 one-step launches and as 630 plain steps;
+ 13. this slice's main path: `bootstrap_fused` of 256 NAND gates on CGGI,
+     decrypt-checked, then a timed data-dependent chain of two more; the
+     step kernel must have been launched; then one more under torch.profiler;
+ 14. the other two CGGI engines on the same ciphertext, `bootstrap_bm` (the
+     batch-minor NTT kernel must have been launched) and `cggi.bootstrap`
+     (the natural NTT kernel): all three outputs equal bit for bit;
+ 15. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
 """
@@ -39,20 +53,22 @@ import time
 import numpy as np
 import torch
 
-from mktfhe_tpu_torch.kernels import _build, fused_mx3
+from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.ring.sampler import uniform_torus
-from mktfhe_tpu_torch.schemes import kms
+from mktfhe_tpu_torch.schemes import cggi, kms
 from mktfhe_tpu_torch.schemes.gates import (
     GATE_IDS,
     gate_affine,
+    lwe_decrypt_bit,
     lwe_decrypt_bit_mk,
+    lwe_encrypt_bit,
     lwe_ith_encrypt_bit,
 )
 from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
-from mktfhe_tpu_torch.schemes.presets import KMS_8PARTY, KMS_8PARTY_BLOCK
+from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM, KMS_8PARTY, KMS_8PARTY_BLOCK
 
 BATCH = 128
 CHAIN = 2
@@ -62,7 +78,12 @@ SEED = 0
 # small N=64 / 2-prime case at the kernel's lower limits.
 NTT_SHAPES = [(3072, 4, 2048), (768, 4, 2048), (5, 2, 64)]
 TOLERANCE = 0  # exact integer arithmetic: bit-identical or wrong
-CHECK_STEPS = 4  # steps of the sweep in the kernel-vs-plain comparisons
+CHECK_STEPS = 4  # steps of the sweep / the CGGI step range in the kernel-vs-plain comparisons
+CGGI_BATCH = 256
+# (npr, R, N, G), gate batch minor: the digit transforms of one batch-minor
+# CGGI step at G=256 (2 components x 3 digits), its inverse (2 components),
+# and a small ragged batch (one short gate tile) at the kernel's lower limits.
+NTT_BM_SHAPES = [(2, 6, 1024, 256), (2, 2, 1024, 256), (2, 3, 64, 5)]
 # a small parameter set with the wide gadget of KMS2party (log_b_gsw = 12)
 WIDE_GADGET = KmsParams(
     n=CHECK_STEPS, alpha=16.0, f=8, log_d=2, big_n=256, beta=4.0,
@@ -85,7 +106,7 @@ OPS_BARRETT = 12  # 64x64 high product as eight 32-bit mul/adds, then as Shoup's
 OPS_DIGIT = 5  # mask, shift, carry add, sign test, lift
 NO_LIBRARY_CALL = (
     "library_ms is null for every kernel: no single PyTorch call computes a negacyclic "
-    "NTT over CRT primes or a blind rotation"
+    "NTT over CRT primes, a blind rotation or one step of it"
 )
 
 
@@ -99,6 +120,31 @@ def _sync_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_us(event) -> float:
+    """A profiler row's own device time in microseconds (the attribute's name
+    differs between PyTorch versions)."""
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
+
+
+def _kernel_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time in ms of the kernel whose name contains `kernel`, over
+    `reps` calls of fn(), from torch.profiler.  For a kernel so short that the
+    host cannot enqueue launches as fast as the card runs them, where CUDA
+    events around the calls would time the host.  Falls back to the events
+    if the profiler shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key and _device_us(e) > 0]
+    count = sum(e.count for e in rows)
+    if count == 0:
+        return _sync_ms(fn, reps)
+    return sum(_device_us(e) for e in rows) / count / 1e3
 
 
 def _max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -236,22 +282,23 @@ def gate_inputs(gen, params, lwe_keys, batch: int):
     return gate_affine(GATE_IDS["NAND"], c1, c2), c2, m1, m2
 
 
-def checked_bootstrap(bootstrap, ct, want, scheme, params, lwe_keys, what: str):
-    """One bootstrap, its output decrypt-checked against the clear bits."""
+def checked_bootstrap(bootstrap, ct, want, scheme, params, decrypt, what: str):
+    """One bootstrap, its output decrypt-checked against the clear bits
+    (`decrypt`: Lwe -> bits, with the secret keys bound)."""
     out = bootstrap(ct, scheme, params)
-    got = lwe_decrypt_bit_mk(out, lwe_keys).cpu().numpy()
+    got = decrypt(out).cpu().numpy()
     if not np.array_equal(got, want):
         raise SystemExit(f"{what} decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
     return out
 
 
-def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, lwe_keys, scheme, chain: int) -> dict:
+def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, chain: int) -> dict:
     """NAND bootstrap of a batch, decrypt-checked, then a timed chain of
     `chain` dependent bootstraps, decrypt-checked."""
     nand = GATE_IDS["NAND"]
     want = ~(m1 & m2)
     t0 = time.time()
-    first = out = checked_bootstrap(bootstrap, ct, want, scheme, params, lwe_keys, "bootstrap")
+    first = out = checked_bootstrap(bootstrap, ct, want, scheme, params, decrypt, "bootstrap")
     first_s = time.time() - t0
     t0 = time.time()
     for _ in range(chain):
@@ -259,42 +306,51 @@ def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, lwe_keys, scheme, chain: 
         want = ~(want & m2)
     out.b.cpu()  # a hard device -> host read ends the timed chain
     dt = (time.time() - t0) / chain
-    got = lwe_decrypt_bit_mk(out, lwe_keys).cpu().numpy()
+    got = decrypt(out).cpu().numpy()
     if not np.array_equal(got, want):
         raise SystemExit(f"chain decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
     return {"first_s": first_s, "batch_s": dt, "first": first}
 
 
-def profile_bootstrap(ct, scheme, params, top: int = 6) -> dict:
-    """Device time by kernel over one warm `bootstrap_mx3` (torch.profiler):
-    the sweep kernel, the NTT kernels, everything else, and the wall."""
+def profile_bootstrap(bootstrap, ct, scheme, params, parts: dict, top: int = 6) -> dict:
+    """Device time by kernel over one warm `bootstrap` (torch.profiler):
+    `parts` names the hand kernels (label -> substring of the kernel's
+    name); then everything else, and the wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.time()  # inside the context: the profiler's own start-up is not the bootstrap's
-        fused_mx3.bootstrap_mx3(ct, scheme, params).b.cpu()
+        bootstrap(ct, scheme, params).b.cpu()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-
-    def device_us(event) -> float:
-        return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
     # kernel rows only: the operator rows carry their kernels' time a second time
     on_device = torch.autograd.DeviceType.CUDA
     rows = sorted(
-        ((device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
-         if e.device_type == on_device and device_us(e) > 0),
+        ((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == on_device and _device_us(e) > 0),
         reverse=True,
     )
-    total = sum(ms for ms, _, _ in rows)
     return {
         "wall_ms": wall_ms,
-        "device_ms": total,
-        "sweep_ms": sum(ms for ms, _, key in rows if "phase1_sweep_kernel" in key),
-        "ntt_ms": sum(ms for ms, _, key in rows if "ntt_nat_kernel" in key),
+        "device_ms": sum(ms for ms, _, _ in rows),
+        "parts": {label: sum(ms for ms, _, key in rows if name in key) for label, name in parts.items()},
         "top": [f"{key[:60]} {ms:.2f} ms x{count}" for ms, count, key in rows[:top]],
     }
+
+
+def profile_line(tag: str, what: str, prof: dict, smi: str) -> str:
+    if prof["device_ms"] == 0:
+        return f"[{tag}] torch.profiler recorded no device time"
+    rest = prof["device_ms"] - sum(prof["parts"].values())
+    parts = ", ".join(f"{label} {ms:.2f} ms" for label, ms in prof["parts"].items())
+    return (
+        f"[{tag}] one warm {what} under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
+        f"device busy {prof['device_ms']:.1f} ms (idle share "
+        f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.3f}); {parts}, everything else "
+        f"{rest:.1f} ms; largest: " + "; ".join(prof["top"]) + f" ({smi})"
+    )
 
 
 def read_launches() -> dict:
@@ -302,12 +358,16 @@ def read_launches() -> dict:
         "fwd": kntt.fwd_ntt_nat.launches,
         "inv": kntt.inv_ntt_nat.launches,
         "sweep": fused_mx3.phase1_sweep.launches,
+        "fwd_bm": kntt.fwd_ntt_bm.launches,
+        "inv_bm": kntt.inv_ntt_bm.launches,
+        "step": fused_step.cggi_step.launches,
     }
 
 
 def reset_launches() -> None:
     kntt.reset_launches()
     fused_mx3.reset_launches()
+    fused_step.reset_launches()
 
 
 def check_keyswitch(gen, params, scheme, gates: int = 4) -> None:
@@ -321,39 +381,148 @@ def check_keyswitch(gen, params, scheme, gates: int = 4) -> None:
         raise SystemExit("key switch on the card differs from the CPU")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
-        return 1
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    t_start = time.time()
+def check_ntt_bm(gen, device) -> dict:
+    """Batch-minor kernel vs plain version on the card at NTT_BM_SHAPES; the
+    forward timed at the first shape, the inverse at the second: the kernel's
+    device time, the plain version, and the wrapper's call as the host
+    enqueues it (the kernel is shorter than a launch from Python)."""
+    err = {"fwd": 0, "inv": 0}
+    times = {}
+    for shape in NTT_BM_SHAPES:
+        npr, _, n, _ = shape
+        plan = make_plan(n, npr)
+        x = torch.randint(0, 1 << 31, shape, generator=gen, device=device)
+        x = torch.remainder(x, prime_column(npr, device)[:, :, None, None]).to(torch.int32)
+        fk = kntt.fwd_ntt_bm(x, plan)
+        ik = kntt.inv_ntt_bm(fk, plan)
+        torch.cuda.synchronize()
+        err["fwd"] = max(err["fwd"], _max_abs_diff(fk, kntt.ntt_bm_plain(x, plan, True)))
+        err["inv"] = max(err["inv"], _max_abs_diff(ik, kntt.ntt_bm_plain(fk, plan, False)))
+        if not torch.equal(ik, x):
+            raise SystemExit(f"batch-minor NTT round trip failed at {shape}")
+        for d, timed_at, forward, wrapper, kernel in (
+            ("fwd", NTT_BM_SHAPES[0], True, kntt.fwd_ntt_bm, "ntt_bm_kernel<true>"),
+            ("inv", NTT_BM_SHAPES[1], False, kntt.inv_ntt_bm, "ntt_bm_kernel<false>"),
+        ):
+            if shape == timed_at:
+                for _ in range(3):  # warm-up
+                    wrapper(x, plan)
+                    kntt.ntt_bm_plain(x, plan, forward)
+                times[d] = (
+                    _kernel_ms(lambda: wrapper(x, plan), 50, kernel),
+                    _sync_ms(lambda: kntt.ntt_bm_plain(x, plan, forward), 5),
+                    _sync_ms(lambda: wrapper(x, plan), 50),
+                )
+    for d in ("fwd", "inv"):
+        if err[d] > TOLERANCE:
+            raise SystemExit(f"batch-minor NTT {d} kernel disagrees with its plain version: max |diff| {err[d]}")
+    return {"err": err, "times": times}
 
-    # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    kind = torch.cuda.get_device_name(0)
-    print(f"[1 card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(smi)
 
-    # 2. build
-    t0 = time.time()
-    sources = [kntt.SOURCE, fused_mx3.SOURCE]
-    libs = _build.build_all(sources)
-    kntt.load_library()
-    fused_mx3.load_library()
-    usage = "; ".join(
-        f"{src.name}: {' | '.join(_build.resource_usage(lib))}" for src, lib in zip(sources, libs)
-    )
-    print(
-        f"[2 build] {', '.join(lib.name for lib in libs)} from csrc/ (sm_90a, one nvcc each, "
-        f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {usage}"
-    )
+def ntt_bm_bound(shape, forward: bool) -> dict:
+    """As ntt_bound: a batch-minor tensor [npr, R, N, G] holds R * G
+    polynomials per prime."""
+    npr, r, n, g = shape
+    return ntt_bound((r * g, npr, n), forward)
 
+
+def step_bound(params, ctx, g: int, steps: int, tildea: torch.Tensor) -> dict:
+    """Least time of `steps` CGGI steps on `g` gates on the card.  Bytes: the
+    accumulator read and written, the rotation amounts, the steps' key rows,
+    the twiddles, and the monomial images that these amounts select, each
+    once.  Operations: per (gate, step) and prime the digits, 2l forward
+    transforms, the external product and the monomial product, two inverse
+    transforms; then Garner mod 2^32 and the accumulation per coefficient."""
+    n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
+    log_n = n.bit_length() - 1
+    nbytes = (2 * g * 2 * n * 4 + g * steps * 4 + steps * npr * 2 * l * 2 * n * 4 + 4 * npr * n * 4
+              + int(torch.unique(tildea[:, :steps]).numel()) * npr * n * 4)
+    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
+    product = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + 2 * (OPS_PRODUCT_TERM + OPS_BARRETT)
+    per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * product + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
+    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 2 + 2
+    per_step = npr * per_prime + 2 * n * (garner + 1)
+    return _bound(nbytes, g * steps * per_step)
+
+
+def check_step(gen, params, bm, g: int) -> dict:
+    """The CGGI step kernel vs its plain version on the card, on real keys,
+    uniform rotation amounts and accumulators over all of 32 bits: a one-step
+    launch against the plain step, a range of CHECK_STEPS against as many
+    plain steps; then all steps timed as one launch, as one launch per step,
+    and as plain steps (the three must agree bit for bit)."""
+    device = bm.brk_bm.device
+    ctx = cggi._ctx(params)
+    tildea = torch.randint(0, 2 * ctx.n, (g, params.n), generator=gen, device=device, dtype=torch.int32)
+    acc = torch.randint(-(1 << 31), 1 << 31, (g, 2, ctx.n), generator=gen, device=device, dtype=torch.int32)
+    keys = (bm.brk_bm, bm.mono_hat, params, ctx)
+
+    def plain(a, i0, i1):
+        for i in range(i0, i1):
+            a = fused_step.cggi_step_plain(a, bm.brk_bm[i], tildea[:, i], bm.mono_hat, params, ctx)
+        return a
+
+    def one_by_one(a):
+        for i in range(params.n):
+            a = fused_step.cggi_step(a, tildea, *keys, i, i + 1)
+        return a
+
+    err = 0
+    last = params.n - CHECK_STEPS
+    for i0, i1 in ((0, 1), (last, params.n)):
+        got = fused_step.cggi_step(acc, tildea, *keys, i0, i1)
+        want = plain(acc, i0, i1)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_diff(got, want))
+        if err > TOLERANCE or not torch.equal(got, want):
+            raise SystemExit(f"CGGI step kernel disagrees with its plain version over steps [{i0}, {i1}): max |diff| {err}")
+    whole = fused_step.cggi_step(acc, tildea, *keys)  # warm-up at the full range
+    out = {
+        "err": err,
+        "ms": _sync_ms(lambda: fused_step.cggi_step(acc, tildea, *keys), 5),
+        "stepwise_ms": _sync_ms(lambda: one_by_one(acc), 2),
+        "one_step_ms": _kernel_ms(lambda: fused_step.cggi_step(acc, tildea, *keys, 0, 1), 20, "cggi_step_kernel"),
+        "plain_ms": _sync_ms(lambda: plain(acc, 0, params.n), 1),
+        "plain_step_ms": _sync_ms(lambda: plain(acc, 0, 1), 5),
+        "one_step_bound_ms": step_bound(params, ctx, g, 1, tildea)["bound_ms"],
+        **step_bound(params, ctx, g, params.n, tildea),
+    }
+    if not (torch.equal(whole, one_by_one(acc)) and torch.equal(whole, plain(acc, 0, params.n))):
+        raise SystemExit("CGGI step kernel: one launch, one launch per step and the plain steps differ over all steps")
+    return out
+
+
+def cggi_gate_inputs(gen, params, lwe_key, batch: int):
+    """Single-key NAND inputs: (c1 NAND c2, c2, m1, m2)."""
+    device = lwe_key.key.device
+    rng = np.random.default_rng(SEED + 1)
+    m1 = rng.integers(0, 2, batch).astype(bool)
+    m2 = rng.integers(0, 2, batch).astype(bool)
+    c1 = lwe_encrypt_bit(gen, torch.from_numpy(m1).to(device), lwe_key, params.alpha, (batch,))
+    c2 = lwe_encrypt_bit(gen, torch.from_numpy(m2).to(device), lwe_key, params.alpha, (batch,))
+    return gate_affine(GATE_IDS["NAND"], c1, c2), c2, m1, m2
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"mktfhe_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound["bound_ms"],
+        "bound_by": bound["bound_by"],
+        "library_ms": None,
+    }
+
+
+def run_kms(gen, device, smi: str) -> list[dict]:
+    """Phases 3-9: the KMS paths and their kernels; returns their rows of
+    the kernels line."""
     # 3. NTT kernel vs plain version
-    gen = torch.Generator(device=device).manual_seed(SEED)
     ntt = check_ntt(gen, device)
     (kf, pf), (ki, pi) = ntt["times"]["fwd"], ntt["times"]["inv"]
     print(
@@ -396,14 +565,17 @@ def main() -> int:
     )
     del wide_keys, wide_scheme
 
-    # 6. the main path: counts reset just before it, read just after
+    # 6. the KMS main path: counts reset just before it, read just after
+    def decrypt(out):
+        return lwe_decrypt_bit_mk(out, lwe_keys)
+
     ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    boot = bootstrap_chain(fused_mx3.bootstrap_mx3, ct, c2, m1, m2, params, lwe_keys, scheme, CHAIN)
+    boot = bootstrap_chain(fused_mx3.bootstrap_mx3, ct, c2, m1, m2, params, decrypt, scheme, CHAIN)
     launches = read_launches()
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("sweep", "fwd", "inv")) == 0:
         raise SystemExit(f"bootstrap_mx3 did not launch every kernel of its path: {launches}")
     dt = boot["batch_s"]
     print(
@@ -413,24 +585,16 @@ def main() -> int:
         f"{1 + CHAIN} bootstraps: sweep {launches['sweep']}, NTT fwd {launches['fwd']} "
         f"inv {launches['inv']} ({smi})"
     )
-
-    prof = profile_bootstrap(ct, scheme, params)
-    if prof["device_ms"] == 0:
-        print("[6b profile] torch.profiler recorded no device time")
-    else:
-        print(
-            f"[6b profile] one warm bootstrap_mx3 under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
-            f"device busy {prof['device_ms']:.1f} ms (idle share "
-            f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.3f}); sweep kernel "
-            f"{prof['sweep_ms']:.1f} ms, NTT kernels {prof['ntt_ms']:.2f} ms, everything else "
-            f"{prof['device_ms'] - prof['sweep_ms'] - prof['ntt_ms']:.1f} ms; largest: "
-            + "; ".join(prof["top"]) + f" ({smi})"
-        )
+    prof = profile_bootstrap(
+        fused_mx3.bootstrap_mx3, ct, scheme, params,
+        {"sweep kernel": "phase1_sweep_kernel", "NTT kernels": "ntt_nat_kernel"},
+    )
+    print(profile_line("6b profile", "bootstrap_mx3", prof, smi))
 
     # 7. the earlier path, once, on the same ciphertext: same bits
     reset_launches()
     t0 = time.time()
-    ref = checked_bootstrap(kms.bootstrap, ct, ~(m1 & m2), scheme, params, lwe_keys, "kms.bootstrap")
+    ref = checked_bootstrap(kms.bootstrap, ct, ~(m1 & m2), scheme, params, decrypt, "kms.bootstrap")
     ref_s = time.time() - t0
     ref_launches = read_launches()
     if ref_launches["fwd"] == 0 or ref_launches["inv"] == 0:
@@ -448,10 +612,13 @@ def main() -> int:
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.time()
-    checked_bootstrap(fused_mx3.bootstrap_mx3, bct, ~(bm1 & bm2), bin_scheme, KMS_8PARTY, bin_keys, "KMS8party bootstrap_mx3")
+    checked_bootstrap(
+        fused_mx3.bootstrap_mx3, bct, ~(bm1 & bm2), bin_scheme, KMS_8PARTY,
+        lambda out: lwe_decrypt_bit_mk(out, bin_keys), "KMS8party bootstrap_mx3",
+    )
     bin_s = time.time() - t0
     bin_launches = read_launches()
-    if min(bin_launches.values()) == 0:
+    if min(bin_launches[k] for k in ("sweep", "fwd", "inv")) == 0:
         raise SystemExit(f"KMS8party bootstrap_mx3 did not launch every kernel of its path: {bin_launches}")
     print(
         f"[8 bootstrap_mx3 binary] KMS8party NAND batch {BATCH}: decrypt OK; {bin_s * 1e3:.1f} ms "
@@ -463,40 +630,163 @@ def main() -> int:
     check_keyswitch(gen, params, scheme)
     print("[9 keyswitch] 4 gates: card == CPU, bit-exact (float64 limb matmul)")
 
-    # 10. results
-    kernels = []
-    for d, name in (("fwd", "ntt_fwd_nat"), ("inv", "ntt_inv_nat")):
-        k_ms, p_ms = ntt["times"][d]
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "mktfhe_tpu_torch/csrc/ntt.cu",
-            "replaces": "mktfhe_tpu/kernels/ntt_pallas.py:340",
-            "launches": launches[d],
-            "max_abs_err": ntt["err"][d],
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            **ntt_bound(NTT_SHAPES[0], d == "fwd"),
-            "library_ms": None,
-        })
-    for name, res, count in (
-        ("phase1_sweep_block", sweep_block, launches["sweep"]),
-        ("phase1_sweep_binary", sweep_bin, bin_launches["sweep"]),
+    rows = [
+        kernel_row(name, "ntt.cu", "mktfhe_tpu/kernels/ntt_pallas.py:340", launches[d],
+                   ntt["err"][d], *ntt["times"][d], ntt_bound(NTT_SHAPES[0], d == "fwd"))
+        for d, name in (("fwd", "ntt_fwd_nat"), ("inv", "ntt_inv_nat"))
+    ]
+    rows += [
+        kernel_row(name, "phase1_sweep.cu", "mktfhe_tpu/kernels/fused_mx3.py:226", count,
+                   max(res["err"], sweep_wide["err"]), res["ms"], res["plain_ms"], res)
+        for name, res, count in (
+            ("phase1_sweep_block", sweep_block, launches["sweep"]),
+            ("phase1_sweep_binary", sweep_bin, bin_launches["sweep"]),
+        )
+    ]
+    return rows
+
+
+def run_cggi(gen, device, smi: str) -> list[dict]:
+    """Phases 10-14: the single-key CGGI path and its kernels; returns their
+    rows of the kernels line."""
+    params = CGGI_PARAM
+
+    # 10. batch-minor NTT kernel vs plain version
+    ntt = check_ntt_bm(gen, device)
+    (kf, pf, cf), (ki, pi, ci) = ntt["times"]["fwd"], ntt["times"]["inv"]
+    bounds = {"fwd": ntt_bm_bound(NTT_BM_SHAPES[0], True), "inv": ntt_bm_bound(NTT_BM_SHAPES[1], False)}
+    print(
+        f"[10 ntt batch-minor] bit-exact vs plain version at {NTT_BM_SHAPES} [npr, R, N, G] "
+        f"(tolerance {TOLERANCE}); fwd at {list(NTT_BM_SHAPES[0])}: kernel {kf:.4f} ms on the device "
+        f"({cf:.4f} ms per call as the host enqueues them) vs plain {pf:.3f} ms (bound "
+        f"{bounds['fwd']['bound_ms']:.4f} ms by {bounds['fwd']['bound_by']}); inv at "
+        f"{list(NTT_BM_SHAPES[1])}: kernel {ki:.4f} ms ({ci:.4f} ms per call) vs plain {pi:.3f} ms "
+        f"(bound {bounds['inv']['bound_ms']:.4f} ms by {bounds['inv']['bound_by']}) ({smi})"
+    )
+
+    # 11. keygen
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    lwe_key, _, scheme = cggi.setup(gen, params)
+    bm = batchminor.convert_scheme(scheme, params)
+    torch.cuda.synchronize()
+    print(
+        f"[11 keygen] CGGI (n={params.n}, N={params.big_n}, l_gsw={params.l_gsw}, log_b_gsw="
+        f"{params.log_b_gsw}, npr={params.nprimes}): setup and the batch-minor key layout in "
+        f"{time.time() - t0:.2f} s; keys hold {(torch.cuda.memory_allocated() - before) / 1e9:.3f} GB ({smi})"
+    )
+
+    # 12. step kernel vs plain version
+    step = check_step(gen, params, bm, CGGI_BATCH)
+    print(
+        f"[12 cggi step] bit-exact vs plain version (tolerance {TOLERANCE}) on real keys at G="
+        f"{CGGI_BATCH}: one step, the last {CHECK_STEPS} steps, and all {params.n}; one step: kernel "
+        f"{step['one_step_ms']:.4f} ms on the device vs plain {step['plain_step_ms']:.3f} ms (bound "
+        f"{step['one_step_bound_ms']:.4f} ms); all {params.n} steps: one launch {step['ms']:.2f} ms, "
+        f"one launch per step {step['stepwise_ms']:.2f} ms, plain steps {step['plain_ms']:.1f} ms "
+        f"(bound {step['bound_ms']:.2f} ms by {step['bound_by']}) ({smi})"
+    )
+
+    # 13. this slice's main path: counts reset just before it, read just after
+    def decrypt(out):
+        return lwe_decrypt_bit(out, lwe_key)
+
+    ct, c2, m1, m2 = cggi_gate_inputs(gen, params, lwe_key, CGGI_BATCH)
+    torch.cuda.synchronize()
+    reset_launches()
+    boot = bootstrap_chain(fused_step.bootstrap_fused, ct, c2, m1, m2, params, decrypt, bm, CHAIN)
+    launches = read_launches()
+    if launches["step"] == 0:
+        raise SystemExit(f"bootstrap_fused did not launch the step kernel: {launches}")
+    dt = boot["batch_s"]
+    print(
+        f"[13 bootstrap_fused] CGGI NAND batch {CGGI_BATCH}: decrypt OK x{1 + CHAIN}; first "
+        f"{boot['first_s'] * 1e3:.1f} ms; chain {dt * 1e3:.2f} ms/batch = {CGGI_BATCH / dt:.1f} "
+        f"boots/s; step-kernel launches in {1 + CHAIN} bootstraps: {launches['step']} ({smi})"
+    )
+    prof = profile_bootstrap(fused_step.bootstrap_fused, ct, bm, params, {"step kernel": "cggi_step_kernel"})
+    print(profile_line("13b profile", "bootstrap_fused", prof, smi))
+
+    # 14. the other two engines on the same ciphertext: same bits
+    want = ~(m1 & m2)
+    seconds, counts = {}, {}
+    for name, bootstrap, keys in (
+        ("bootstrap_bm", batchminor.bootstrap_bm, bm),
+        ("cggi.bootstrap", cggi.bootstrap, scheme),
     ):
-        kernels.append({
-            "name": name,
-            "route": "cuda",
-            "source": "mktfhe_tpu_torch/csrc/phase1_sweep.cu",
-            "replaces": "mktfhe_tpu/kernels/fused_mx3.py:226",
-            "launches": count,
-            "max_abs_err": max(res["err"], sweep_wide["err"]),
-            "ms": res["ms"],
-            "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"],
-            "library_ms": None,
-        })
-    print(f"[10 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")
+        bootstrap(ct, keys, params)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        out = checked_bootstrap(bootstrap, ct, want, keys, params, decrypt, name)
+        seconds[name] = time.time() - t0
+        counts[name] = read_launches()
+        if not (torch.equal(out.b, boot["first"].b) and torch.equal(out.a, boot["first"].a)):
+            raise SystemExit(f"{name} and bootstrap_fused differ on the same ciphertext")
+    bm_launches, ref_launches = counts["bootstrap_bm"], counts["cggi.bootstrap"]
+    if bm_launches["fwd_bm"] == 0 or bm_launches["inv_bm"] == 0:
+        raise SystemExit(f"bootstrap_bm did not launch the batch-minor NTT kernels: {bm_launches}")
+    if ref_launches["fwd"] == 0 or ref_launches["inv"] == 0:
+        raise SystemExit(f"cggi.bootstrap did not launch the NTT kernels: {ref_launches}")
+    print(
+        f"[14 engines] same ciphertext, batch {CGGI_BATCH}: bootstrap_bm and cggi.bootstrap decrypt "
+        f"OK, outputs bit-identical to bootstrap_fused (b and a); bootstrap_bm "
+        f"{seconds['bootstrap_bm'] * 1e3:.1f} ms (batch-minor NTT launches fwd {bm_launches['fwd_bm']} "
+        f"inv {bm_launches['inv_bm']}), cggi.bootstrap {seconds['cggi.bootstrap'] * 1e3:.1f} ms (NTT "
+        f"launches fwd {ref_launches['fwd']} inv {ref_launches['inv']}); one warm bootstrap each, host "
+        f"clock to the decrypted bits ({smi})"
+    )
+
+    rows = [
+        kernel_row(name, "ntt.cu", "mktfhe_tpu/kernels/ntt_pallas.py:240", bm_launches[f"{d}_bm"],
+                   ntt["err"][d], *ntt["times"][d][:2], bounds[d])
+        for d, name in (("fwd", "ntt_fwd_bm"), ("inv", "ntt_inv_bm"))
+    ]
+    rows.append(kernel_row(
+        "cggi_step", "cggi_step.cu", "mktfhe_tpu/kernels/fused_step.py:86", launches["step"],
+        step["err"], step["ms"], step["plain_ms"], step,
+    ))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    t_start = time.time()
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    print(f"[1 card] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi)
+
+    # 2. build
+    t0 = time.time()
+    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE]
+    libs = _build.build_all(sources)
+    kntt.load_library()
+    fused_mx3.load_library()
+    fused_step.load_library()
+    usage = "; ".join(
+        f"{src.name}: {' | '.join(_build.resource_usage(lib))}" for src, lib in zip(sources, libs)
+    )
+    print(
+        f"[2 build] {', '.join(lib.name for lib in libs)} from csrc/ (sm_90a, one nvcc each, "
+        f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {usage}"
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    kernels = run_kms(gen, device, smi) + run_cggi(gen, device, smi)
+
+    # 15. results
+    print(f"[15 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -19,6 +19,7 @@ import torch
 from .ciphertext.keys import LweKey
 from .ciphertext.lwe import Lwe
 from .schemes import params as _params
+from .schemes.cggi import CggiScheme
 from .schemes.kms import KmsPartyKey
 
 _VIEWS = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
@@ -53,6 +54,17 @@ def lwe(ct, device) -> Lwe:
 def party_key(pk, device) -> KmsPartyKey:
     """A reference KmsPartyKey (same field names) on `device`."""
     return KmsPartyKey(*(from_numpy(getattr(pk, f), device) for f in KmsPartyKey._fields))
+
+
+def cggi_scheme(scheme, device) -> CggiScheme:
+    """A reference CggiScheme on `device`: `brk_hat` u32 as int32 residues,
+    the int8 key-switch tables as they are.  The reference's Shoup companion
+    `brk_shoup` has no counterpart in the port and is dropped."""
+    return CggiScheme(
+        brk_hat=from_numpy(scheme.brk_hat, device),
+        ksk_b=from_numpy(scheme.ksk_b, device),
+        ksk_a=from_numpy(scheme.ksk_a, device),
+    )
 
 
 def params(p):

@@ -12,6 +12,7 @@ from ..ring.context import RingCtx
 from ..ring.modring import mulsum_mod, prime_column
 from ..ring.ntt import fwd_ntt
 from ..ring.torus import lift
+from .decomp import balanced_decomp
 from .keys import RingKey
 from .rlwe import gadget_gvec, rlwe_sample
 
@@ -35,6 +36,15 @@ def rgsw_encrypt(gen: torch.Generator, msg: torch.Tensor, key: RingKey, sigma: f
 def rgsw_to_hat(stack: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
     """NTT-domain image of an RGSW stack (balanced lift)."""
     return fwd_ntt(lift(stack, ctx.crt), ctx.plan)
+
+
+def rlwe_decomp_hat(ct: torch.Tensor, l: int, log_b: int, ctx: RingCtx, fwd=fwd_ntt) -> torch.Tensor:
+    """Gadget-decompose torus polynomials [..., N] (an RLWE ciphertext
+    [..., k+1, N], on either torus) and transform the digits: int32 residues
+    [..., l, npr, N].  `fwd` may be the NTT kernel's wrapper
+    (kernels/ntt.py:fwd_ntt_nat), bit-identical."""
+    digits = balanced_decomp(ct, l, log_b).movedim(-1, -2)  # [..., l, N]
+    return fwd(lift(digits, ctx.crt), ctx.plan)
 
 
 def external_product_hat(dhat: torch.Tensor, hat: torch.Tensor, ctx: RingCtx) -> torch.Tensor:

@@ -50,3 +50,15 @@ def lwe_ith_encrypt(gen: torch.Generator, m: torch.Tensor, i: int, key: LweKey, 
 def phase(ct: Lwe, key: LweKey) -> torch.Tensor:
     """b + <a, s>."""
     return ct.b + wrap_dot(ct.a, key.key)
+
+
+def lwe_add(x: Lwe, y: Lwe) -> Lwe:
+    return Lwe(b=x.b + y.b, a=x.a + y.a)
+
+
+def lwe_sub(x: Lwe, y: Lwe) -> Lwe:
+    return Lwe(b=x.b - y.b, a=x.a - y.a)
+
+
+def lwe_neg(x: Lwe) -> Lwe:
+    return Lwe(b=-x.b, a=-x.a)

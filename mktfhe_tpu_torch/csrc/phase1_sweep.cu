@@ -34,7 +34,8 @@
 // 4 primes, hence the opt-in to more than 48 KB of dynamic shared memory.
 // N/2 threads, one butterfly each per polynomial and stage; the 2l forward
 // transforms of a prime advance together, so they share each stage's twiddle
-// load and barrier.  Keys are read as the scheme stores them (standard NTT
+// load and barrier (the digits, the stage loops and Garner are in modarith.cuh,
+// shared with cggi_step.cu).  Keys are read as the scheme stores them (standard NTT
 // domain in the plain transform's bit-reversed order, no Shoup companions):
 // products of two runtime residues are summed in 64 bits (at most 2l <= 16
 // terms) and reduced by one Barrett step.
@@ -60,55 +61,9 @@ namespace {
 
 using namespace mktfhe;
 
-constexpr int kMaxPrimes = 4;
-// columns of the per-prime constants table (u64 [npr, kConstCols]):
-// p, 1/N, shoup(1/N), floor(2^64 / p), then for j < 3 the Garner inverses
-// p_j^{-1} mod p and their Shoup companions.
-constexpr int kConstCols = 10;
-constexpr int kColP = 0, kColNinv = 1, kColNinvSh = 2, kColMu = 3, kColGinv = 4, kColGinvSh = 7;
-
 struct SweepShape {
     int rows, n_steps, ell, npr, l, log_b, log_n;
 };
-
-// Balanced representative mod 2^64 of the residues r[q * stride], q < npr:
-// Garner's mixed-radix digits, wrapping Horner evaluation, and minus
-// prod(primes) when the last digit is in the upper half
-// (ring/torus.py:from_crt_u64).  The primes differ by less than 0.1%, so an
-// earlier digit t_j < p_j is brought below p_i by one subtraction.
-__device__ __forceinline__ uint64_t garner_u64(const uint32_t* r, int stride, int npr,
-                                               const uint64_t* sc, uint64_t prod_mod64) {
-    uint32_t t[kMaxPrimes];
-    t[0] = r[0];
-#pragma unroll
-    for (int i = 1; i < kMaxPrimes; ++i) {
-        if (i < npr) {
-            const uint64_t* ci = sc + i * kConstCols;
-            const uint32_t p = static_cast<uint32_t>(ci[kColP]);
-            uint32_t u = r[i * stride];
-#pragma unroll
-            for (int j = 0; j < i; ++j) {
-                const uint32_t tj = t[j] >= p ? t[j] - p : t[j];
-                u = shoup_mul(static_cast<uint32_t>(ci[kColGinv + j]),
-                              static_cast<uint32_t>(ci[kColGinvSh + j]), sub_mod(u, tj, p), p);
-            }
-            t[i] = u;
-        }
-    }
-    uint64_t x = 0;
-    uint32_t last = 0;
-#pragma unroll
-    for (int i = kMaxPrimes - 1; i >= 0; --i) {
-        if (i == npr - 1) {
-            x = t[i];
-            last = t[i];
-        } else if (i < npr) {
-            x = t[i] + sc[i * kConstCols + kColP] * x;  // wrapping
-        }
-    }
-    const uint32_t p_last = static_cast<uint32_t>(sc[(npr - 1) * kConstCols + kColP]);
-    return last >= p_last / 2 ? x - prod_mod64 : x;
-}
 
 // acc:    [ctas, 2, n] u64, in and out; cta = gate * rows + row
 // tildea: [gates, n_steps * ell] rotation amounts in [0, 2n)
@@ -148,9 +103,6 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     for (int i = tid; i < 2 * n; i += nthreads) acc[i] = acc_io[i];
     __syncthreads();
 
-    const int low = 64 - l * log_b;
-    const uint32_t mask = (1u << log_b) - 1;
-    const uint32_t half_b = 1u << (log_b - 1);
     const size_t poly_stride = static_cast<size_t>(npr) * n;  // one (term, cout) key row
     const size_t member_stride = static_cast<size_t>(terms) * 2 * poly_stride;
 
@@ -160,37 +112,17 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             const uint32_t p = static_cast<uint32_t>(sc[q * kConstCols + kColP]);
             const uint64_t mu = sc[q * kConstCols + kColMu];
 
-            // 1-2. balanced gadget digits of both components, lifted mod p
-            // (ciphertext/decomp.py:balanced_decomp; digit j at gadget entry
-            // 2^(64 - (j+1) log_b), the top carry wraps away)
+            // 1-2. balanced gadget digits of both components, lifted mod p,
+            // and their forward NTTs together
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
                 const int c = idx >> log_n;
                 const int i = idx & (n - 1);
-                const uint64_t a = acc[idx];
-                uint64_t ai = low > 0 ? (a >> low) + ((a >> (low - 1)) & 1) : a;
-                uint32_t* d = dig + static_cast<size_t>(c) * l * n + i;
-                for (int lev = l; lev >= 1; --lev) {
-                    const uint32_t dgt = static_cast<uint32_t>(ai) & mask;
-                    ai = (ai >> log_b) + (dgt >> (log_b - 1));
-                    // signed digit dgt - B when its top bit is set; lifted: p + it
-                    d[static_cast<size_t>(lev - 1) * n] = (dgt & half_b) ? p + dgt - 2 * half_b : dgt;
-                }
+                balanced_digits<uint64_t>(acc[idx], l, log_b, p,
+                                          dig + static_cast<size_t>(c) * l * n + i, n);
             }
             __syncthreads();
-
-            // forward NTT of the 2l digit polynomials together (natural ->
-            // bit-reversed order, as ring/ntt.py:fwd_ntt)
-            const uint32_t* wf = tw_f + static_cast<size_t>(q) * n;
-            const uint32_t* wf_sh = tw_f_sh + static_cast<size_t>(q) * n;
-            for (int log_t = log_n - 1, m = 1; log_t >= 0; --log_t, m <<= 1) {
-                const int blk = tid >> log_t;
-                const int iu = butterfly_index(tid, log_t);
-                const int iv = iu + (1 << log_t);
-                const uint32_t w = wf[m + blk];
-                const uint32_t w_sh = wf_sh[m + blk];
-                for (int t = 0; t < terms; ++t) ct_butterfly(dig + t * n, iu, iv, w, w_sh, p);
-                __syncthreads();
-            }
+            fwd_ntt_shared(dig, terms, tid, log_n, tw_f + static_cast<size_t>(q) * n,
+                           tw_f_sh + static_cast<size_t>(q) * n, p);
 
             // 3-4. external product per output component; block variant:
             // weighted by the members' monomial images and summed
@@ -223,18 +155,8 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             __syncthreads();
 
             // 5. inverse NTT of the two output polynomials, 1/N folded
-            const uint32_t* wi = tw_i + static_cast<size_t>(q) * n;
-            const uint32_t* wi_sh = tw_i_sh + static_cast<size_t>(q) * n;
-            for (int log_t = 0, h = n / 2; log_t < log_n; ++log_t, h >>= 1) {
-                const int blk = tid >> log_t;
-                const int iu = butterfly_index(tid, log_t);
-                const int iv = iu + (1 << log_t);
-                const uint32_t w = wi[h + blk];
-                const uint32_t w_sh = wi_sh[h + blk];
-                gs_butterfly(out, iu, iv, w, w_sh, p);
-                gs_butterfly(out + n, iu, iv, w, w_sh, p);
-                __syncthreads();
-            }
+            inv_ntt_shared(out, 2, tid, log_n, tw_i + static_cast<size_t>(q) * n,
+                           tw_i_sh + static_cast<size_t>(q) * n, p);
             const uint32_t ninv = static_cast<uint32_t>(sc[q * kConstCols + kColNinv]);
             const uint32_t ninv_sh = static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]);
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
@@ -246,11 +168,11 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
         // Garner mod 2^64 and accumulate
         if (kBlock) {
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                acc[idx] += garner_u64(res + idx, 2 * n, npr, sc, prod_mod64);
+                acc[idx] += garner<uint64_t>(res + idx, 2 * n, npr, sc, prod_mod64);
             }
         } else {
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                etor[idx] = garner_u64(res + idx, 2 * n, npr, sc, prod_mod64);
+                etor[idx] = garner<uint64_t>(res + idx, 2 * n, npr, sc, prod_mod64);
             }
             __syncthreads();
             // acc += X^a e - e: coefficient j of X^a e is [e, -e][(j - a) mod 2n]

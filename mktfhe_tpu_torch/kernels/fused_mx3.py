@@ -28,8 +28,7 @@ import functools
 
 import torch
 
-from ..ciphertext.decomp import balanced_decomp
-from ..ciphertext.gsw import external_product_hat
+from ..ciphertext.gsw import external_product_hat, rlwe_decomp_hat
 from ..ciphertext.lwe import Lwe
 from ..ciphertext.rlwe import gadget_gvec
 from ..ring.context import RingCtx
@@ -82,8 +81,7 @@ def phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ct
     acc = phase1_init(iter_rows, params, ctx, g, tildea_p.device) if acc0 is None else acc0
 
     def decomp_hat(x):
-        d = balanced_decomp(x, params.l_gsw, params.log_b_gsw).movedim(-1, -2)
-        return fwd(lift(d, ctx.crt), ctx.plan)
+        return rlwe_decomp_hat(x, params.l_gsw, params.log_b_gsw, ctx, fwd)
 
     def to_torus(r):
         return from_crt(inv(r.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)

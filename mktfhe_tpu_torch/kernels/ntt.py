@@ -1,12 +1,16 @@
-"""Wrapper of the CUDA natural-layout NTT kernel (csrc/ntt.cu).
+"""Wrappers of the CUDA NTT kernels (csrc/ntt.cu), natural and batch-minor.
 
 Port of mktfhe_tpu/kernels/ntt_pallas.py:_nat_call (`fwd_ntt_nat`,
 `inv_ntt_nat`): drop-in replacements for ring.ntt.fwd_ntt/inv_ntt on
-int32 residues [..., npr, N].  On a CUDA tensor the wrapper launches the
-kernel on the current stream or raises; on a CPU tensor it runs the plain
-twin (ring/ntt.py), bit-identical.
+int32 residues [..., npr, N]; and of its `_make_call` (`fwd_ntt_pallas`,
+`inv_ntt_pallas`, here `fwd_ntt_bm`, `inv_ntt_bm`): the same transform of
+batch-minor residues [npr, R, N, G], the layout of kernels/batchminor.py,
+read and written by the kernel itself.  On a CUDA tensor a wrapper launches
+its kernel on the current stream or raises; on a CPU tensor it runs the
+plain twin (ring/ntt.py; for batch-minor data over the permuted axes),
+bit-identical.
 
-The kernel is compiled with nvcc at first use into mktfhe_tpu_torch/_build/
+The kernels are compiled with nvcc at first use into mktfhe_tpu_torch/_build/
 (kernels/_build.py: a shared library with a plain C interface, loaded with
 ctypes).
 """
@@ -23,7 +27,7 @@ from ..ring.ntt import NttPlan, fwd_ntt, inv_ntt, make_plan
 from . import _build
 
 SOURCE = _build.CSRC / "ntt.cu"
-MIN_N, MAX_N = 64, 2048  # one polynomial per CTA: N/2 <= 1024 threads
+MIN_N, MAX_N = 64, 2048  # N/2 threads per CTA, at most 1024
 MIN_NPR, MAX_NPR = 2, 4
 
 
@@ -37,6 +41,11 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ptr,
     ]
     lib.mktfhe_ntt_nat.restype = ctypes.c_int
+    lib.mktfhe_ntt_bm.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ptr,
+    ]
+    lib.mktfhe_ntt_bm.restype = ctypes.c_int
     return lib
 
 
@@ -64,14 +73,20 @@ def _check(a: torch.Tensor, plan: NttPlan) -> None:
         raise ValueError("NTT input must be contiguous")
 
 
-def _launch(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
+def _check_sizes(a: torch.Tensor, plan: NttPlan) -> None:
+    """Refuse the ring sizes, prime counts and grids the kernels do not take."""
     n, npr = plan.n, plan.nprimes
     if not (MIN_N <= n <= MAX_N and MIN_NPR <= npr <= MAX_NPR):
         raise ValueError(f"the NTT kernel takes {MIN_N} <= N <= {MAX_N} and "
                          f"{MIN_NPR}-{MAX_NPR} primes, got N={n}, npr={npr}")
+    if a.numel() // n >= 1 << 31:
+        raise ValueError(f"{a.numel() // n} polynomials exceed the kernel's grid")
+
+
+def _launch(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
+    n, npr = plan.n, plan.nprimes
+    _check_sizes(a, plan)
     polys = a.numel() // n
-    if polys >= 1 << 31:
-        raise ValueError(f"{polys} polynomials exceed the kernel's grid")
     out = torch.empty_like(a)
     if polys == 0:
         return out
@@ -110,11 +125,63 @@ def inv_ntt_nat(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     return _launch(a, plan, forward=False)
 
 
-# kernel launches since the last reset (CPU calls run the twin and do not count)
-fwd_ntt_nat.launches = 0
-inv_ntt_nat.launches = 0
+def ntt_bm_plain(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
+    """The plain version of the batch-minor kernel: ring.ntt.fwd_ntt /
+    inv_ntt over the permuted axes, [npr, R, N, G] -> [R, G, npr, N] ->
+    transform -> back."""
+    transform = fwd_ntt if forward else inv_ntt
+    return transform(a.permute(1, 3, 0, 2), plan).permute(2, 0, 3, 1).contiguous()
+
+
+def _ntt_bm(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
+    n, npr = plan.n, plan.nprimes
+    if a.dtype != torch.int32:
+        raise TypeError(f"NTT input must be int32 residues, got {a.dtype}")
+    if a.dim() != 4 or a.shape[0] != npr or a.shape[2] != n:
+        raise ValueError(f"batch-minor NTT input must be [{npr}, R, {n}, G], got {tuple(a.shape)}")
+    if not a.is_contiguous():
+        raise ValueError("NTT input must be contiguous")
+    if a.device.type == "cpu":
+        return ntt_bm_plain(a, plan, forward)
+    if a.device.type != "cuda":
+        raise ValueError(f"no NTT for device {a.device}")
+    _check_sizes(a, plan)
+    rows, gates = a.shape[1], a.shape[3]
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    lib = load_library()
+    tw, tw_sh, consts = _kernel_tables(n, npr, forward, a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.mktfhe_ntt_bm(
+            a.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), consts.data_ptr(),
+            npr, rows, gates, n.bit_length() - 1, int(forward), stream,
+        )
+    _build.check_launch(lib, err, "batch-minor NTT kernel")
+    (fwd_ntt_bm if forward else inv_ntt_bm).launches += 1
+    return out
+
+
+def fwd_ntt_bm(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """Forward negacyclic NTT of batch-minor int32 residues [npr, R, N, G]
+    (any G >= 1): the CUDA kernel on a CUDA tensor, ring.ntt.fwd_ntt over
+    the permuted axes on a CPU one."""
+    return _ntt_bm(a, plan, forward=True)
+
+
+def inv_ntt_bm(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """Inverse negacyclic NTT (1/N folded) of batch-minor int32 residues
+    [npr, R, N, G]: the CUDA kernel on a CUDA tensor, ring.ntt.inv_ntt over
+    the permuted axes on a CPU one."""
+    return _ntt_bm(a, plan, forward=False)
 
 
 def reset_launches() -> None:
-    fwd_ntt_nat.launches = 0
-    inv_ntt_nat.launches = 0
+    """Every wrapper counts its kernel's launches since the last reset (CPU
+    calls run the twin and do not count)."""
+    for wrapper in (fwd_ntt_nat, inv_ntt_nat, fwd_ntt_bm, inv_ntt_bm):
+        wrapper.launches = 0
+
+
+reset_launches()

@@ -1,4 +1,5 @@
-"""Scheme layer: parameters, presets, the KMS multi-key scheme, gates.
+"""Scheme layer: parameters, presets, the CGGI single-key and KMS multi-key
+schemes, gates.
 
-Port of mktfhe_tpu/schemes/ (so far: KMS and its block variant).
+Port of mktfhe_tpu/schemes/ (so far: CGGI, KMS and its block variant).
 """

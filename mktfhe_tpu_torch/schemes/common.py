@@ -11,7 +11,7 @@ kernel.  Here it is a float64 library matmul (CUDA has no integer
 `torch.matmul`): every operand is an integer of at most 8 bits, so every
 partial sum is an integer bounded by R * 128, with R the contraction length
 (R = (N - n) * f * D/2 = 23,024 at KMS8partyblock, N * f * D/2 = 32,768 at
-the non-block KMS presets: |sum| <= 2^22).  That is far below 2^53, so the
+the non-block KMS presets, k * N * f * D/2 = 16,384 at CGGI: |sum| <= 2^22).  That is far below 2^53, so the
 float64 product is exact in any summation order and under any math mode
 (TF32 never applies to float64).
 """
@@ -98,12 +98,17 @@ def signed_onehot(digits: torch.Tensor, log_d: int) -> torch.Tensor:
 
 
 def limb_dot(flat: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor):
-    """Per-party one-hot digits x limb tables, limbs recombined.
+    """One-hot digits x limb tables, limbs recombined.
 
-    flat: int8 [..., k, R]; ksk_b: [k, NLIMB, R]; ksk_a: [k, NLIMB, R, n].
-    Returns (db [..., k], da [..., k, n]) int64, correct mod 2^32.  Exact:
-    see the module docstring for the float64 bound.
+    Per party: flat int8 [..., k, R]; ksk_b [k, NLIMB, R]; ksk_a
+    [k, NLIMB, R, n]; returns (db [..., k], da [..., k, n]).  One table:
+    flat [..., R]; ksk_b [NLIMB, R]; ksk_a [NLIMB, R, n]; returns (db [...],
+    da [..., n]).  int64, correct mod 2^32.  Exact: see the module docstring
+    for the float64 bound.
     """
+    single = ksk_b.dim() == 2
+    if single:  # one table is one party
+        flat, ksk_b, ksk_a = flat[..., None, :], ksk_b[None], ksk_a[None]
     x = flat.to(torch.float64)
     db = da = 0
     for limb in range(NLIMB):
@@ -111,7 +116,20 @@ def limb_dot(flat: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor):
         pa = torch.einsum("...kr,krn->...kn", x, ksk_a[:, limb].to(torch.float64))
         db = db + (pb.to(torch.int64) << (8 * limb))
         da = da + (pa.to(torch.int64) << (8 * limb))
-    return db, da
+    return (db[..., 0], da[..., 0, :]) if single else (db, da)
+
+
+def keyswitch_table(acc: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor, f: int, log_d: int) -> Lwe:
+    """Single-key key switch (reference common.py:161-173).
+
+    acc: [..., k+1, N] u32 (int32 carrier; component 0 = b); ksk_b
+    [NLIMB, R], ksk_a [NLIMB, R, n] with R = k * N * f * D/2.  Returns an Lwe
+    of dimension n.
+    """
+    arr = sample_extract_coeffs(acc[..., 1:, :])  # [..., k, N]
+    oh = signed_onehot(balanced_decomp(arr, f, log_d), log_d)  # [..., k, N, f*D/2]
+    db, da = limb_dot(oh.reshape(*oh.shape[:-3], -1), ksk_b, ksk_a)
+    return Lwe(b=wrap_i32(acc[..., 0, 0].long() + db), a=wrap_i32(da))
 
 
 def keyswitch_per_party(acc: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor, f: int, log_d: int) -> Lwe:

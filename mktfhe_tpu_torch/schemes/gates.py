@@ -10,7 +10,7 @@ import torch
 
 from ..ciphertext.keys import LweKey
 from ..ciphertext.lwe import Lwe, lwe_sample, wrap_dot
-from ..ring.torus import bits_of, to_carrier
+from ..ring.torus import bits_of, divbits, to_carrier
 
 # opcode -> (constant in eighths of the torus, sign, scale)
 GATE_TABLE = {
@@ -41,6 +41,12 @@ def encode(m: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return to_carrier(mu << (bits_of(dtype) - 3), dtype)
 
 
+def lwe_encrypt_bit(gen: torch.Generator, m: torch.Tensor, key: LweKey, alpha: float, shape=()) -> Lwe:
+    """Single-key encryption of message bits."""
+    ct = lwe_sample(gen, key, alpha, shape)
+    return Lwe(b=ct.b + encode(m, ct.b.dtype), a=ct.a)
+
+
 def lwe_ith_encrypt_bit(gen: torch.Generator, m: torch.Tensor, i: int, key: LweKey, alpha: float, k: int, shape=()) -> Lwe:
     """Party i's encryption in a k-party system: its mask occupies segment i
     of the concatenated k*n mask."""
@@ -49,6 +55,12 @@ def lwe_ith_encrypt_bit(gen: torch.Generator, m: torch.Tensor, i: int, key: LweK
     a = torch.zeros((*ct.a.shape[:-1], k * n), dtype=ct.a.dtype, device=ct.a.device)
     a[..., i * n : (i + 1) * n] = ct.a
     return Lwe(b=ct.b + encode(m, ct.b.dtype), a=a)
+
+
+def lwe_decrypt_bit(ct: Lwe, key: LweKey) -> torch.Tensor:
+    """Single-key decrypt: round(phase * 8) == 1."""
+    ph = ct.b + wrap_dot(ct.a, key.key)
+    return divbits(ph, bits_of(ph.dtype) - 3) == 1
 
 
 def lwe_decrypt_bit_mk(ct: Lwe, keys: list[LweKey]) -> torch.Tensor:
@@ -72,3 +84,20 @@ def gate_affine(op_id, ct1: Lwe, ct2: Lwe) -> Lwe:
     b = c + s * (ct1.b.long() + ct2.b.long())
     a = s[..., None] * (ct1.a.long() + ct2.a.long())
     return Lwe(b=to_carrier(b, dtype), a=to_carrier(a, dtype))
+
+
+def not_gate(ct: Lwe) -> Lwe:
+    """NOT: negate, no bootstrap."""
+    return Lwe(b=-ct.b, a=-ct.a)
+
+
+def gate(op, ct1: Lwe, ct2: Lwe, bootstrap_fn) -> Lwe:
+    """Evaluate a (batched) boolean gate: affine combine + bootstrap.
+
+    op: gate name, opcode int, or per-gate [G] opcode tensor.
+    bootstrap_fn: the scheme's bootstrap closure (e.g. cggi.bootstrap
+    partially applied with scheme and params).
+    """
+    if isinstance(op, str):
+        op = GATE_IDS[op]
+    return bootstrap_fn(gate_affine(op, ct1, ct2))

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..ciphertext.decomp import balanced_decomp
-from ..ciphertext.gsw import rgsw_encrypt
+from ..ciphertext.gsw import rgsw_encrypt, rlwe_decomp_hat
 from ..ciphertext.keys import (
     binary_lwe_key,
     binary_ring_key,
@@ -184,12 +184,6 @@ def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKms
     )
 
 
-def _decomp_hat(x: torch.Tensor, l: int, log_b: int, ctx: RingCtx) -> torch.Tensor:
-    """Gadget digits of torus polys [..., N] -> NTT images [..., l, npr, N]."""
-    d = balanced_decomp(x, l, log_b).movedim(-1, -2)
-    return fwd_ntt_nat(lift(d, ctx.crt), ctx.plan)
-
-
 def _inv_to_torus(r: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
     """int64 residues [..., npr, N] -> torus polys [..., N] (inverse NTT +
     Garner)."""
@@ -226,13 +220,13 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
 
     # LEV contraction of acc's components 0..p1-1 against the lev key;
     # only the first iter_rows digits engage.
-    dhat = _decomp_hat(acc[:, :p1], params.l_lev, params.log_b_lev, ctx)[:, :, :iter_rows]
+    dhat = rlwe_decomp_hat(acc[:, :p1], params.l_lev, params.log_b_lev, ctx, fwd_ntt_nat)[:, :, :iter_rows]
     x = mulsum_mod(dhat, levkey[:, None, :, 0], -3, p)  # [G, p1, npr, N]
     y = mulsum_mod(dhat, levkey[:, None, :, 1], -3, p)
     y_t = _inv_to_torus(y, ctx)  # [G, p1, N]
 
     # hybrid product of y with this party's rlk
-    yhat = _decomp_hat(y_t, params.l_uni, params.log_b_uni, ctx)  # [G, p1, l, npr, N]
+    yhat = rlwe_decomp_hat(y_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, p1, l, npr, N]
     u = mulsum_mod(rd, yhat, -3, p)
     v = negmod(mulsum_mod(crs_hat, yhat[:, 0], -3, p), p)
     if p1 > 1:
@@ -240,7 +234,7 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
         v = torch.remainder(v + vi.sum(1), p)
     v_t = _inv_to_torus(v, ctx)  # [G, N]
 
-    vhat = _decomp_hat(v_t, params.l_uni, params.log_b_uni, ctx)  # [G, l, npr, N]
+    vhat = rlwe_decomp_hat(v_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, l, npr, N]
     w_b = mulsum_mod(rf[:, 0], vhat, -3, p)
     w_a = mulsum_mod(rf[:, 1], vhat, -3, p)
 

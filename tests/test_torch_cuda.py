@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain versions, on the card (marker `cuda`).
 
 The NTT kernel at every supported ring size and prime count, forward and
-inverse, and the phase-1 sweep kernel over ring sizes, prime counts, binary
-and block keys, row counts, gadgets and batch sizes; bit-exact (tolerance
-0), plus the wrappers' contracts on CUDA tensors.  Skips where there is no
+inverse, in the natural and the batch-minor layout (whole and ragged gate
+tiles); the phase-1 sweep kernel over ring sizes, prime counts, binary and
+block keys, row counts, gadgets and batch sizes; the fused CGGI step kernel
+over ring sizes, prime counts, gadgets (the 32-bit rounding carry live and
+not), step ranges and batch sizes; bit-exact (tolerance 0), plus the
+wrappers' contracts on CUDA tensors.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -15,13 +18,13 @@ import dataclasses
 import pytest
 import torch
 
-from mktfhe_tpu_torch.kernels import fused_mx3
+from mktfhe_tpu_torch.kernels import fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.schemes import kms
-from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
+from mktfhe_tpu_torch.schemes.params import CggiParams, KmsBlockParams, KmsParams
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +143,134 @@ def test_sweep_wrapper_contract_on_cuda(device):
     assert fused_mx3.phase1_sweep.launches == 0
     empty = fused_mx3.phase1_sweep(ta[:0], brk, 2, mono, params, ctx)
     assert tuple(empty.shape) == (0, 2, 2, ctx.n) and fused_mx3.phase1_sweep.launches == 0
+
+
+# --- the batch-minor NTT kernel ----------------------------------------------
+
+
+def _bm_residues(npr, rows, n, gates, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(0, 1 << 31, (npr, rows, n, gates), generator=gen, device=device)
+    return torch.remainder(x, prime_column(npr, device)[:, :, None, None]).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("npr", [2, 3, 4])
+def test_bm_kernel_matches_plain(device, n, npr):
+    """19 gates: two whole tiles of 8 and a ragged one of 3."""
+    plan = make_plan(n, npr)
+    x = _bm_residues(npr, 3, n, 19, device, seed=n + npr)
+    kntt.reset_launches()
+    hat = kntt.fwd_ntt_bm(x, plan)
+    assert torch.equal(hat, kntt.ntt_bm_plain(x, plan, True))
+    assert torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
+    assert torch.equal(kntt.inv_ntt_bm(hat, plan), x)
+    assert (kntt.fwd_ntt_bm.launches, kntt.inv_ntt_bm.launches) == (1, 2)
+    # the same data through the natural-layout kernel
+    nat = kntt.fwd_ntt_nat(x.permute(1, 3, 0, 2).contiguous(), plan)
+    assert torch.equal(hat, nat.permute(2, 0, 3, 1))
+
+
+@pytest.mark.parametrize("gates", [1, 5, 8, 256, 257])
+def test_bm_kernel_any_batch(device, gates):
+    plan = make_plan(1024, 2)
+    x = _bm_residues(2, 6, 1024, gates, device, seed=gates)
+    assert torch.equal(kntt.fwd_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, True))
+    assert torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
+
+
+def test_bm_wrapper_contract_on_cuda(device):
+    plan = make_plan(64, 2)
+    x = _bm_residues(2, 3, 64, 5, device, seed=0)
+    kntt.reset_launches()
+    with pytest.raises(ValueError):
+        kntt.fwd_ntt_bm(x.transpose(1, 3).contiguous().transpose(1, 3), plan)
+    with pytest.raises(ValueError):
+        kntt.fwd_ntt_bm(_bm_residues(2, 3, 32, 5, device, seed=0), make_plan(32, 2))
+    with pytest.raises(TypeError):
+        kntt.inv_ntt_bm(x.long(), plan)
+    assert kntt.fwd_ntt_bm(x[:, :0], plan).shape == (2, 0, 64, 5)
+    assert (kntt.fwd_ntt_bm.launches, kntt.inv_ntt_bm.launches) == (0, 0)
+
+
+# --- the fused CGGI step kernel ----------------------------------------------
+
+_CGGI = dict(alpha=16.0, f=8, log_d=2, k=1, beta=16.0)
+# (N, primes, l_gsw, log_b_gsw, steps, first, last, gates); at the CGGI preset's
+# widths 140 gates leave SMs idle and 600 run several waves.
+STEP_CASES = [
+    (64, 2, 3, 9, 4, 0, 4, 3),
+    (64, 2, 3, 8, 4, 2, 3, 5),
+    (64, 2, 4, 8, 3, 0, 3, 2),
+    (64, 3, 2, 16, 2, 0, 2, 2),
+    (128, 3, 6, 5, 3, 1, 3, 4),
+    (256, 4, 1, 7, 3, 0, 3, 7),
+    (1024, 2, 3, 9, 5, 0, 5, 140),
+    (1024, 2, 3, 9, 3, 1, 2, 600),
+    (2048, 4, 6, 5, 2, 0, 2, 9),
+    (2048, 2, 3, 10, 2, 0, 2, 200),
+]
+
+
+def _step_inputs(n, npr, l, log_b, steps, g, device, seed=2):
+    """Parameters, context and random inputs: key residues below each prime,
+    rotation amounts over all of [0, 2N), accumulators over all of 32 bits."""
+    params = CggiParams(n=steps, big_n=n, l_gsw=l, log_b_gsw=log_b, **_CGGI)
+    ctx = make_ring_ctx(n, 32, npr)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    brk = torch.randint(0, 1 << 62, (steps, npr, 2 * l, 2, n), generator=gen, device=device)
+    brk = torch.remainder(brk, prime_column(npr, device)[:, None, None]).to(torch.int32)
+    ta = torch.randint(0, 2 * n, (g, steps), generator=gen, device=device, dtype=torch.int32)
+    ta[0, 0], ta[-1, -1] = 0, 2 * n - 1
+    mono = kms.monomial_table(ctx, device)
+    acc = torch.randint(-(1 << 31), 1 << 31, (g, 2, n), generator=gen, device=device, dtype=torch.int32)
+    low = 32 - l * log_b
+    edge = [0, -1, -(1 << 31), (1 << 31) - 1] + ([-(1 << (low - 1)), (1 << 31) - (1 << (low - 1))] if low else [])
+    acc[0, 0, : len(edge)] = torch.tensor(edge, dtype=torch.int32, device=device)
+    return params, ctx, ta, brk, mono, acc
+
+
+@pytest.mark.parametrize("shape", STEP_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_step_kernel_matches_plain(device, shape):
+    n, npr, l, log_b, steps, i0, i1, g = shape
+    params, ctx, ta, brk, mono, acc = _step_inputs(n, npr, l, log_b, steps, g, device)
+    fused_step.reset_launches()
+    keep = acc.clone()
+    got = fused_step.cggi_step(acc, ta, brk, mono, params, ctx, i0, i1)
+    torch.cuda.synchronize()
+    assert fused_step.cggi_step.launches == 1
+    assert torch.equal(acc, keep)  # the caller's accumulator is not written
+    want = acc
+    for i in range(i0, i1):
+        want = fused_step.cggi_step_plain(want, brk[i], ta[:, i], mono, params, ctx)
+    assert torch.equal(got, want)
+    # one launch per step gives the same as one launch over the range
+    by_step = acc
+    for i in range(i0, i1):
+        by_step = fused_step.cggi_step(by_step, ta, brk, mono, params, ctx, i, i + 1)
+    assert torch.equal(by_step, got)
+    assert fused_step.cggi_step.launches == 1 + (i1 - i0)
+
+
+def test_step_wrapper_contract_on_cuda(device):
+    params, ctx, ta, brk, mono, acc = _step_inputs(64, 2, 3, 8, 4, 4, device)
+    fused_step.reset_launches()
+    with pytest.raises(ValueError):  # keys on another device
+        fused_step.cggi_step(acc, ta, brk.cpu(), mono, params, ctx)
+    with pytest.raises(ValueError):
+        fused_step.cggi_step(acc, ta, brk, mono.cpu(), params, ctx)
+    with pytest.raises(ValueError):  # amounts outside [0, 2N)
+        fused_step.cggi_step(acc, ta + 2 * ctx.n, brk, mono, params, ctx)
+    with pytest.raises(ValueError):
+        fused_step.cggi_step(acc, ta.t().contiguous().t(), brk, mono, params, ctx)
+    with pytest.raises(TypeError):
+        fused_step.cggi_step(acc, ta.long(), brk, mono, params, ctx)
+    with pytest.raises(ValueError):  # steps beyond the key
+        fused_step.cggi_step(acc, ta, brk, mono, params, ctx, 0, 5)
+    with pytest.raises(ValueError):  # 36 bits of digits
+        fused_step.cggi_step(acc, ta, brk, mono, dataclasses.replace(params, log_b_gsw=12), ctx)
+    assert fused_step.cggi_step.launches == 0
+    same = fused_step.cggi_step(acc, ta, brk, mono, params, ctx, 2, 2)
+    empty = fused_step.cggi_step(acc[:0], ta[:0], brk, mono, params, ctx)
+    assert torch.equal(same, acc) and tuple(empty.shape) == (0, 2, ctx.n)
+    assert fused_step.cggi_step.launches == 0

@@ -11,6 +11,9 @@ MODULES = [
     "mktfhe_tpu_torch.kernels._build",
     "mktfhe_tpu_torch.kernels.ntt",
     "mktfhe_tpu_torch.kernels.fused_mx3",
+    "mktfhe_tpu_torch.kernels.batchminor",
+    "mktfhe_tpu_torch.kernels.fused_step",
+    "mktfhe_tpu_torch.schemes.cggi",
     "mktfhe_tpu_torch.schemes.kms",
     "mktfhe_tpu_torch.schemes.presets",
 ]

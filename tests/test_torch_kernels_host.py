@@ -21,13 +21,13 @@ import numpy as np
 import pytest
 import torch
 
-from mktfhe_tpu_torch.kernels import fused_mx3
+from mktfhe_tpu_torch.kernels import fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import PRIMES
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.schemes import kms
-from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
+from mktfhe_tpu_torch.schemes.params import CggiParams, KmsBlockParams, KmsParams
 
 CPU = torch.device("cpu")
 
@@ -44,6 +44,7 @@ SHIM = r"""
 #define __launch_bounds__(x)
 #define __shared__ static
 struct Dim3 { int x = 0; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline thread_local Dim3 threadIdx, blockIdx, blockDim;
 inline std::barrier<>* g_barrier = nullptr;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
@@ -71,7 +72,7 @@ void run_grid(long long ctas, int threads, F body) {
 # each kernel's dynamic shared memory becomes a pointer to the stand-in's buffer
 DYNAMIC_SHARED = {
     "extern __shared__ __align__(16) unsigned char smem[];": "unsigned char* smem = g_smem;",
-    "extern __shared__ uint32_t a[];": "uint32_t* a = (uint32_t*)g_smem;",
+    "extern __shared__ __align__(16) uint32_t a[];": "uint32_t* a = (uint32_t*)g_smem;",
 }
 
 SWEEP_ENTRY = r"""
@@ -96,6 +97,33 @@ extern "C" void host_ntt_nat(const void* x, void* y, const void* tw, const void*
     run_grid(polys, (1 << log_n) / 2, [=]() {
         kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
                (const uint32_t*)consts, npr, log_n);
+    });
+}
+"""
+
+NTT_BM_ENTRY = r"""
+extern "C" void host_ntt_bm(const void* x, void* y, const void* tw, const void* tw_sh,
+        const void* consts, int npr, int rows, int gates, int log_n, int forward) {
+    auto kernel = forward ? &ntt_bm_kernel<true> : &ntt_bm_kernel<false>;
+    const long long tiles = (gates + kGt - 1) / kGt;
+    run_grid(npr * rows * tiles, (1 << log_n) / 2, [=]() {
+        kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
+               (const uint32_t*)consts, rows, gates, log_n);
+    });
+}
+"""
+
+STEP_ENTRY = r"""
+extern "C" void host_cggi_step(void* acc, const void* tildea, const void* brk, const void* mono,
+        const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
+        const void* consts, unsigned int prod_mod32, long long gates, int n_total, int i0, int i1,
+        int npr, int l, int log_b, int log_n) {
+    const StepShape shape{n_total, i0, i1, npr, l, log_b, log_n};
+    run_grid(gates, (1 << log_n) / 2, [=]() {
+        cggi_step_kernel((uint32_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk,
+                         (const uint32_t*)mono, (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh,
+                         (const uint32_t*)tw_i, (const uint32_t*)tw_i_sh, (const uint64_t*)consts,
+                         prod_mod32, shape);
     });
 }
 """
@@ -138,10 +166,21 @@ def sweep_lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ntt_lib(tmp_path_factory):
-    lib = _host_library(kntt.SOURCE, NTT_ENTRY, tmp_path_factory.mktemp("ntt_host"))
+    lib = _host_library(kntt.SOURCE, NTT_ENTRY + NTT_BM_ENTRY, tmp_path_factory.mktemp("ntt_host"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_ntt_nat.argtypes = [ptr] * 5 + [ctypes.c_longlong, i32, i32, i32]
     lib.host_ntt_nat.restype = None
+    lib.host_ntt_bm.argtypes = [ptr] * 5 + [i32] * 5
+    lib.host_ntt_bm.restype = None
+    return lib
+
+
+@pytest.fixture(scope="module")
+def step_lib(tmp_path_factory):
+    lib = _host_library(fused_step.SOURCE, STEP_ENTRY, tmp_path_factory.mktemp("step_host"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_cggi_step.argtypes = [ptr] * 9 + [ctypes.c_uint, ctypes.c_longlong] + [i32] * 7
+    lib.host_cggi_step.restype = None
     return lib
 
 
@@ -219,3 +258,72 @@ def test_ntt_kernel_source_matches_plain(ntt_lib, n, npr):
             x.numel() // n, npr, n.bit_length() - 1, int(forward),
         )
         assert torch.equal(out, plain(x, plan))
+
+
+@pytest.mark.parametrize("gates", [5, 8, 19], ids=lambda g: f"G{g}")
+@pytest.mark.parametrize("n,npr", [(64, 2), (128, 3), (256, 4)])
+def test_ntt_bm_kernel_source_matches_plain(ntt_lib, n, npr, gates):
+    """The batch-minor load/store path: whole tiles of 8 gates and a ragged
+    last one (5 = one short tile, 19 = two whole and one of 3)."""
+    plan = make_plan(n, npr)
+    rows = 3
+    rng = np.random.default_rng(n + npr + gates)
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None, None, None]
+    x = torch.from_numpy((rng.integers(0, 1 << 62, size=(npr, rows, n, gates)) % p).astype(np.int32))
+    for forward in (True, False):
+        tw, tw_sh, consts = kntt._kernel_tables(n, npr, forward, CPU)
+        out = torch.full_like(x, -1)
+        ntt_lib.host_ntt_bm(
+            x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), consts.data_ptr(),
+            npr, rows, gates, n.bit_length() - 1, int(forward),
+        )
+        assert torch.equal(out, kntt.ntt_bm_plain(x, plan, forward))
+
+
+_CGGI = dict(alpha=16.0, f=8, log_d=2, k=1, beta=16.0)
+# (parameters, primes, gates, first step, last step)
+STEP_CASES = {
+    "cggi_gadget_27_bits": (CggiParams(n=4, big_n=64, l_gsw=3, log_b_gsw=9, **_CGGI), 2, 3, 0, 4),
+    "one_step": (CggiParams(n=4, big_n=64, l_gsw=3, log_b_gsw=8, **_CGGI), 2, 2, 2, 3),
+    "later_range": (CggiParams(n=5, big_n=64, l_gsw=2, log_b_gsw=10, **_CGGI), 2, 2, 1, 5),
+    "gadget_32_bits": (CggiParams(n=3, big_n=64, l_gsw=4, log_b_gsw=8, **_CGGI), 2, 2, 0, 3),
+    "gadget_2x16": (CggiParams(n=2, big_n=64, l_gsw=2, log_b_gsw=16, **_CGGI), 3, 2, 0, 2),
+    "one_digit": (CggiParams(n=3, big_n=64, l_gsw=1, log_b_gsw=7, **_CGGI), 2, 2, 0, 3),
+    "l6_n128_3primes": (CggiParams(n=2, big_n=128, l_gsw=6, log_b_gsw=5, **_CGGI), 3, 2, 0, 2),
+    "n256_4primes": (CggiParams(n=2, big_n=256, l_gsw=3, log_b_gsw=9, **_CGGI), 4, 1, 0, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_cggi_step_kernel_source_matches_plain(step_lib, name):
+    """The 32-bit decomposition (rounding carry live below 32 gadget bits),
+    the u32 Garner and the step range, from accumulators with extreme bits."""
+    params, npr, g, i0, i1 = STEP_CASES[name]
+    ctx = make_ring_ctx(params.big_n, 32, npr)
+    n, l = ctx.n, params.l_gsw
+    rng = np.random.default_rng(len(name))
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None, None, None]
+    brk = torch.from_numpy((rng.integers(0, 1 << 62, size=(params.n, npr, 2 * l, 2, n)) % p).astype(np.int32))
+    ta = torch.from_numpy(rng.integers(0, 2 * n, size=(g, params.n)).astype(np.int32))
+    ta[0, i0], ta[-1, i1 - 1] = 0, 2 * n - 1
+    mono = kms.monomial_table(ctx, CPU)
+    acc0 = rng.integers(-(1 << 31), (1 << 31) - 1, size=(g, 2, n), dtype=np.int64).astype(np.int32)
+    low = 32 - l * params.log_b_gsw
+    edge = [0, -1, -(1 << 31), (1 << 31) - 1, 1, 1 << 30, -(1 << 30)]
+    if low:  # the rounding bit under all-ones digit fields: the carry runs through every digit
+        edge += [-(1 << (low - 1)), (1 << 31) - (1 << (low - 1)), (1 << (low - 1)) - 1]
+    acc0[0, 0, : len(edge)] = edge
+    acc0[0, 1, : len(edge)] = edge[::-1]
+    acc0 = torch.from_numpy(acc0)
+    want = fused_step.cggi_step(acc0, ta, brk, mono, params, ctx, i0, i1)
+    got = acc0.clone()
+    tw_f, tw_f_sh, _ = kntt._kernel_tables(n, npr, True, CPU)
+    tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
+    consts = fused_mx3._sweep_consts(n, npr, CPU)
+    step_lib.host_cggi_step(
+        got.data_ptr(), ta.data_ptr(), brk.data_ptr(), mono.data_ptr(),
+        tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
+        consts.data_ptr(), ctx.crt.prod_mod32, g, params.n, i0, i1, npr, l,
+        params.log_b_gsw, n.bit_length() - 1,
+    )
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
