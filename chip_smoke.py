@@ -37,7 +37,20 @@ Phases, each printing one line; any failure exits non-zero:
  14. the other two CGGI engines on the same ciphertext, `bootstrap_bm` (the
      batch-minor NTT kernel must have been launched) and `cggi.bootstrap`
      (the natural NTT kernel): all three outputs equal bit for bit;
- 15. print the kernels' JSON line, then the contract line last.
+ 15. mx-domain keys: `build_mx_kms_keys` on the KMS8party party keys of
+     phase 4 (and on the wide-gadget set's);
+ 16. hold the mx sweep kernel against its plain version on those keys,
+     bit-exact, with 3 rows and with 1 row and on the wide-gadget set; time
+     kernel and plain version at the full number of steps;
+ 17. this slice's main path: `bootstrap_mx2` of a batch of NAND gates on
+     KMS8party, on a scheme without `brk_hat`, decrypt-checked, then a timed
+     data-dependent chain of two more; the mx sweep and NTT kernels must have
+     been launched; its output on the ciphertext of phase 8 must equal
+     `bootstrap_mx3`'s bit for bit; then one more under torch.profiler;
+ 18. the KMS batch-minor engine on the same ciphertext: `kms.bootstrap_bm`
+     (the batch-minor NTT kernel must have been launched), decrypt-checked,
+     bit-identical to `bootstrap_mx2`;
+ 19. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
 """
@@ -53,8 +66,9 @@ import time
 import numpy as np
 import torch
 
-from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx3, fused_step
+from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
+from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.ring.sampler import uniform_torus
@@ -214,11 +228,12 @@ def check_ntt(gen, device) -> dict:
 
 
 def keygen(gen, params):
-    """crs, party keygens and setup on the generator's device."""
+    """crs, party keygens and setup on the generator's device: the LWE keys,
+    the scheme and the party keys (torus domain)."""
     a = kms.crs(gen, params)
     parties = [kms.party_keygen(gen, a, params) for _ in range(params.k)]
-    scheme = kms.setup(a, [p[3] for p in parties], params)
-    return [p[0] for p in parties], scheme
+    party_keys = [p[3] for p in parties]
+    return [p[0] for p in parties], kms.setup(a, party_keys, params), party_keys
 
 
 def sweep_bound(params, ctx, g: int, rows: int, tildea: torch.Tensor) -> dict:
@@ -361,6 +376,7 @@ def read_launches() -> dict:
         "fwd_bm": kntt.fwd_ntt_bm.launches,
         "inv_bm": kntt.inv_ntt_bm.launches,
         "step": fused_step.cggi_step.launches,
+        "mx": fused_mx2.mx_sweep.launches,
     }
 
 
@@ -368,6 +384,7 @@ def reset_launches() -> None:
     kntt.reset_launches()
     fused_mx3.reset_launches()
     fused_step.reset_launches()
+    fused_mx2.reset_launches()
 
 
 def check_keyswitch(gen, params, scheme, gates: int = 4) -> None:
@@ -503,6 +520,161 @@ def cggi_gate_inputs(gen, params, lwe_key, batch: int):
     return gate_affine(GATE_IDS["NAND"], c1, c2), c2, m1, m2
 
 
+def mx_sweep_bound(params, ctx_p, g: int, rows: int, tildea: torch.Tensor, sms: int) -> dict:
+    """Least time of one mx sweep on the card, as `sweep_bound` for binary
+    keys, with the monomial formed from the power table: per position, prime
+    and output component one more 64-bit product and Barrett step, plus the
+    table index and the subtraction of 1.  Bytes: the accumulator read and
+    written, the rotation amounts, the twiddles and the power table once, and
+    the party's key rows once per wave of CTAs (one CTA fills an SM, waves
+    run one after the other, and a party's keys exceed the L2 cache)."""
+    n, npr, l = ctx_p.n, ctx_p.nprimes, params.l_gsw
+    log_n = n.bit_length() - 1
+    waves = -(-g * rows // sms)
+    nbytes = (2 * g * rows * 2 * n * 8 + tildea.numel() * 4 + 4 * npr * n * 4 + 2 * n * npr * 4
+              + waves * params.n * npr * 2 * l * 2 * n * 4)
+    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
+    position = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + 2 * (OPS_PRODUCT_TERM + OPS_BARRETT) + 8
+    per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * position + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
+    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 8 + 4
+    per_step = npr * per_prime + 2 * n * (garner + 2)
+    return _bound(nbytes, g * rows * params.n * per_step)
+
+
+def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple]:
+    """The mx sweep kernel vs its plain version on the card, on one party's
+    real mx keys and uniform rotation amounts, bit-exact over CHECK_STEPS
+    steps from the LEV gadget rows.  Returns max |diff| and the sweep's
+    arguments at the full number of steps."""
+    device = brk_mx_p.device
+    ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, brk_mx_p.shape[1])
+    tildea = torch.randint(0, 2 * ctx_p.n, (g, params.n), generator=gen, device=device, dtype=torch.int32)
+    short = dataclasses.replace(params, n=CHECK_STEPS)
+    args = (tildea[:, :CHECK_STEPS].contiguous(), brk_mx_p[:CHECK_STEPS], rows, short, ctx_p)
+    got = fused_mx2.mx_sweep(*args)
+    want = fused_mx2.mx_sweep_plain(*args)
+    torch.cuda.synchronize()
+    err = _max_abs_diff(got, want)
+    if err > TOLERANCE or not torch.equal(got, want):
+        raise SystemExit(f"mx sweep kernel disagrees with its plain version (rows={rows}, "
+                         f"log_b_gsw={params.log_b_gsw}): max |diff| {err}")
+    return err, (tildea, brk_mx_p, rows, params, ctx_p)
+
+
+def run_mx2(gen, device, smi: str, binary: dict) -> list[dict]:
+    """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
+    KMS batch-minor engine; returns the mx sweep's row of the kernels line."""
+    params = KMS_8PARTY
+    lwe_keys, party_keys = binary["lwe_keys"], binary["party_keys"]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    # 15. mx-domain keys
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    mx_keys = fused_mx2.build_mx_kms_keys(party_keys, params)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    wide_keys = fused_mx2.build_mx_kms_keys(binary["wide_party_keys"], WIDE_GADGET)
+    print(
+        f"[15 mx keys] build_mx_kms_keys on the KMS8party party keys: brk_mx "
+        f"{list(mx_keys.brk_mx.shape)} int32 = {mx_keys.brk_mx.numel() * 4 / 1e9:.2f} GB, "
+        f"{mx_keys.brk_mx.shape[2]} primes, in {build_s:.2f} s; peak allocated above what was held "
+        f"before {(torch.cuda.max_memory_allocated() - before) / 1e9:.2f} GB; the wide-gadget set: "
+        f"{wide_keys.brk_mx.shape[2]} primes ({smi})"
+    )
+
+    # 16. mx sweep kernel vs plain version
+    err3, args3 = check_mx_sweep(gen, params, mx_keys.brk_mx[1], BATCH, params.l_lev)
+    err1, args1 = check_mx_sweep(gen, params, mx_keys.brk_mx[0], BATCH, 1)
+    err_wide, _ = check_mx_sweep(gen, WIDE_GADGET, wide_keys.brk_mx[1], 5, WIDE_GADGET.l_lev)
+    for args in (args3, args1):  # warm-up at the full shapes
+        fused_mx2.mx_sweep(*args)
+    rows3 = {
+        "err": max(err3, err1, err_wide),
+        "ms": _sync_ms(lambda: fused_mx2.mx_sweep(*args3), 3),
+        "plain_ms": _sync_ms(lambda: fused_mx2.mx_sweep_plain(*args3), 1),
+        **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0], sms),
+    }
+    row1_ms = _sync_ms(lambda: fused_mx2.mx_sweep(*args1), 3)
+    print(
+        f"[16 mx sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps on "
+        f"real mx keys: KMS8party width at G={BATCH} with rows=3 and rows=1, wide gadget "
+        f"(N={WIDE_GADGET.big_n}, log_b_gsw={WIDE_GADGET.log_b_gsw}, {wide_keys.brk_mx.shape[2]} primes); "
+        f"one party's sweep, G={BATCH}, {params.n} steps: rows=3 kernel {rows3['ms']:.2f} ms vs plain "
+        f"{rows3['plain_ms']:.1f} ms (bound {rows3['bound_ms']:.2f} ms by {rows3['bound_by']}, keys "
+        f"counted once per wave of {sms} CTAs), rows=1 kernel {row1_ms:.2f} ms; the torus-roll sweep "
+        f"of phase 5 on the same card, same steps: {binary['sweep_ms']:.2f} ms ({smi})"
+    )
+    del wide_keys
+
+    # 17. this slice's main path, on a scheme without brk_hat: counts reset
+    # just before it, read just after
+    lean = kms.drop_brk(binary["scheme"])
+
+    def decrypt(out):
+        return lwe_decrypt_bit_mk(out, lwe_keys)
+
+    def bootstrap_mx2(ct, scheme, params):
+        return fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params)
+
+    ct, c2, m1, m2 = binary["ct"], binary["c2"], binary["m1"], binary["m2"]
+    torch.cuda.synchronize()
+    reset_launches()
+    boot = bootstrap_chain(bootstrap_mx2, ct, c2, m1, m2, params, decrypt, lean, CHAIN)
+    launches = read_launches()
+    if min(launches[k] for k in ("mx", "fwd", "inv")) == 0 or launches["sweep"] != 0:
+        raise SystemExit(f"bootstrap_mx2 did not run on the mx sweep and NTT kernels alone: {launches}")
+    same = all(torch.equal(x, y) for x, y in ((boot["first"].b, binary["mx3_out"].b), (boot["first"].a, binary["mx3_out"].a)))
+    if not same:
+        raise SystemExit("bootstrap_mx2 and bootstrap_mx3 differ on the same ciphertext")
+    dt = boot["batch_s"]
+    print(
+        f"[17 bootstrap_mx2] KMS8party NAND batch {BATCH}, scheme without brk_hat: decrypt OK "
+        f"x{1 + CHAIN}, output bit-identical to bootstrap_mx3 on the ciphertext of phase 8 (b and a); "
+        f"first {boot['first_s'] * 1e3:.1f} ms; chain {dt * 1e3:.1f} ms/batch = {BATCH / dt:.2f} boots/s; "
+        f"launches in {1 + CHAIN} bootstraps: mx sweep {launches['mx']}, NTT fwd {launches['fwd']} "
+        f"inv {launches['inv']} ({smi})"
+    )
+    prof = profile_bootstrap(
+        bootstrap_mx2, ct, lean, params,
+        {"mx sweep kernel": "mx_sweep_kernel", "NTT kernels": "ntt_nat_kernel"},
+    )
+    print(profile_line("17b profile", "bootstrap_mx2", prof, smi))
+
+    # 18. the KMS batch-minor engine on the same ciphertext: same bits
+    t0 = time.time()
+    bm_keys = batchminor.build_bm_kms_phase1(party_keys, params)
+    torch.cuda.synchronize()
+    bm_build_s = time.time() - t0
+
+    def bootstrap_bm(ct, scheme, params):
+        return kms.bootstrap_bm(ct, scheme, bm_keys, params)
+
+    reset_launches()
+    t0 = time.time()
+    out = checked_bootstrap(bootstrap_bm, ct, ~(m1 & m2), lean, params, decrypt, "kms.bootstrap_bm")
+    bm_s = time.time() - t0
+    bm_launches = read_launches()
+    if bm_launches["fwd_bm"] == 0 or bm_launches["inv_bm"] == 0:
+        raise SystemExit(f"kms.bootstrap_bm did not launch the batch-minor NTT kernels: {bm_launches}")
+    if not (torch.equal(out.b, boot["first"].b) and torch.equal(out.a, boot["first"].a)):
+        raise SystemExit("kms.bootstrap_bm and bootstrap_mx2 differ on the same ciphertext")
+    print(
+        f"[18 kms.bootstrap_bm] same ciphertext, batch {BATCH}, scheme without brk_hat: decrypt OK, "
+        f"output bit-identical to bootstrap_mx2 (b and a); build_bm_kms_phase1 {bm_build_s:.2f} s "
+        f"({bm_keys.brk_bm.shape[2]} primes); one bootstrap {bm_s:.2f} s (host clock to the decrypted "
+        f"bits, no warm-up); batch-minor NTT launches fwd {bm_launches['fwd_bm']} inv "
+        f"{bm_launches['inv_bm']}, natural NTT fwd {bm_launches['fwd']} inv {bm_launches['inv']} ({smi})"
+    )
+
+    return [kernel_row(
+        "mx_sweep_binary", "mx_sweep.cu", "mktfhe_tpu/kernels/fused_mx2.py:217", launches["mx"],
+        rows3["err"], rows3["ms"], rows3["plain_ms"], rows3,
+    )]
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> dict:
     return {
         "name": name,
@@ -519,9 +691,10 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> di
     }
 
 
-def run_kms(gen, device, smi: str) -> list[dict]:
+def run_kms(gen, device, smi: str) -> tuple[list[dict], dict]:
     """Phases 3-9: the KMS paths and their kernels; returns their rows of
-    the kernels line."""
+    the kernels line, and the KMS8party keys, ciphertext and `bootstrap_mx3`
+    output that the later phases go on from."""
     # 3. NTT kernel vs plain version
     ntt = check_ntt(gen, device)
     (kf, pf), (ki, pi) = ntt["times"]["fwd"], ntt["times"]["inv"]
@@ -535,12 +708,12 @@ def run_kms(gen, device, smi: str) -> list[dict]:
     params = KMS_8PARTY_BLOCK
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    lwe_keys, scheme = keygen(gen, params)
+    lwe_keys, scheme, _ = keygen(gen, params)
     torch.cuda.synchronize()
     block_s = time.time() - t0
     t0 = time.time()
-    bin_keys, bin_scheme = keygen(gen, KMS_8PARTY)
-    wide_keys, wide_scheme = keygen(gen, WIDE_GADGET)
+    bin_keys, bin_scheme, bin_party_keys = keygen(gen, KMS_8PARTY)
+    _, wide_scheme, wide_party_keys = keygen(gen, WIDE_GADGET)
     torch.cuda.synchronize()
     print(
         f"[4 keygen] KMS8partyblock (k={params.k}, n={params.n}, N={params.big_n}, "
@@ -563,7 +736,7 @@ def run_kms(gen, device, smi: str) -> list[dict]:
         f"steps: kernel {sweep_bin['ms']:.2f} ms vs plain {sweep_bin['plain_ms']:.1f} ms (bound "
         f"{sweep_bin['bound_ms']:.2f} ms by {sweep_bin['bound_by']}) ({smi})"
     )
-    del wide_keys, wide_scheme
+    del wide_scheme
 
     # 6. the KMS main path: counts reset just before it, read just after
     def decrypt(out):
@@ -608,11 +781,11 @@ def run_kms(gen, device, smi: str) -> list[dict]:
     )
 
     # 8. the binary-key path
-    bct, _, bm1, bm2 = gate_inputs(gen, KMS_8PARTY, bin_keys, BATCH)
+    bct, bc2, bm1, bm2 = gate_inputs(gen, KMS_8PARTY, bin_keys, BATCH)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.time()
-    checked_bootstrap(
+    mx3_out = checked_bootstrap(
         fused_mx3.bootstrap_mx3, bct, ~(bm1 & bm2), bin_scheme, KMS_8PARTY,
         lambda out: lwe_decrypt_bit_mk(out, bin_keys), "KMS8party bootstrap_mx3",
     )
@@ -643,7 +816,12 @@ def run_kms(gen, device, smi: str) -> list[dict]:
             ("phase1_sweep_binary", sweep_bin, bin_launches["sweep"]),
         )
     ]
-    return rows
+    binary = {
+        "lwe_keys": bin_keys, "scheme": bin_scheme, "party_keys": bin_party_keys,
+        "wide_party_keys": wide_party_keys, "ct": bct, "c2": bc2, "m1": bm1, "m2": bm2,
+        "mx3_out": mx3_out, "sweep_ms": sweep_bin["ms"],
+    }
+    return rows, binary
 
 
 def run_cggi(gen, device, smi: str) -> list[dict]:
@@ -769,11 +947,12 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE]
+    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE, fused_mx2.SOURCE]
     libs = _build.build_all(sources)
     kntt.load_library()
     fused_mx3.load_library()
     fused_step.load_library()
+    fused_mx2.load_library()
     usage = "; ".join(
         f"{src.name}: {' | '.join(_build.resource_usage(lib))}" for src, lib in zip(sources, libs)
     )
@@ -783,10 +962,12 @@ def main() -> int:
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kernels = run_kms(gen, device, smi) + run_cggi(gen, device, smi)
+    kernels, binary = run_kms(gen, device, smi)
+    kernels += run_cggi(gen, device, smi)
+    kernels += run_mx2(gen, device, smi, binary)
 
-    # 15. results
-    print(f"[15 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")
+    # 19. results
+    print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -18,6 +18,8 @@ import torch
 
 from .ciphertext.keys import LweKey
 from .ciphertext.lwe import Lwe
+from .kernels.batchminor import BmKmsPhase1
+from .kernels.fused_mx2 import MxKmsKeys
 from .schemes import params as _params
 from .schemes.cggi import CggiScheme
 from .schemes.kms import KmsPartyKey
@@ -64,6 +66,20 @@ def cggi_scheme(scheme, device) -> CggiScheme:
         brk_hat=from_numpy(scheme.brk_hat, device),
         ksk_b=from_numpy(scheme.ksk_b, device),
         ksk_a=from_numpy(scheme.ksk_a, device),
+    )
+
+
+def mx_kms_keys(keys, device) -> MxKmsKeys:
+    """A reference MxKmsKeys on `device`: `brk_mx` u32 as int32 residues.  The
+    reference's Shoup companion `brk_mx_shoup` has no counterpart in the port
+    and is dropped."""
+    return MxKmsKeys(brk_mx=from_numpy(keys.brk_mx, device))
+
+
+def bm_kms_phase1(keys, device) -> BmKmsPhase1:
+    """A reference BmKmsPhase1 on `device`, without its Shoup companions."""
+    return BmKmsPhase1(
+        brk_bm=from_numpy(keys.brk_bm, device), mono_hat=from_numpy(keys.mono_hat, device)
     )
 
 

@@ -13,8 +13,13 @@ leaves more than 5 bits of margin below prod(primes)/2, and
 `convert_scheme` refuses parameters that do not cover it.
 
 Bit-identical to the reference engine schemes/cggi.py
-(tests/test_torch_cggi_engines.py).  Only the CGGI part of the JAX module
-is here; its KMS phase 1 (`BmKmsPhase1`, `kms_phase1_bm`) is not ported yet.
+(tests/test_torch_cggi_engines.py).
+
+The KMS half (`BmKmsPhase1`, `build_bm_kms_phase1`, `kms_phase1_bm`; the
+bootstrap is schemes/kms.py:bootstrap_bm) runs one party's phase-1 rotation
+the same way over an RLEV accumulator on the 2^64 torus, on its own image of
+the bootstrapping keys in a prime basis wide enough for the monomial table;
+bit-identical to schemes.kms.bootstrap (tests/test_torch_kms_bm.py).
 """
 
 from __future__ import annotations
@@ -25,14 +30,16 @@ import torch
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.lwe import Lwe
-from ..ring.context import RingCtx, nprimes_needed
+from ..ciphertext.rlwe import gadget_gvec
+from ..ring.context import RingCtx, make_ring_ctx, nprimes_monomial_weighted, nprimes_needed
 from ..ring.modring import mulsum_mod, prime_column
-from ..ring.torus import from_crt
+from ..ring.ntt import fwd_ntt
+from ..ring.torus import from_crt, lift
 from ..schemes.cggi import CggiScheme, _ctx
 from ..schemes.common import initial_acc, keyswitch_table, mod_switch_2n
 from ..schemes.kms import monomial_table
-from ..schemes.params import CggiParams
-from .ntt import fwd_ntt_bm, inv_ntt_bm
+from ..schemes.params import CggiParams, KmsParams
+from .ntt import fwd_ntt_bm, fwd_ntt_nat, inv_ntt_bm
 
 
 def _p_col(ctx: RingCtx, device) -> torch.Tensor:
@@ -121,3 +128,63 @@ def bootstrap_bm(ct: Lwe, scheme: BmScheme, params: CggiParams) -> Lwe:
     acc = blind_rotate_bm(acc.permute(1, 2, 0).contiguous(), tildea, scheme, params, ctx)
     acc = acc.permute(2, 0, 1)  # -> [G, k+1, N]
     return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
+
+
+@dataclass(frozen=True)
+class BmKmsPhase1:
+    """KMS phase-1 keys in batch-minor form (no Shoup companions).
+
+    brk_bm: [k, n, npr', 2*l_gsw, 2, N]; mono_hat: [2N, npr', N].  npr' may
+    exceed the scheme's ring prime count, because the evaluation-domain
+    monomial weight doubles the reconstruction bound against the roll of
+    the reference engine; the phase-1 output re-enters the scheme's prime
+    basis through the torus, so phase 2 is unaffected.
+    """
+
+    brk_bm: torch.Tensor
+    mono_hat: torch.Tensor
+
+
+def build_bm_kms_phase1(party_keys, params: KmsParams) -> BmKmsPhase1:
+    """Convert KMS party keys (torus domain, `KmsPartyKey.brk`
+    [n, 2, l, 2, N]) for the batch-minor phase 1, one party at a time."""
+    npr = nprimes_monomial_weighted(
+        params.ring_torus_bits, params.big_n, params.l_gsw, params.log_b_gsw)
+    ctx = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
+    brk0 = party_keys[0].brk
+    n_bits, cin, l, cout, n = brk0.shape
+    brk_bm = torch.empty((len(party_keys), n_bits, npr, cin * l, cout, n), dtype=torch.int32, device=brk0.device)
+    for i, pk in enumerate(party_keys):
+        hat = fwd_ntt(lift(pk.brk, ctx.crt), ctx.plan)  # [n, cin, l, cout, npr, N]
+        brk_bm[i] = hat.permute(0, 4, 1, 2, 3, 5).reshape(n_bits, npr, cin * l, cout, n)
+    return BmKmsPhase1(brk_bm=brk_bm, mono_hat=monomial_table(ctx, brk0.device))
+
+
+def kms_phase1_bm(tildea_p: torch.Tensor, brk_p: torch.Tensor, phase1_keys: BmKmsPhase1, iter_rows: int, params: KmsParams, out_ctx: RingCtx) -> torch.Tensor:
+    """Batch-minor KMS phase 1 for one party (cf. schemes/kms.py:phase1).
+
+    tildea_p: [G, n]; brk_p: [n, npr', 2l, 2, N] (one party of
+    `phase1_keys.brk_bm`).  Returns the party's lev key in the scheme's own
+    prime basis `out_ctx`: [G, iter_rows, 2, npr, N] int32.
+    """
+    npr_p = brk_p.shape[1]
+    ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, npr_p)
+    g, n, l = tildea_p.shape[0], params.big_n, params.l_gsw
+    dev = tildea_p.device
+    p = _p_col(ctx_p, dev)[..., None]  # over [npr', rows, 2, N, G]
+
+    gvec = gadget_gvec(params.l_lev, params.log_b_lev, ctx_p.dtype, dev)[:iter_rows]
+    acc = torch.zeros((iter_rows, 2, n, g), dtype=ctx_p.dtype, device=dev)
+    acc[:, 0, 0, :] = gvec[:, None]
+    for i in range(params.n):
+        dhat = decomp_hat_bm(acc.reshape(iter_rows * 2, n, g), l, params.log_b_gsw, ctx_p)
+        dhat = dhat.reshape(npr_p, iter_rows, 2 * l, n, g)
+        # [npr', 1, 2l, 2, N, 1] x [npr', rows, 2l, 1, N, G] -> [npr', rows, 2, N, G]
+        ehat = mulsum_mod(brk_p[i][:, None, :, :, :, None], dhat[:, :, :, None], 2, p)
+        mono = phase1_keys.mono_hat[tildea_p[:, i].long()].permute(1, 2, 0)  # [npr', N, G]
+        weighted = torch.remainder(ehat * mono[:, None, None], p).to(torch.int32)
+        e = inv_ntt_bm(weighted.reshape(npr_p, iter_rows * 2, n, g), ctx_p.plan)
+        acc = acc + from_crt_bm(e, ctx_p, ctx_p.dtype).reshape(iter_rows, 2, n, g)
+    # back to the standard layout and the scheme's prime basis for phase 2
+    acc_std = acc.permute(3, 0, 1, 2).contiguous()  # [G, rows, 2, N]
+    return fwd_ntt_nat(lift(acc_std, out_ctx.crt), out_ctx.plan)

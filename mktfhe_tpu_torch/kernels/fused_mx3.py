@@ -35,7 +35,7 @@ from ..ring.context import RingCtx
 from ..ring.modring import MAX_PRODUCT_TERMS, PRIMES, prime_column, shoup
 from ..ring.ntt import fwd_ntt, inv_ntt
 from ..ring.torus import from_crt, lift, negacyclic_roll
-from ..schemes.common import initial_acc, mod_switch_2n
+from ..schemes.common import mod_switch_2n
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
 from .ntt import MAX_N, MAX_NPR, MIN_N, MIN_NPR, _kernel_tables, fwd_ntt_nat
@@ -254,6 +254,7 @@ def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:
     row (its phase 2 reads no other), the others l_lev."""
     from ..schemes import kms  # kms imports this module
 
+    kms.require_brk(scheme, "bootstrap_mx3")
     ctx = kms._ctx(params)
     k = params.k
     tildeb, tildea = mod_switch_2n(ct, params.big_n)
@@ -265,11 +266,4 @@ def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:
         )
         for party in range(k)
     ]
-    acc = initial_acc(tildeb, params.big_n, k, ctx.dtype)
-    for p1 in range(1, k + 1):
-        acc = kms._phase2_party_mat(
-            acc, levkeys[p1 - 1], p1,
-            scheme.rlk_d_hat[p1 - 1], scheme.rlk_f_hat[p1 - 1],
-            scheme.pub_b_hat[: p1 - 1], scheme.crs_hat, params, ctx,
-        )
-    return kms._keyswitch(acc, scheme, params)
+    return kms._keyswitch(kms._phase2(tildeb, levkeys, scheme, params, ctx), scheme, params)

@@ -56,3 +56,10 @@ def nprimes_needed(torus_bits: int, n: int, terms) -> int:
         npr += 1
         assert npr <= len(PRIMES), "contraction exceeds available CRT range"
     return npr
+
+
+def nprimes_monomial_weighted(torus_bits: int, n: int, l_gsw: int, log_b_gsw: int) -> int:
+    """CRT primes that cover a rank-1 external product (2 * l_gsw digit terms)
+    weighted by X^a - 1 in the evaluation domain: the two-term monomial
+    doubles the bound against a roll on the torus."""
+    return nprimes_needed(torus_bits, n, [(1 << (log_b_gsw - 1), 2 * l_gsw * 2)])

@@ -19,6 +19,11 @@ digits by the lev key, relinearize through the party's rlk and public keys
 Key switch: modulus switch 2^64 -> 2^32, then the per-party int8-limb key
 switch (schemes/common.py).
 
+`bootstrap_bm` runs phase 1 on the batch-minor engine's own keys
+(kernels/batchminor.py), `kernels/fused_mx2.py:bootstrap_mx2` on mx-domain
+keys; neither reads `KmsScheme.brk_hat`, so `setup(..., with_brk=False)` and
+`drop_brk` give them a scheme without it.
+
 The scheme stores NTT-domain keys without Shoup companions: products of
 runtime residues are reduced with int64 `%`, which gives the same
 canonical residues and halves key memory.
@@ -26,6 +31,7 @@ canonical residues and halves key memory.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -149,12 +155,13 @@ def monomial_table(ctx: RingCtx, device) -> torch.Tensor:
     return fwd_ntt(lift(polys, ctx.crt), ctx.plan)
 
 
-def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKmsParams) -> KmsScheme:
+def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKmsParams, with_brk: bool = True) -> KmsScheme:
     """Aggregate party keys into NTT-domain images on the CRS's device.
 
     The brk images (2.55 GB at KMS8partyblock) are written party by party
     into one preallocated tensor, so only one party's transform temporaries
-    are alive at a time.
+    are alive at a time.  with_brk=False skips them (an empty `brk_hat`, as
+    after `drop_brk`): for the engines that carry their own phase-1 keys.
     """
     ctx = _ctx(params)
     dev = crs_polys.device
@@ -162,12 +169,15 @@ def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKms
     def hat(x):
         return fwd_ntt(lift(x, ctx.crt), ctx.plan)
 
-    brk0 = party_keys[0].brk
-    brk_hat = torch.empty(
-        (len(party_keys), *brk0.shape[:-1], ctx.nprimes, ctx.n), dtype=torch.int32, device=dev
-    )
-    for i, pk in enumerate(party_keys):
-        brk_hat[i] = hat(pk.brk)
+    if with_brk:
+        brk0 = party_keys[0].brk
+        brk_hat = torch.empty(
+            (len(party_keys), *brk0.shape[:-1], ctx.nprimes, ctx.n), dtype=torch.int32, device=dev
+        )
+        for i, pk in enumerate(party_keys):
+            brk_hat[i] = hat(pk.brk)
+    else:
+        brk_hat = torch.zeros((0,), dtype=torch.int32, device=dev)
     if isinstance(params, KmsBlockParams):
         mono_hat = monomial_table(ctx, dev)
     else:
@@ -182,6 +192,25 @@ def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKms
         ksk_a=torch.stack([pk.ksk_a for pk in party_keys]),
         mono_hat=mono_hat,
     )
+
+
+def drop_brk(scheme: KmsScheme) -> KmsScheme:
+    """The scheme without its phase-1 keys (an empty `brk_hat`), for the
+    engines that carry their own: `fused_mx2.bootstrap_mx2` (`MxKmsKeys`) and
+    `bootstrap_bm` (`BmKmsPhase1`).  Phase 2 and the key switch never read
+    `brk_hat`; `bootstrap` and `bootstrap_mx3` do, and refuse such a scheme."""
+    empty = torch.zeros((0,), dtype=torch.int32, device=scheme.brk_hat.device)
+    return dataclasses.replace(scheme, brk_hat=empty)
+
+
+def require_brk(scheme: KmsScheme, engine: str) -> None:
+    """Raise if `scheme` has no phase-1 keys (`setup(with_brk=False)`,
+    `drop_brk`)."""
+    if scheme.brk_hat.numel() == 0:
+        raise ValueError(
+            f"{engine} reads scheme.brk_hat, which this scheme does not hold (setup with "
+            f"with_brk=False, or drop_brk); use bootstrap_mx2 or bootstrap_bm with their own keys"
+        )
 
 
 def _inv_to_torus(r: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
@@ -246,6 +275,19 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     return out
 
 
+def _phase2(tildeb: torch.Tensor, levkeys: list[torch.Tensor], scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
+    """The k sequential merges of phase 2 from the test vector: levkeys[i]
+    is party i+1's lev key [G, rows, 2, npr, N].  Returns acc [G, k+1, N]."""
+    acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
+    for p1 in range(1, params.k + 1):
+        acc = _phase2_party_mat(
+            acc, levkeys[p1 - 1], p1,
+            scheme.rlk_d_hat[p1 - 1], scheme.rlk_f_hat[p1 - 1],
+            scheme.pub_b_hat[: p1 - 1], scheme.crs_hat, params, ctx,
+        )
+    return acc
+
+
 def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
     """Two-phase multi-key blind rotation.  tildea: [G, k*n]; tildeb: [G].
     Returns acc [G, k+1, N] int64.
@@ -254,6 +296,7 @@ def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, 
     one RLEV row (the reference's iter=1 case); rows never mix, so that
     row is bit-identical to the JAX engine's uniform l_lev-row sweep.
     """
+    require_brk(scheme, "kms.bootstrap")
     k = params.k
     tild = tildea.reshape(tildea.shape[0], k, params.n)
     levkeys = []
@@ -266,15 +309,7 @@ def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, 
         else:
             lk = phase1(tild[:, party], scheme.brk_hat[party], rows, params, ctx)
         levkeys.append(lk)
-
-    acc = initial_acc(tildeb, params.big_n, k, ctx.dtype)
-    for p1 in range(1, k + 1):
-        acc = _phase2_party_mat(
-            acc, levkeys[p1 - 1], p1,
-            scheme.rlk_d_hat[p1 - 1], scheme.rlk_f_hat[p1 - 1],
-            scheme.pub_b_hat[: p1 - 1], scheme.crs_hat, params, ctx,
-        )
-    return acc
+    return _phase2(tildeb, levkeys, scheme, params, ctx)
 
 
 def _keyswitch(acc: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
@@ -301,3 +336,30 @@ def bootstrap(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
     tildeb, tildea = mod_switch_2n(ct, params.big_n)
     acc = blind_rotate(tildea, tildeb, scheme, params, ctx)
     return _keyswitch(acc, scheme, params)
+
+
+def bootstrap_bm(ct: Lwe, scheme: KmsScheme, phase1_keys, params: KmsParams) -> Lwe:
+    """KMS bootstrap with the batch-minor phase-1 engine (every phase-1 NTT
+    through the batch-minor NTT kernel).  phase1_keys:
+    kernels.batchminor.BmKmsPhase1 (from build_bm_kms_phase1); reads no
+    `scheme.brk_hat`.  Phase 2 and the key switch as in `bootstrap`;
+    bit-identical to it.  Binary keys only."""
+    from ..kernels.batchminor import kms_phase1_bm  # batchminor imports this module
+
+    if isinstance(params, KmsBlockParams):
+        raise TypeError(
+            "batch-minor phase 1 implements the binary-key rotation; use bootstrap or "
+            "bootstrap_mx3 for block presets"
+        )
+    ctx = _ctx(params)
+    k = params.k
+    tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    tild = tildea.reshape(tildea.shape[0], k, params.n)
+    levkeys = [
+        kms_phase1_bm(
+            tild[:, party], phase1_keys.brk_bm[party], phase1_keys,
+            1 if party == 0 else params.l_lev, params, ctx,
+        )
+        for party in range(k)
+    ]
+    return _keyswitch(_phase2(tildeb, levkeys, scheme, params, ctx), scheme, params)

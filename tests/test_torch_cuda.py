@@ -3,7 +3,9 @@
 The NTT kernel at every supported ring size and prime count, forward and
 inverse, in the natural and the batch-minor layout (whole and ragged gate
 tiles); the phase-1 sweep kernel over ring sizes, prime counts, binary and
-block keys, row counts, gadgets and batch sizes; the fused CGGI step kernel
+block keys, row counts, gadgets and batch sizes; the mx sweep kernel over
+ring sizes (nb = 1 to 16), the key's prime counts, row counts, gadgets and
+both homes of its power table; the fused CGGI step kernel
 over ring sizes, prime counts, gadgets (the 32-bit rounding carry live and
 not), step ranges and batch sizes; bit-exact (tolerance 0), plus the
 wrappers' contracts on CUDA tensors.  Skips where there is no
@@ -18,7 +20,7 @@ import dataclasses
 import pytest
 import torch
 
-from mktfhe_tpu_torch.kernels import fused_mx3, fused_step
+from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
@@ -143,6 +145,84 @@ def test_sweep_wrapper_contract_on_cuda(device):
     assert fused_mx3.phase1_sweep.launches == 0
     empty = fused_mx3.phase1_sweep(ta[:0], brk, 2, mono, params, ctx)
     assert tuple(empty.shape) == (0, 2, 2, ctx.n) and fused_mx3.phase1_sweep.launches == 0
+
+
+# --- the mx sweep kernel -----------------------------------------------------
+
+# (N, primes, rows, l_gsw, log_b_gsw, gates); at N = 2048 the power table lies
+# in shared memory up to l_gsw = 6 with 3 primes and in device memory with 4.
+MX_CASES = [
+    (128, 3, 1, 3, 8, 5),
+    (128, 4, 3, 3, 12, 3),
+    (128, 2, 2, 6, 7, 4),
+    (256, 3, 1, 3, 8, 6),
+    (256, 4, 3, 3, 12, 9),
+    (512, 3, 2, 1, 9, 4),
+    (1024, 3, 3, 4, 9, 7),
+    (2048, 3, 3, 4, 9, 50),
+    (2048, 3, 1, 4, 9, 140),
+    (2048, 4, 3, 3, 12, 10),
+    (2048, 3, 2, 6, 8, 4),
+    (2048, 4, 2, 6, 7, 4),
+]
+
+
+def _mx_inputs(n, npr, rows, l, log_b, g, device, seed=3):
+    """Parameters, the key's context and random inputs: key residues below
+    each prime in the mx layout, rotation amounts over all of [0, 2N),
+    accumulators over all of 64 bits."""
+    params = KmsParams(n=STEPS, big_n=n, l_gsw=l, log_b_gsw=log_b, **_COMMON)
+    ctx = make_ring_ctx(n, 64, npr)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    brk = torch.randint(0, 1 << 62, (STEPS, npr, 2 * l, 2, n), generator=gen, device=device)
+    brk = torch.remainder(brk, prime_column(npr, device)[:, None, None]).to(torch.int32)
+    ta = torch.randint(0, 2 * n, (g, STEPS), generator=gen, device=device, dtype=torch.int32)
+    ta[0, 0], ta[-1, -1] = 0, 2 * n - 1
+    acc0 = torch.randint(-(1 << 63), (1 << 63) - 1, (g, rows, 2, n), generator=gen, device=device)
+    acc0[0, 0, 0, :4] = torch.tensor([-1, -(1 << 63), (1 << 63) - 1, 0], device=device)
+    return params, ctx, ta, brk, acc0
+
+
+@pytest.mark.parametrize("shape", MX_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_mx_sweep_kernel_matches_plain(device, shape):
+    n, npr, rows, l, log_b, g = shape
+    params, ctx, ta, brk, acc0 = _mx_inputs(*shape, device)
+    fused_mx2.reset_launches()
+    keep = acc0.clone()
+    got = fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0)
+    torch.cuda.synchronize()
+    assert fused_mx2.mx_sweep.launches == 1
+    assert torch.equal(acc0, keep)  # the caller's accumulator is not written
+    assert torch.equal(got, fused_mx2.mx_sweep_plain(ta, brk, rows, params, ctx, acc0=acc0))
+    # from the LEV gadget rows, and on through the NTT kernel to the lev key
+    fresh = fused_mx2.mx_sweep(ta, brk, rows, params, ctx)
+    assert torch.equal(fresh, fused_mx2.mx_sweep_plain(ta, brk, rows, params, ctx))
+    out_ctx = make_ring_ctx(n, 64, 3)
+    levkey = fused_mx2.kms_phase1_mx2(ta, brk, rows, params, out_ctx)
+    assert tuple(levkey.shape) == (g, rows, 2, 3, n) and levkey.dtype == torch.int32
+    assert fused_mx2.mx_sweep.launches == 3
+
+
+def test_mx_sweep_wrapper_contract_on_cuda(device):
+    params, ctx, ta, brk, acc0 = _mx_inputs(128, 3, 2, 3, 8, 4, device)
+    fused_mx2.reset_launches()
+    with pytest.raises(ValueError):  # keys on another device
+        fused_mx2.mx_sweep(ta, brk.cpu(), 2, params, ctx)
+    with pytest.raises(ValueError):
+        fused_mx2.mx_sweep(ta, brk, 2, params, ctx, acc0=acc0.cpu())
+    with pytest.raises(ValueError):  # amounts outside [0, 2N)
+        fused_mx2.mx_sweep(ta + 2 * ctx.n, brk, 2, params, ctx)
+    with pytest.raises(ValueError):
+        fused_mx2.mx_sweep(ta.t().contiguous().t(), brk, 2, params, ctx)
+    with pytest.raises(TypeError):
+        fused_mx2.mx_sweep(ta.long(), brk, 2, params, ctx)
+    with pytest.raises(ValueError):  # the key's primes are not the context's
+        fused_mx2.mx_sweep(ta, brk, 2, params, make_ring_ctx(128, 64, 4))
+    with pytest.raises(ValueError):  # seven digits per component
+        fused_mx2.mx_sweep(ta, brk, 2, dataclasses.replace(params, l_gsw=7), ctx)
+    assert fused_mx2.mx_sweep.launches == 0
+    empty = fused_mx2.mx_sweep(ta[:0], brk, 2, params, ctx)
+    assert tuple(empty.shape) == (0, 2, 2, ctx.n) and fused_mx2.mx_sweep.launches == 0
 
 
 # --- the batch-minor NTT kernel ----------------------------------------------

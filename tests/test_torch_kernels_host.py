@@ -3,7 +3,7 @@
 There is no CUDA compiler or card where the CPU tests run, so the kernels
 in mktfhe_tpu_torch/csrc/ are otherwise only checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Here the device code of each
-source -- everything above its `extern "C"` entry points -- is compiled for
+source (ntt.cu, phase1_sweep.cu, cggi_step.cu, mx_sweep.cu) -- everything above its `extern "C"` entry points -- is compiled for
 the host with g++ against a small stand-in for the CUDA runtime header: one
 std::thread per CUDA thread, a std::barrier for `__syncthreads()`, CTAs one
 after the other.  That exercises the kernels' arithmetic, indexing and
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from mktfhe_tpu_torch.kernels import fused_mx3, fused_step
+from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import PRIMES
@@ -51,6 +51,11 @@ inline void __syncthreads() { g_barrier->arrive_and_wait(); }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
     return (uint64_t)(((unsigned __int128)a * b) >> 64);
+}
+inline uint32_t __brev(uint32_t v) {
+    uint32_t r = 0;
+    for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
+    return r;
 }
 alignas(16) inline unsigned char g_smem[1 << 20];
 // one CTA after the other, `threads` host threads each
@@ -128,6 +133,23 @@ extern "C" void host_cggi_step(void* acc, const void* tildea, const void* brk, c
 }
 """
 
+# `pow_shared` picks the kernel with the power table in shared memory or in
+# device memory, as the C entry point does from the CTA's shared-memory need
+MX_ENTRY = r"""
+extern "C" void host_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
+        const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
+        const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
+        int npr, int l, int log_b, int log_n, int pow_shared) {
+    const MxShape shape{rows, n_steps, npr, l, log_b, log_n};
+    auto kernel = pow_shared ? &mx_sweep_kernel<true> : &mx_sweep_kernel<false>;
+    run_grid(ctas, (1 << log_n) / 2, [=]() {
+        kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)pow,
+               (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
+               (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
+    });
+}
+"""
+
 
 def _host_library(source, entry: str, workdir):
     """The device code of `source` plus `entry`, compiled for the host."""
@@ -181,6 +203,15 @@ def step_lib(tmp_path_factory):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.host_cggi_step.argtypes = [ptr] * 9 + [ctypes.c_uint, ctypes.c_longlong] + [i32] * 7
     lib.host_cggi_step.restype = None
+    return lib
+
+
+@pytest.fixture(scope="module")
+def mx_lib(tmp_path_factory):
+    lib = _host_library(fused_mx2.SOURCE, MX_ENTRY, tmp_path_factory.mktemp("mx_host"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.host_mx_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 7
+    lib.host_mx_sweep.restype = None
     return lib
 
 
@@ -240,6 +271,55 @@ def test_sweep_kernel_source_matches_plain(sweep_lib, name):
     acc0 = torch.from_numpy(acc0)
     want = fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx, acc0)
     got = _host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0)
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+
+
+_MX = KmsParams(n=4, big_n=128, l_gsw=3, log_b_gsw=8, **_COMMON)
+# (parameters, primes, gates, rows, power table in shared memory)
+MX_CASES = {
+    "n128_row1": (_MX, 3, 3, 1, True),
+    "n128_rows_l_lev": (_MX, 3, 2, 2, True),
+    "n128_4primes_table_in_device_memory": (_MX, 4, 2, 2, False),
+    "n128_wide_gadget_4primes": (dataclasses.replace(_MX, log_b_gsw=12), 4, 2, 1, True),
+    "n128_l6_2primes": (dataclasses.replace(_MX, l_gsw=6, log_b_gsw=7), 2, 2, 1, False),
+    "n256_row1": (dataclasses.replace(_MX, big_n=256, n=3), 3, 2, 1, True),
+    "n256_rows_l_lev_4primes": (dataclasses.replace(_MX, big_n=256, n=3), 4, 1, 2, True),
+    "n256_wide_gadget": (dataclasses.replace(_MX, big_n=256, n=3, log_b_gsw=12), 3, 2, 2, False),
+    "n512_one_digit": (dataclasses.replace(_MX, big_n=512, n=2, l_gsw=1, log_b_gsw=9), 3, 1, 2, True),
+    # nb = 8: the first size at which a warp's 4 values of k2' are not all of them
+    "n1024_two_digits": (dataclasses.replace(_MX, big_n=1024, n=2, l_gsw=2, log_b_gsw=9), 3, 1, 1, True),
+    "n2048_kms8party_gadget": (dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=4, log_b_gsw=9), 3, 1, 1, True),
+}
+
+
+@pytest.mark.parametrize("name", list(MX_CASES))
+def test_mx_sweep_kernel_source_matches_plain(mx_lib, name):
+    """The key's mx order read through the permutation (nb = 1, 2, 4), the
+    monomial from the power table in either memory, the key's own prime
+    count, from accumulators with extreme bits."""
+    params, npr, g, rows, pow_shared = MX_CASES[name]
+    ctx = make_ring_ctx(params.big_n, 64, npr)
+    n, l = ctx.n, params.l_gsw
+    rng = np.random.default_rng(len(name))
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None, None, None]
+    brk = torch.from_numpy((rng.integers(0, 1 << 62, size=(params.n, npr, 2 * l, 2, n)) % p).astype(np.int32))
+    ta = torch.from_numpy(rng.integers(0, 2 * n, size=(g, params.n)).astype(np.int32))
+    ta[0, 0], ta[-1, -1] = 0, 2 * n - 1
+    acc0 = rng.integers(-(1 << 63), (1 << 63) - 1, size=(g, rows, 2, n), dtype=np.int64)
+    acc0[0, 0, 0, :8] = [-1, -(1 << 63), (1 << 63) - 1, 0, 1, -(1 << 62), (1 << 62) - 1, -2]
+    acc0 = torch.from_numpy(acc0)
+    want = fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0)
+    got = acc0.clone()
+    tw_f, tw_f_sh, _ = kntt._kernel_tables(n, npr, True, CPU)
+    tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
+    consts = fused_mx3._sweep_consts(n, npr, CPU)
+    powers = fused_mx2._power_table_on(n, npr, CPU)
+    mx_lib.host_mx_sweep(
+        got.data_ptr(), ta.data_ptr(), brk.data_ptr(), powers.data_ptr(),
+        tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
+        consts.data_ptr(), ctx.crt.prod_mod64, g * rows, rows, params.n, npr, l,
+        params.log_b_gsw, n.bit_length() - 1, int(pow_shared),
+    )
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
 
 
