@@ -82,7 +82,7 @@ from mktfhe_tpu_torch.schemes.gates import (
     lwe_ith_encrypt_bit,
 )
 from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
-from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM, KMS_8PARTY, KMS_8PARTY_BLOCK
+from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM, KMS_8PARTY, KMS_8PARTY_BLOCK, KMS_32PARTY
 
 BATCH = 128
 CHAIN = 2
@@ -96,13 +96,24 @@ CHECK_STEPS = 4  # steps of the sweep / the CGGI step range in the kernel-vs-pla
 CGGI_BATCH = 256
 # (npr, R, N, G), gate batch minor: the digit transforms of one batch-minor
 # CGGI step at G=256 (2 components x 3 digits), its inverse (2 components),
-# and a small ragged batch (one short gate tile) at the kernel's lower limits.
-NTT_BM_SHAPES = [(2, 6, 1024, 256), (2, 2, 1024, 256), (2, 3, 64, 5)]
+# a small ragged batch (one short gate tile) at the kernel's lower limits, and
+# what kms.bootstrap_bm launches per step at KMS8party, batch 128: the digit
+# transforms of 3 RLEV rows and of party 1's single row (rows x 2 components
+# x 4 digits) and their inverses (rows x 2).
+NTT_BM_SHAPES = [
+    (2, 6, 1024, 256), (2, 2, 1024, 256), (2, 3, 64, 5),
+    (3, 24, 2048, 128), (3, 6, 2048, 128), (3, 8, 2048, 128), (3, 2, 2048, 128),
+]
 # a small parameter set with the wide gadget of KMS2party (log_b_gsw = 12)
 WIDE_GADGET = KmsParams(
     n=CHECK_STEPS, alpha=16.0, f=8, log_d=2, big_n=256, beta=4.0,
     l_gsw=3, log_b_gsw=12, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2,
 )
+# KMS32party's gadget (l_gsw = 6) at full N and few steps: with four primes the
+# mx sweep's power table no longer fits in shared memory beside the digits and
+# is read from device memory (the kernel's other template instance)
+SIX_DIGITS = dataclasses.replace(KMS_32PARTY, n=CHECK_STEPS, k=2)
+SIX_DIGITS_PRIMES = 4
 
 # The card's peaks for the bounds.  Device memory: 3.35 TB/s (H100 SXM data
 # sheet).  32-bit integer arithmetic outside the tensor cores: Hopper runs
@@ -520,19 +531,19 @@ def cggi_gate_inputs(gen, params, lwe_key, batch: int):
     return gate_affine(GATE_IDS["NAND"], c1, c2), c2, m1, m2
 
 
-def mx_sweep_bound(params, ctx_p, g: int, rows: int, tildea: torch.Tensor, sms: int) -> dict:
+def mx_sweep_bound(params, ctx_p, g: int, rows: int, tildea: torch.Tensor) -> dict:
     """Least time of one mx sweep on the card, as `sweep_bound` for binary
     keys, with the monomial formed from the power table: per position, prime
     and output component one more 64-bit product and Barrett step, plus the
     table index and the subtraction of 1.  Bytes: the accumulator read and
-    written, the rotation amounts, the twiddles and the power table once, and
-    the party's key rows once per wave of CTAs (one CTA fills an SM, waves
-    run one after the other, and a party's keys exceed the L2 cache)."""
+    written, the rotation amounts, the party's key rows, the twiddles and the
+    power table, each once.  (The kernel itself reads the keys once per wave
+    of CTAs: one CTA fills an SM, the waves run one after the other, and a
+    party's keys exceed the L2 cache.  That is its cost, not the function's.)"""
     n, npr, l = ctx_p.n, ctx_p.nprimes, params.l_gsw
     log_n = n.bit_length() - 1
-    waves = -(-g * rows // sms)
-    nbytes = (2 * g * rows * 2 * n * 8 + tildea.numel() * 4 + 4 * npr * n * 4 + 2 * n * npr * 4
-              + waves * params.n * npr * 2 * l * 2 * n * 4)
+    nbytes = (2 * g * rows * 2 * n * 8 + tildea.numel() * 4 + params.n * 2 * l * 2 * npr * n * 4
+              + 4 * npr * n * 4 + 2 * n * npr * 4)
     ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
     position = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + 2 * (OPS_PRODUCT_TERM + OPS_BARRETT) + 8
     per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * position + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
@@ -561,13 +572,11 @@ def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple
     return err, (tildea, brk_mx_p, rows, params, ctx_p)
 
 
-def run_mx2(gen, device, smi: str, binary: dict) -> list[dict]:
+def run_mx2(gen, smi: str, binary: dict) -> list[dict]:
     """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
     KMS batch-minor engine; returns the mx sweep's row of the kernels line."""
     params = KMS_8PARTY
     lwe_keys, party_keys = binary["lwe_keys"], binary["party_keys"]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-
     # 15. mx-domain keys
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -577,37 +586,45 @@ def run_mx2(gen, device, smi: str, binary: dict) -> list[dict]:
     torch.cuda.synchronize()
     build_s = time.time() - t0
     wide_keys = fused_mx2.build_mx_kms_keys(binary["wide_party_keys"], WIDE_GADGET)
+    crs = kms.crs(gen, SIX_DIGITS)
+    six_keys = fused_mx2.build_mx_kms_keys(
+        [kms.party_keygen(gen, crs, SIX_DIGITS)[3] for _ in range(SIX_DIGITS.k)], SIX_DIGITS, SIX_DIGITS_PRIMES,
+    )
     print(
         f"[15 mx keys] build_mx_kms_keys on the KMS8party party keys: brk_mx "
         f"{list(mx_keys.brk_mx.shape)} int32 = {mx_keys.brk_mx.numel() * 4 / 1e9:.2f} GB, "
         f"{mx_keys.brk_mx.shape[2]} primes, in {build_s:.2f} s; peak allocated above what was held "
         f"before {(torch.cuda.max_memory_allocated() - before) / 1e9:.2f} GB; the wide-gadget set: "
-        f"{wide_keys.brk_mx.shape[2]} primes ({smi})"
+        f"{wide_keys.brk_mx.shape[2]} primes; the six-digit set (N={SIX_DIGITS.big_n}, l_gsw="
+        f"{SIX_DIGITS.l_gsw}, {SIX_DIGITS.n} steps): {six_keys.brk_mx.shape[2]} primes ({smi})"
     )
 
     # 16. mx sweep kernel vs plain version
     err3, args3 = check_mx_sweep(gen, params, mx_keys.brk_mx[1], BATCH, params.l_lev)
     err1, args1 = check_mx_sweep(gen, params, mx_keys.brk_mx[0], BATCH, 1)
     err_wide, _ = check_mx_sweep(gen, WIDE_GADGET, wide_keys.brk_mx[1], 5, WIDE_GADGET.l_lev)
+    err_six, _ = check_mx_sweep(gen, SIX_DIGITS, six_keys.brk_mx[1], 5, SIX_DIGITS.l_lev)
     for args in (args3, args1):  # warm-up at the full shapes
         fused_mx2.mx_sweep(*args)
     rows3 = {
-        "err": max(err3, err1, err_wide),
+        "err": max(err3, err1, err_wide, err_six),
         "ms": _sync_ms(lambda: fused_mx2.mx_sweep(*args3), 3),
         "plain_ms": _sync_ms(lambda: fused_mx2.mx_sweep_plain(*args3), 1),
-        **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0], sms),
+        **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0]),
     }
     row1_ms = _sync_ms(lambda: fused_mx2.mx_sweep(*args1), 3)
     print(
         f"[16 mx sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps on "
         f"real mx keys: KMS8party width at G={BATCH} with rows=3 and rows=1, wide gadget "
-        f"(N={WIDE_GADGET.big_n}, log_b_gsw={WIDE_GADGET.log_b_gsw}, {wide_keys.brk_mx.shape[2]} primes); "
+        f"(N={WIDE_GADGET.big_n}, log_b_gsw={WIDE_GADGET.log_b_gsw}, {wide_keys.brk_mx.shape[2]} primes), "
+        f"six digits with the power table in device memory (N={SIX_DIGITS.big_n}, l_gsw={SIX_DIGITS.l_gsw}, "
+        f"{six_keys.brk_mx.shape[2]} primes, G=5); "
         f"one party's sweep, G={BATCH}, {params.n} steps: rows=3 kernel {rows3['ms']:.2f} ms vs plain "
-        f"{rows3['plain_ms']:.1f} ms (bound {rows3['bound_ms']:.2f} ms by {rows3['bound_by']}, keys "
-        f"counted once per wave of {sms} CTAs), rows=1 kernel {row1_ms:.2f} ms; the torus-roll sweep "
+        f"{rows3['plain_ms']:.1f} ms (bound {rows3['bound_ms']:.2f} ms by {rows3['bound_by']}), "
+        f"rows=1 kernel {row1_ms:.2f} ms; the torus-roll sweep "
         f"of phase 5 on the same card, same steps: {binary['sweep_ms']:.2f} ms ({smi})"
     )
-    del wide_keys
+    del wide_keys, six_keys
 
     # 17. this slice's main path, on a scheme without brk_hat: counts reset
     # just before it, read just after
@@ -964,7 +981,7 @@ def main() -> int:
     gen = torch.Generator(device=device).manual_seed(SEED)
     kernels, binary = run_kms(gen, device, smi)
     kernels += run_cggi(gen, device, smi)
-    kernels += run_mx2(gen, device, smi, binary)
+    kernels += run_mx2(gen, smi, binary)
 
     # 19. results
     print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")

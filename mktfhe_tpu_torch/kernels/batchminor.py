@@ -37,7 +37,7 @@ from ..ring.ntt import fwd_ntt
 from ..ring.torus import from_crt, lift
 from ..schemes.cggi import CggiScheme, _ctx
 from ..schemes.common import initial_acc, keyswitch_table, mod_switch_2n
-from ..schemes.kms import monomial_table
+from ..schemes.kms import monomial_table, phase1_key_image
 from ..schemes.params import CggiParams, KmsParams
 from .ntt import fwd_ntt_bm, fwd_ntt_nat, inv_ntt_bm
 
@@ -151,13 +151,8 @@ def build_bm_kms_phase1(party_keys, params: KmsParams) -> BmKmsPhase1:
     npr = nprimes_monomial_weighted(
         params.ring_torus_bits, params.big_n, params.l_gsw, params.log_b_gsw)
     ctx = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
-    brk0 = party_keys[0].brk
-    n_bits, cin, l, cout, n = brk0.shape
-    brk_bm = torch.empty((len(party_keys), n_bits, npr, cin * l, cout, n), dtype=torch.int32, device=brk0.device)
-    for i, pk in enumerate(party_keys):
-        hat = fwd_ntt(lift(pk.brk, ctx.crt), ctx.plan)  # [n, cin, l, cout, npr, N]
-        brk_bm[i] = hat.permute(0, 4, 1, 2, 3, 5).reshape(n_bits, npr, cin * l, cout, n)
-    return BmKmsPhase1(brk_bm=brk_bm, mono_hat=monomial_table(ctx, brk0.device))
+    brk_bm = phase1_key_image(party_keys, ctx, fwd_ntt)
+    return BmKmsPhase1(brk_bm=brk_bm, mono_hat=monomial_table(ctx, brk_bm.device))
 
 
 def kms_phase1_bm(tildea_p: torch.Tensor, brk_p: torch.Tensor, phase1_keys: BmKmsPhase1, iter_rows: int, params: KmsParams, out_ctx: RingCtx) -> torch.Tensor:

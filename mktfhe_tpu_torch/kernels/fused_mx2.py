@@ -43,7 +43,6 @@ from ..ring.context import RingCtx, make_ring_ctx, nprimes_monomial_weighted
 from ..ring.modring import PRIMES, _root_of_unity, mulsum_mod, prime_column
 from ..ring.ntt import fwd_ntt
 from ..ring.torus import from_crt, lift
-from ..schemes.common import mod_switch_2n
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
 from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, phase1_init
@@ -76,15 +75,11 @@ def build_mx_kms_keys(party_keys, params: KmsParams, npr: int | None = None) -> 
     [n, 2, l, 2, N]) for the mx engine, one party at a time: lift, forward
     transform into the mx order, then [n, 2, l, 2, npr, N] ->
     [n, npr, 2l, 2, N].  `npr` overrides the prime count."""
+    from ..schemes import kms  # kms imports the kernels package
+
     npr = mx_nprimes(params) if npr is None else npr
     ctx = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
-    brk0 = party_keys[0].brk
-    n_bits, cin, l, cout, n = brk0.shape
-    out = torch.empty((len(party_keys), n_bits, npr, cin * l, cout, n), dtype=torch.int32, device=brk0.device)
-    for i, pk in enumerate(party_keys):
-        hat = mx_fwd_ref(lift(pk.brk, ctx.crt), ctx.plan)  # [n, 2, l, 2, npr, N]
-        out[i] = hat.permute(0, 4, 1, 2, 3, 5).reshape(n_bits, npr, cin * l, cout, n)
-    return MxKmsKeys(brk_mx=out)
+    return MxKmsKeys(brk_mx=kms.phase1_key_image(party_keys, ctx, mx_fwd_ref))
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,14 +281,7 @@ def bootstrap_mx2(ct: Lwe, scheme, mx_keys: MxKmsKeys, params: KmsParams) -> Lwe
     if isinstance(params, KmsBlockParams):
         raise TypeError(BINARY_ONLY)
     ctx = kms._ctx(params)
-    k = params.k
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    tild = tildea.reshape(tildea.shape[0], k, params.n)
-    levkeys = [
-        kms_phase1_mx2(
-            tild[:, party].contiguous(), mx_keys.brk_mx[party],
-            1 if party == 0 else params.l_lev, params, ctx,
-        )
-        for party in range(k)
-    ]
-    return kms._keyswitch(kms._phase2(tildeb, levkeys, scheme, params, ctx), scheme, params)
+    return kms.bootstrap_with_phase1(
+        ct, scheme, params,
+        lambda party, tildea_p, rows: kms_phase1_mx2(tildea_p, mx_keys.brk_mx[party], rows, params, ctx),
+    )

@@ -35,7 +35,6 @@ from ..ring.context import RingCtx
 from ..ring.modring import MAX_PRODUCT_TERMS, PRIMES, prime_column, shoup
 from ..ring.ntt import fwd_ntt, inv_ntt
 from ..ring.torus import from_crt, lift, negacyclic_roll
-from ..schemes.common import mod_switch_2n
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
 from .ntt import MAX_N, MAX_NPR, MIN_N, MIN_NPR, _kernel_tables, fwd_ntt_nat
@@ -256,14 +255,9 @@ def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:
 
     kms.require_brk(scheme, "bootstrap_mx3")
     ctx = kms._ctx(params)
-    k = params.k
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    tild = tildea.reshape(tildea.shape[0], k, params.n)
-    levkeys = [
-        kms_phase1_mx3(
-            tild[:, party].contiguous(), scheme.brk_hat[party],
-            1 if party == 0 else params.l_lev, scheme.mono_hat, params, ctx,
-        )
-        for party in range(k)
-    ]
-    return kms._keyswitch(kms._phase2(tildeb, levkeys, scheme, params, ctx), scheme, params)
+    return kms.bootstrap_with_phase1(
+        ct, scheme, params,
+        lambda party, tildea_p, rows: kms_phase1_mx3(
+            tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx
+        ),
+    )

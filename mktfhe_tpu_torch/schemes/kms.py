@@ -288,28 +288,51 @@ def _phase2(tildeb: torch.Tensor, levkeys: list[torch.Tensor], scheme: KmsScheme
     return acc
 
 
-def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
-    """Two-phase multi-key blind rotation.  tildea: [G, k*n]; tildeb: [G].
-    Returns acc [G, k+1, N] int64.
+def phase1_key_image(party_keys: list[KmsPartyKey], ctx: RingCtx, transform) -> torch.Tensor:
+    """The parties' bootstrapping keys (torus domain, `KmsPartyKey.brk`
+    [n, 2, l, 2, N]) in the layout of the engines that carry their own
+    phase-1 keys: lift into `ctx`'s primes, `transform(residues, ctx.plan)`
+    into the engine's evaluation order, then [n, 2, l, 2, npr, N] ->
+    [n, npr, 2l, 2, N]; one party at a time, so only one party's transform
+    temporaries are alive.  Returns [k, n, npr, 2l, 2, N] int32."""
+    brk0 = party_keys[0].brk
+    n_bits, cin, l, cout, n = brk0.shape
+    out = torch.empty(
+        (len(party_keys), n_bits, ctx.nprimes, cin * l, cout, n), dtype=torch.int32, device=brk0.device
+    )
+    for i, pk in enumerate(party_keys):
+        hat = transform(lift(pk.brk, ctx.crt), ctx.plan)  # [n, 2, l, 2, npr, N]
+        out[i] = hat.permute(0, 4, 1, 2, 3, 5).reshape(n_bits, ctx.nprimes, cin * l, cout, n)
+    return out
+
+
+def _levkeys(tildea: torch.Tensor, params: AnyKmsParams, phase1_party) -> list[torch.Tensor]:
+    """Phase 1 of every party.  tildea: [G, k*n];
+    `phase1_party(party, tildea_p [G, n] contiguous, iter_rows)` returns the
+    party's lev key [G, iter_rows, 2, npr, N].
 
     Party 1's phase 2 reads only row 0 of its lev key, so its phase 1 runs
     one RLEV row (the reference's iter=1 case); rows never mix, so that
     row is bit-identical to the JAX engine's uniform l_lev-row sweep.
     """
+    tild = tildea.reshape(tildea.shape[0], params.k, params.n)
+    return [
+        phase1_party(party, tild[:, party].contiguous(), 1 if party == 0 else params.l_lev)
+        for party in range(params.k)
+    ]
+
+
+def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
+    """Two-phase multi-key blind rotation.  tildea: [G, k*n]; tildeb: [G].
+    Returns acc [G, k+1, N] int64."""
     require_brk(scheme, "kms.bootstrap")
-    k = params.k
-    tild = tildea.reshape(tildea.shape[0], k, params.n)
-    levkeys = []
-    for party in range(k):
-        rows = 1 if party == 0 else params.l_lev
+
+    def phase1_party(party, tildea_p, rows):
         if isinstance(params, KmsBlockParams):
-            lk = phase1_block(
-                tild[:, party], scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx
-            )
-        else:
-            lk = phase1(tild[:, party], scheme.brk_hat[party], rows, params, ctx)
-        levkeys.append(lk)
-    return _phase2(tildeb, levkeys, scheme, params, ctx)
+            return phase1_block(tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
+        return phase1(tildea_p, scheme.brk_hat[party], rows, params, ctx)
+
+    return _phase2(tildeb, _levkeys(tildea, params, phase1_party), scheme, params, ctx)
 
 
 def _keyswitch(acc: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
@@ -327,6 +350,15 @@ def _keyswitch(acc: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams) -> Lw
     b = wrap_i32(b0.long() + db.sum(-1))
     a = wrap_i32(arr[..., :n].long() + da).reshape(arr.shape[0], -1)
     return Lwe(b=b, a=a)
+
+
+def bootstrap_with_phase1(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams, phase1_party) -> Lwe:
+    """The gate bootstrap around an engine's phase 1 (`phase1_party` as in
+    `_levkeys`): modulus switch, phase 1 per party, phase 2, key switch."""
+    ctx = _ctx(params)
+    tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    acc = _phase2(tildeb, _levkeys(tildea, params, phase1_party), scheme, params, ctx)
+    return _keyswitch(acc, scheme, params)
 
 
 def bootstrap(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
@@ -352,14 +384,9 @@ def bootstrap_bm(ct: Lwe, scheme: KmsScheme, phase1_keys, params: KmsParams) -> 
             "bootstrap_mx3 for block presets"
         )
     ctx = _ctx(params)
-    k = params.k
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    tild = tildea.reshape(tildea.shape[0], k, params.n)
-    levkeys = [
-        kms_phase1_bm(
-            tild[:, party], phase1_keys.brk_bm[party], phase1_keys,
-            1 if party == 0 else params.l_lev, params, ctx,
-        )
-        for party in range(k)
-    ]
-    return _keyswitch(_phase2(tildeb, levkeys, scheme, params, ctx), scheme, params)
+    return bootstrap_with_phase1(
+        ct, scheme, params,
+        lambda party, tildea_p, rows: kms_phase1_bm(
+            tildea_p, phase1_keys.brk_bm[party], phase1_keys, rows, params, ctx
+        ),
+    )
