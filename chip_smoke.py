@@ -4,15 +4,19 @@
 Phases, each printing one line; any failure exits non-zero:
   1. require a CUDA card; print `nvidia-smi` name and power limit;
   2. build the CUDA kernels from mktfhe_tpu_torch/csrc/ (nvcc, sm_90a, one
-     process per source, started together);
+     process per source, started together); the sweep kernels' template
+     instances that the main paths run must not spill registers;
   3. hold the NTT kernel against its plain PyTorch version on the card,
      bit-exact, forward and inverse, at the bootstrap's shapes, and time both;
   4. keygen on the card for KMS8partyblock and KMS8party: crs, 8 party
      keygens, setup;
   5. hold the phase-1 sweep kernel against its plain PyTorch version on the
      card, bit-exact, on real keys: block keys at KMS8partyblock width,
-     binary keys at KMS8party width, and a small wide-gadget case; time
-     kernel and plain version at the full number of steps;
+     binary keys at KMS8party width, and a small wide-gadget case, each
+     through the template instance compiled for its shape (named with its
+     threads, shared memory, registers and spills), and small block and
+     binary sets through the kernel with run-time shapes; time kernel and
+     plain version at the full number of steps;
   6. the main path: `bootstrap_mx3` of a batch of NAND gates on
      KMS8partyblock, decrypt-checked, then a timed data-dependent chain of
      two more (decrypt-checked too); the sweep and NTT kernels must have
@@ -40,8 +44,10 @@ Phases, each printing one line; any failure exits non-zero:
  15. mx-domain keys: `build_mx_kms_keys` on the KMS8party party keys of
      phase 4 (and on the wide-gadget set's);
  16. hold the mx sweep kernel against its plain version on those keys,
-     bit-exact, with 3 rows and with 1 row and on the wide-gadget set; time
-     kernel and plain version at the full number of steps;
+     bit-exact, with 3 rows and with 1 row, on the wide-gadget set and the
+     six-digit set, each through its template instance, and on a small set
+     through the kernel with run-time shapes; time kernel and plain version
+     at the full number of steps;
  17. this slice's main path: `bootstrap_mx2` of a batch of NAND gates on
      KMS8party, on a scheme without `brk_hat`, decrypt-checked, then a timed
      data-dependent chain of two more; the mx sweep and NTT kernels must have
@@ -115,6 +121,17 @@ WIDE_GADGET = KmsParams(
 SIX_DIGITS = dataclasses.replace(KMS_32PARTY, n=CHECK_STEPS, k=2)
 SIX_DIGITS_PRIMES = 4
 
+# small sets of no preset's shape: they run the sweep kernels' instances with
+# run-time shapes
+RUN_TIME_SHAPES = KmsParams(
+    n=CHECK_STEPS, alpha=16.0, f=8, log_d=2, big_n=512, beta=4.0,
+    l_gsw=2, log_b_gsw=10, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2,
+)
+RUN_TIME_SHAPES_BLOCK = KmsBlockParams(
+    d=CHECK_STEPS, ell=2, alpha=16.0, f=8, log_d=2, big_n=512, beta=4.0,
+    l_gsw=2, log_b_gsw=10, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2,
+)
+
 # The card's peaks for the bounds.  Device memory: 3.35 TB/s (H100 SXM data
 # sheet).  32-bit integer arithmetic outside the tensor cores: Hopper runs
 # it on half of the lanes that give the data sheet's 67 TFLOP/s of float32,
@@ -184,6 +201,50 @@ def _residues(gen, shape, device) -> torch.Tensor:
     rows, npr, n = shape
     x = torch.randint(0, 1 << 31, shape, generator=gen, device=device)
     return torch.remainder(x, prime_column(npr, device)).to(torch.int32)
+
+
+def instance_note(kernel: dict, usage: list[str], must_not_spill: bool) -> str:
+    """`kernel` (fused_mx3.sweep_kernel / fused_mx2.mx_kernel) with what ptxas
+    said of it; fails if an instance of a main path spills."""
+    said = [u.split(": ", 1)[1] for u in usage if u.startswith(kernel["name"] + ":")]
+    if len(said) != 1:
+        raise SystemExit(f"ptxas reported {len(said)} kernels named {kernel['name']}: {usage}")
+    if must_not_spill and ", 0 spill bytes" not in said[0]:
+        raise SystemExit(f"{kernel['name']} spills registers: {said[0]}")
+    return (f"{kernel['name']} ({kernel['threads']} threads, {kernel['shared_bytes']} B dynamic "
+            f"shared memory, {said[0]})")
+
+
+def check_run_time_shapes(gen, device) -> int:
+    """The sweep kernels' instances with run-time shapes vs the plain versions
+    on small sets of uniform residues (N = 512, two digits), block and binary
+    keys and mx keys; returns max |diff|."""
+    err = 0
+    for params in (RUN_TIME_SHAPES, RUN_TIME_SHAPES_BLOCK):
+        ctx = kms._ctx(params)
+        n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
+        block = isinstance(params, KmsBlockParams)
+        brk = _residues(gen, (params.n * 2 * l * 2, npr, n), device).reshape(params.n, 2, l, 2, npr, n)
+        mono = kms.monomial_table(ctx, device) if block else None
+        tildea = torch.randint(0, 2 * n, (5, params.n), generator=gen, device=device, dtype=torch.int32)
+        args = (tildea, brk, params.l_lev, mono, params, ctx)
+        if fused_mx3.sweep_instance(params, ctx) != 0:
+            raise SystemExit(f"{params} should run the sweep kernel with run-time shapes")
+        err = max(err, _max_abs_diff(fused_mx3.phase1_sweep(*args), fused_mx3.phase1_sweep_plain(*args)))
+    params = RUN_TIME_SHAPES
+    npr, l = fused_mx2.mx_nprimes(params), params.l_gsw
+    ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
+    n = ctx_p.n
+    brk_mx = _residues(gen, (params.n, npr, 2 * l * 2 * n), device).reshape(params.n, npr, 2 * l, 2, n)
+    tildea = torch.randint(0, 2 * n, (5, params.n), generator=gen, device=device, dtype=torch.int32)
+    args = (tildea, brk_mx, params.l_lev, params, ctx_p)
+    if fused_mx2.mx_instance(params, ctx_p) != 0:
+        raise SystemExit(f"{params} should run the mx sweep kernel with run-time shapes")
+    err = max(err, _max_abs_diff(fused_mx2.mx_sweep(*args), fused_mx2.mx_sweep_plain(*args)))
+    torch.cuda.synchronize()
+    if err > TOLERANCE:
+        raise SystemExit(f"a sweep kernel with run-time shapes disagrees with its plain version: max |diff| {err}")
+    return err
 
 
 def ntt_bound(shape, forward: bool) -> dict:
@@ -270,10 +331,11 @@ def sweep_bound(params, ctx, g: int, rows: int, tildea: torch.Tensor) -> dict:
     return _bound(nbytes, g * rows * steps * per_step)
 
 
-def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool) -> dict:
+def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool, plain: bool = True) -> dict:
     """The sweep kernel vs its plain version on the card, on `party`'s real
     keys and uniform rotation amounts: bit-exact over CHECK_STEPS steps from
-    the LEV gadget rows; then, if `timed`, both at the full number of steps."""
+    the LEV gadget rows; then, if `timed`, the kernel (and, if `plain`, the
+    plain version) at the full number of steps."""
     device = scheme.crs_hat.device
     ctx = kms._ctx(params)
     block = isinstance(params, KmsBlockParams)
@@ -292,7 +354,8 @@ def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool)
         args = (tildea, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
         fused_mx3.phase1_sweep(*args)  # warm-up at the full shape
         out["ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep(*args), 3)
-        out["plain_ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep_plain(*args), 1)
+        if plain:
+            out["plain_ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep_plain(*args), 1)
         out.update(sweep_bound(params, ctx, g, rows, tildea))
     return out
 
@@ -572,7 +635,7 @@ def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple
     return err, (tildea, brk_mx_p, rows, params, ctx_p)
 
 
-def run_mx2(gen, smi: str, binary: dict) -> list[dict]:
+def run_mx2(gen, smi: str, binary: dict, usage: list[str]) -> list[dict]:
     """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
     KMS batch-minor engine; returns the mx sweep's row of the kernels line."""
     params = KMS_8PARTY
@@ -613,12 +676,20 @@ def run_mx2(gen, smi: str, binary: dict) -> list[dict]:
         **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0]),
     }
     row1_ms = _sync_ms(lambda: fused_mx2.mx_sweep(*args1), 3)
+    notes = [
+        instance_note(
+            fused_mx2.mx_kernel(p, make_ring_ctx(p.big_n, p.ring_torus_bits, keys.brk_mx.shape[2])),
+            usage, must_not_spill=p is params,
+        )
+        for p, keys in ((params, mx_keys), (WIDE_GADGET, wide_keys), (SIX_DIGITS, six_keys))
+    ]
     print(
         f"[16 mx sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps on "
-        f"real mx keys: KMS8party width at G={BATCH} with rows=3 and rows=1, wide gadget "
-        f"(N={WIDE_GADGET.big_n}, log_b_gsw={WIDE_GADGET.log_b_gsw}, {wide_keys.brk_mx.shape[2]} primes), "
-        f"six digits with the power table in device memory (N={SIX_DIGITS.big_n}, l_gsw={SIX_DIGITS.l_gsw}, "
-        f"{six_keys.brk_mx.shape[2]} primes, G=5); "
+        f"real mx keys: KMS8party width at G={BATCH} with rows=3 and rows=1 through {notes[0]}, wide gadget "
+        f"(N={WIDE_GADGET.big_n}, log_b_gsw={WIDE_GADGET.log_b_gsw}, {wide_keys.brk_mx.shape[2]} primes) "
+        f"through {notes[1]}, six digits with the power table in device memory (N={SIX_DIGITS.big_n}, "
+        f"l_gsw={SIX_DIGITS.l_gsw}, {six_keys.brk_mx.shape[2]} primes, G=5) through {notes[2]}; the "
+        f"kernel with run-time shapes: phase 5; "
         f"one party's sweep, G={BATCH}, {params.n} steps: rows=3 kernel {rows3['ms']:.2f} ms vs plain "
         f"{rows3['plain_ms']:.1f} ms (bound {rows3['bound_ms']:.2f} ms by {rows3['bound_by']}), "
         f"rows=1 kernel {row1_ms:.2f} ms; the torus-roll sweep "
@@ -708,7 +779,7 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> di
     }
 
 
-def run_kms(gen, device, smi: str) -> tuple[list[dict], dict]:
+def run_kms(gen, device, smi: str, usage: list[str]) -> tuple[list[dict], dict]:
     """Phases 3-9: the KMS paths and their kernels; returns their rows of
     the kernels line, and the KMS8party keys, ciphertext and `bootstrap_mx3`
     output that the later phases go on from."""
@@ -742,16 +813,27 @@ def run_kms(gen, device, smi: str) -> tuple[list[dict], dict]:
     # 5. sweep kernel vs plain version
     sweep_block = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True)
     sweep_bin = check_sweep(gen, KMS_8PARTY, bin_scheme, 1, BATCH, KMS_8PARTY.l_lev, timed=True)
+    sweep_block1 = check_sweep(gen, params, scheme, 0, BATCH, 1, timed=True, plain=False)
+    sweep_bin1 = check_sweep(gen, KMS_8PARTY, bin_scheme, 0, BATCH, 1, timed=True, plain=False)
     sweep_wide = check_sweep(gen, WIDE_GADGET, wide_scheme, 1, 5, WIDE_GADGET.l_lev, timed=False)
+    err_run_time = check_run_time_shapes(gen, device)
+    notes = [
+        instance_note(fused_mx3.sweep_kernel(p, kms._ctx(p)), usage, must_not_spill=p is not WIDE_GADGET)
+        for p in (params, KMS_8PARTY, WIDE_GADGET)
+    ]
     print(
         f"[5 sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps: "
-        f"block keys at KMS8partyblock width, binary keys at KMS8party width "
-        f"(G={BATCH}, rows=3), wide gadget (N={WIDE_GADGET.big_n}, log_b_gsw="
-        f"{WIDE_GADGET.log_b_gsw}); one party's sweep, G={BATCH}, rows=3: block, {params.d} steps: "
-        f"kernel {sweep_block['ms']:.2f} ms vs plain {sweep_block['plain_ms']:.1f} ms (bound "
-        f"{sweep_block['bound_ms']:.2f} ms by {sweep_block['bound_by']}); binary, {KMS_8PARTY.n} "
-        f"steps: kernel {sweep_bin['ms']:.2f} ms vs plain {sweep_bin['plain_ms']:.1f} ms (bound "
-        f"{sweep_bin['bound_ms']:.2f} ms by {sweep_bin['bound_by']}) ({smi})"
+        f"block keys at KMS8partyblock width through {notes[0]}, binary keys at KMS8party width "
+        f"through {notes[1]} (G={BATCH}, rows=3 and rows=1), wide gadget (N={WIDE_GADGET.big_n}, "
+        f"log_b_gsw={WIDE_GADGET.log_b_gsw}) through {notes[2]}, and block, binary and mx keys at "
+        f"N={RUN_TIME_SHAPES.big_n}, l_gsw={RUN_TIME_SHAPES.l_gsw} through the kernels with run-time "
+        f"shapes (max |diff| {err_run_time}); one party's sweep, G={BATCH}: block, {params.d} steps: "
+        f"rows=3 kernel {sweep_block['ms']:.2f} ms vs plain {sweep_block['plain_ms']:.1f} ms (bound "
+        f"{sweep_block['bound_ms']:.2f} ms by {sweep_block['bound_by']}), rows=1 kernel "
+        f"{sweep_block1['ms']:.2f} ms; binary, {KMS_8PARTY.n} steps: rows=3 kernel "
+        f"{sweep_bin['ms']:.2f} ms vs plain {sweep_bin['plain_ms']:.1f} ms (bound "
+        f"{sweep_bin['bound_ms']:.2f} ms by {sweep_bin['bound_by']}), rows=1 kernel "
+        f"{sweep_bin1['ms']:.2f} ms ({smi})"
     )
     del wide_scheme
 
@@ -827,10 +909,11 @@ def run_kms(gen, device, smi: str) -> tuple[list[dict], dict]:
     ]
     rows += [
         kernel_row(name, "phase1_sweep.cu", "mktfhe_tpu/kernels/fused_mx3.py:226", count,
-                   max(res["err"], sweep_wide["err"]), res["ms"], res["plain_ms"], res)
-        for name, res, count in (
-            ("phase1_sweep_block", sweep_block, launches["sweep"]),
-            ("phase1_sweep_binary", sweep_bin, bin_launches["sweep"]),
+                   max(res["err"], row1["err"], sweep_wide["err"], err_run_time), res["ms"],
+                   res["plain_ms"], res)
+        for name, res, row1, count in (
+            ("phase1_sweep_block", sweep_block, sweep_block1, launches["sweep"]),
+            ("phase1_sweep_binary", sweep_bin, sweep_bin1, bin_launches["sweep"]),
         )
     ]
     binary = {
@@ -970,18 +1053,17 @@ def main() -> int:
     fused_mx3.load_library()
     fused_step.load_library()
     fused_mx2.load_library()
-    usage = "; ".join(
-        f"{src.name}: {' | '.join(_build.resource_usage(lib))}" for src, lib in zip(sources, libs)
-    )
+    per_kernel = [_build.resource_usage(lib) for lib in libs]
+    usage = "; ".join(f"{src.name}: {' | '.join(said)}" for src, said in zip(sources, per_kernel))
     print(
         f"[2 build] {', '.join(lib.name for lib in libs)} from csrc/ (sm_90a, one nvcc each, "
         f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {usage}"
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kernels, binary = run_kms(gen, device, smi)
+    kernels, binary = run_kms(gen, device, smi, per_kernel[1])
     kernels += run_cggi(gen, device, smi)
-    kernels += run_mx2(gen, smi, binary)
+    kernels += run_mx2(gen, smi, binary, per_kernel[3])
 
     # 19. results
     print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")

@@ -21,7 +21,7 @@
 //    [n_steps, npr, 2l, 2, N] per party, prime-major, in the mx evaluation
 //    order, where position k2' * 128 + k1 (N = 128 nb) holds the evaluation at
 //    psi^(2 (k1 + 128 bitrev(k2')) + 1).  The digit transforms stay in the
-//    bit-reversed order of fwd_ntt_shared inside the CTA, where position t
+//    plain transform's bit-reversed order inside the CTA, where position t
 //    holds the evaluation at psi^(2 bitrev(t) + 1): mx position
 //    k2' * 128 + k1 is position bitrev7(k1) * nb + k2' there
 //    (kernels/mx_ntt.py:mx_eval_index).  The pointwise stage walks the mx
@@ -41,24 +41,31 @@
 //    torus roll of phase1_sweep.cu's binary variant: npr is the KEY's prime
 //    count (fused_mx2.mx_nprimes), not the scheme's.
 //
+// What bounds it on this card: as phase1_sweep.cu, integer operations at the
+// floor, and above it the barriers and the bytes through shared memory of
+// the one CTA that an SM holds (192 KB at KMS8party: N = 2048, l = 4,
+// 3 primes, with the power table); the step's key rows (393 KB at KMS8party)
+// are shared by all CTAs, which advance nearly in step, and come from L2.
+//
 // Design.  One CTA per (gate, row), the loop over steps inside it, one launch
-// per party, as phase1_sweep.cu.  Shared memory: the accumulator (16 N
-// bytes), the 2l transformed digit polynomials of the current prime (8 l N),
-// the inverse-transformed residues of every prime waiting for Garner
-// (8 npr N) and the power table (8 npr N): 192 KB at KMS8party (N = 2048,
-// l = 4, 3 primes).  N/2 threads; digits, stage loops and Garner come from
-// modarith.cuh.
+// per party.  Shared memory: the accumulator (16 N bytes), the 2l
+// transformed digit polynomials of the current prime (8 l N), the
+// inverse-transformed residues of every prime waiting for Garner (8 npr N)
+// and the power table (8 npr N).  The transforms are phase1_sweep.cu's
+// (modarith.cuh): register-resident radix-8 passes with lazy butterflies,
+// the accumulator decomposed in the first pass, 1/N on the inverse's last
+// pass, swizzled polynomial rows, compile-time shapes for the parameter sets
+// of the main path and run-time shapes for the rest.
 //
 // The pointwise stage is a transposition: key rows want consecutive mx
 // positions (k1 minor), the digits in shared memory sit nb words apart along
-// k1.  A warp takes 2^(5 - c) consecutive k1 for each of 2^c values of k2'
-// (c = kKeyLaneBits, at most log2 nb): its key loads cover whole 32-byte
-// sectors while its digit reads spread over 2^c times as many banks as a
-// plain walk of the positions would.
-//
-// What bounds it.  Integer arithmetic and shared-memory round trips, as the
-// other sweep; the step's key rows (393 KB at KMS8party) are shared by all
-// CTAs, which advance nearly in step, and come from L2.
+// k1.  A warp walks 32 consecutive mx positions, so each key load is one whole
+// 128-byte line.  Its digit reads then differ in bits 6-10 of the position
+// (the reversed low bits of k1) at N = 2048; the swizzle folds bits 8-10 into
+// the bank bits, which leaves them colliding 4 ways where the plain layout
+// made them collide 16 ways.  Timed on the card: taking 8 consecutive k1 for
+// each of 4 values of k2' instead (conflict-free digit reads, four 32-byte
+// key sectors per load) was 9% slower, 16 by 2 the same as this walk.
 //
 // Built by mktfhe_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -74,8 +81,21 @@ namespace {
 
 using namespace mktfhe;
 
-constexpr int kLogNk = 7;       // log2 of the 128 positions along k1
-constexpr int kKeyLaneBits = 2;  // a warp's key loads: 4 values of k2', 8 consecutive k1
+constexpr int kLogNk = 7;  // log2 of the 128 positions along k1
+// threads of a CTA at N >= 1024 (a build flag may set 1024 or 256)
+#ifndef MKTFHE_SWEEP_THREADS
+#define MKTFHE_SWEEP_THREADS 512
+#endif
+constexpr int kMaxThreads = MKTFHE_SWEEP_THREADS;
+// Timing probes (tools/time_sweeps.py): a build with bit 0, 1, 2 or 3 set
+// leaves out the forward transforms, the pointwise stage, the inverse
+// transforms, or Garner and the accumulation.  Its output is wrong; only its
+// time is read, against the whole kernel's in the same call.
+#ifndef MKTFHE_SWEEP_PROBE
+#define MKTFHE_SWEEP_PROBE 0
+#endif
+constexpr int kProbe = MKTFHE_SWEEP_PROBE;
+constexpr int kMaxTerms = 12;  // 2 l_gsw digit polynomials, l_gsw <= 6
 
 struct MxShape {
     int rows, n_steps, npr, l, log_b, log_n;
@@ -92,8 +112,9 @@ __device__ __forceinline__ uint32_t bitrev(uint32_t v, int bits) {
 // pow_g:  [npr, 2n] powers psi^e mod p of each prime's 2n-th root
 // tw_*:   [npr, n] bit-reversed psi / psi^-1 tables with Shoup companions
 // consts: [npr, kConstCols]
-template <bool kPowShared>
-__global__ void __launch_bounds__(1024)
+// kLogN, kL, kNpr: the shape at compile time, or 0 to take it from `s`.
+template <bool kPowShared, int kLogN, int kL, int kNpr>
+__global__ void __launch_bounds__(kMaxThreads)
 mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea,
                 const uint32_t* __restrict__ brk, const uint32_t* __restrict__ pow_g,
                 const uint32_t* __restrict__ tw_f, const uint32_t* __restrict__ tw_f_sh,
@@ -102,17 +123,19 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ uint64_t sc[kMaxPrimes * kConstCols];
 
-    const int n = 1 << s.log_n;
-    const int nthreads = blockDim.x;  // n / 2
+    const int log_n = kLogN ? kLogN : s.log_n;
+    const int l = kL ? kL : s.l;
+    const int npr = kNpr ? kNpr : s.npr;
+    const int n = 1 << log_n;
+    const int nthreads = blockDim.x;
     const int tid = threadIdx.x;
-    const int npr = s.npr, l = s.l, log_b = s.log_b, log_n = s.log_n;
     const int terms = 2 * l;
     const int log_nb = log_n - kLogNk;
-    const int c = kKeyLaneBits < log_nb ? kKeyLaneBits : log_nb;
+    const DigitShape gadget = digit_shape(l, s.log_b);
 
     uint64_t* acc = reinterpret_cast<uint64_t*>(smem);  // [2, n]
-    uint32_t* dig = reinterpret_cast<uint32_t*>(acc + 2 * n);  // [2l, n]
-    uint32_t* res = dig + static_cast<size_t>(terms) * n;  // [npr, 2, n]
+    uint32_t* dig = reinterpret_cast<uint32_t*>(acc + 2 * n);  // [2l, n], swizzled rows
+    uint32_t* res = dig + static_cast<size_t>(terms) * n;  // [npr, 2, n], swizzled rows
     uint32_t* pow_s = res + static_cast<size_t>(npr) * 2 * n;  // [npr, 2n] if kPowShared
 
     const long long cta = blockIdx.x;
@@ -137,56 +160,56 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
             const uint32_t p = static_cast<uint32_t>(sc[q * kConstCols + kColP]);
             const uint64_t mu = sc[q * kConstCols + kColMu];
 
-            // balanced gadget digits of both components, lifted mod p, and
-            // their forward NTTs together
-            for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                const int comp = idx >> log_n;
-                const int i = idx & (n - 1);
-                balanced_digits<uint64_t>(acc[idx], l, log_b, p,
-                                          dig + static_cast<size_t>(comp) * l * n + i, n);
+            // forward NTTs of the 2l lifted digit polynomials (polynomial
+            // comp * l + j: digit j of component comp), decomposed in the
+            // first pass
+            const uint32_t* tw_q = tw_f + static_cast<size_t>(q) * n;
+            const uint32_t* tw_q_sh = tw_f_sh + static_cast<size_t>(q) * n;
+            if (!(kProbe & 1)) {
+                digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+                __syncthreads();
+                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tw_q, tw_q_sh, p);
             }
-            __syncthreads();
-            fwd_ntt_shared(dig, terms, tid, log_n, tw_f + static_cast<size_t>(q) * n,
-                           tw_f_sh + static_cast<size_t>(q) * n, p);
 
             // external product along the mx positions, times psi^(a o) - 1
             const uint32_t* key_q = brk + step * step_stride + q * prime_stride;
             const uint32_t* pw_q = pw + static_cast<size_t>(q) * 2 * n;
             uint32_t* out = res + static_cast<size_t>(q) * 2 * n;
-            for (int w = tid; w < n; w += nthreads) {
-                const int lane = w & 31, blk = w >> 5;
-                const int k1 = (lane & ((32 >> c) - 1)) | ((blk & ((4 << c) - 1)) << (5 - c));
-                const int k2 = (lane >> (5 - c)) | ((blk >> (2 + c)) << c);
-                const int pos = (k2 << kLogNk) | k1;
+            for (int w = tid; w < ((kProbe & 2) ? 0 : n); w += nthreads) {
+                const int k1 = w & ((1 << kLogNk) - 1), k2 = w >> kLogNk;  // mx position w
                 const int t = static_cast<int>(bitrev(k1, kLogNk) << log_nb) | k2;
-                const uint32_t* key = key_q + pos;
+                const int pt = swz(t);
+                const uint32_t* key = key_q + w;
                 uint64_t s0 = 0, s1 = 0;
-                for (int j = 0; j < terms; ++j) {
-                    const uint64_t d = dig[j * n + t];
-                    s0 += d * key[(2 * j) * n];
-                    s1 += d * key[(2 * j + 1) * n];
+#pragma unroll
+                for (int j = 0; j < kMaxTerms; ++j) {
+                    if (j < terms) {
+                        const uint64_t d = canonical(dig[j * n + pt], p);
+                        s0 += d * key[(2 * j) * n];
+                        s1 += d * key[(2 * j + 1) * n];
+                    }
                 }
                 const uint32_t o = 2 * bitrev(t, log_n) + 1;
                 const uint64_t mon = sub_mod(pw_q[(a * o) & (2 * n - 1)], 1u, p);
-                out[t] = barrett_reduce(barrett_reduce(s0, mu, p) * mon, mu, p);
-                out[n + t] = barrett_reduce(barrett_reduce(s1, mu, p) * mon, mu, p);
+                out[pt] = barrett_reduce(barrett_reduce(s0, mu, p) * mon, mu, p);
+                out[n + pt] = barrett_reduce(barrett_reduce(s1, mu, p) * mon, mu, p);
             }
             __syncthreads();
 
-            // inverse NTT of the two output polynomials, 1/N folded
-            inv_ntt_shared(out, 2, tid, log_n, tw_i + static_cast<size_t>(q) * n,
-                           tw_i_sh + static_cast<size_t>(q) * n, p);
-            const uint32_t ninv = static_cast<uint32_t>(sc[q * kConstCols + kColNinv]);
-            const uint32_t ninv_sh = static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]);
-            for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                out[idx] = shoup_mul(ninv, ninv_sh, out[idx], p);
+            // inverse NTT of the two output polynomials, scaled by 1/N
+            if (!(kProbe & 4)) {
+                inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads,
+                                      tw_i + static_cast<size_t>(q) * n,
+                                      tw_i_sh + static_cast<size_t>(q) * n, p,
+                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
+                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
             }
         }
-        __syncthreads();
 
-        // Garner mod 2^64 and accumulate
-        for (int idx = tid; idx < 2 * n; idx += nthreads) {
-            acc[idx] += garner<uint64_t>(res + idx, 2 * n, npr, sc, prod_mod64);
+        // Garner mod 2^64 over the canonical residues, and accumulate
+        for (int idx = tid; idx < ((kProbe & 8) ? 0 : 2 * n); idx += nthreads) {
+            const int at = (idx & n) | swz(idx & (n - 1));
+            acc[idx] += garner<uint64_t>(res + at, 2 * n, npr, sc, prod_mod64);
         }
         __syncthreads();
     }
@@ -203,26 +226,64 @@ inline size_t table_bytes(int n, int npr) { return static_cast<size_t>(n) * 8 * 
 // what a CTA may ask for on sm_90 (227 KB), less the static constants
 constexpr size_t kMaxDynamicShared = 232448 - sizeof(uint64_t) * kMaxPrimes * kConstCols;
 
+// The power table goes to shared memory when it fits beside the CTA's state.
+inline bool table_in_shared(int log_n, int npr, int l) {
+    const int n = 1 << log_n;
+    return state_bytes(n, npr, l) + table_bytes(n, npr) <= kMaxDynamicShared;
+}
+
+using MxKernel = decltype(&mx_sweep_kernel<true, 0, 0, 0>);
+
+// The kernel for the wrapper's `instance` (kernels/fused_mx2.py:INSTANCES keeps
+// the same list): 0 is the kernel with run-time shapes, with the power table
+// in shared memory (`pow_shared`) or in device memory; the others are compiled
+// for one shape each and refused (nullptr) for any other.
+//   1  KMS8party:  N = 2048, l = 4, 3 primes, table in shared memory
+//   2  a small wide-gadget set: N = 256, l = 3, 3 primes, table in shared memory
+//   3  KMS32party's gadget over 4 primes: N = 2048, l = 6, table in device memory
+inline MxKernel mx_instance(int instance, bool pow_shared, const MxShape& s) {
+    const auto is = [&](bool shared, int log_n, int l, int npr) {
+        return pow_shared == shared && s.log_n == log_n && s.l == l && s.npr == npr;
+    };
+    switch (instance) {
+        case 0:
+            return pow_shared ? &mx_sweep_kernel<true, 0, 0, 0> : &mx_sweep_kernel<false, 0, 0, 0>;
+        case 1:
+            return is(true, 11, 4, 3) ? &mx_sweep_kernel<true, 11, 4, 3> : nullptr;
+        case 2:
+            return is(true, 8, 3, 3) ? &mx_sweep_kernel<true, 8, 3, 3> : nullptr;
+        case 3:
+            return is(false, 11, 6, 4) ? &mx_sweep_kernel<false, 11, 6, 4> : nullptr;
+        default:
+            return nullptr;
+    }
+}
+
+// Threads of a CTA: one per butterfly of a stage, at most kMaxThreads.
+inline int mx_threads(int log_n) {
+    return (1 << log_n) / 2 < kMaxThreads ? (1 << log_n) / 2 : kMaxThreads;
+}
+
 }  // namespace
 
-// The power table goes to shared memory when it fits beside the CTA's state.
+// Returns cudaErrorInvalidValue when the shape is not the instance's.
 extern "C" int mktfhe_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
                                const void* tw_f, const void* tw_f_sh, const void* tw_i,
                                const void* tw_i_sh, const void* consts,
                                unsigned long long prod_mod64, long long ctas, int rows,
-                               int n_steps, int npr, int l, int log_b, int log_n, void* stream) {
+                               int n_steps, int npr, int l, int log_b, int log_n, int instance,
+                               void* stream) {
     const MxShape shape{rows, n_steps, npr, l, log_b, log_n};
     const int n = 1 << log_n;
-    size_t smem = state_bytes(n, npr, l);
-    const bool pow_shared = smem + table_bytes(n, npr) <= kMaxDynamicShared;
-    if (pow_shared) smem += table_bytes(n, npr);
-    decltype(&mx_sweep_kernel<true>) kernel =
-        pow_shared ? &mx_sweep_kernel<true> : &mx_sweep_kernel<false>;
+    const bool pow_shared = table_in_shared(log_n, npr, l);
+    const size_t smem = state_bytes(n, npr, l) + (pow_shared ? table_bytes(n, npr) : 0);
+    const MxKernel kernel = mx_instance(instance, pow_shared, shape);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned int>(ctas));
-    const dim3 block(n / 2);
+    const dim3 block(mx_threads(log_n));
     kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t*>(acc), static_cast<const int32_t*>(tildea),
         static_cast<const uint32_t*>(brk), static_cast<const uint32_t*>(pow),

@@ -23,6 +23,14 @@
 //     evaluation-domain images of X^{a_m} - 1 and summed before ONE inverse
 //     NTT and Garner, acc += result.
 //
+// What bounds it on this card.  Not device memory: a step does about 0.9 M
+// modular multiplies per CTA at KMS8partyblock widths while its key rows
+// (1.57 MB) are shared by all CTAs, which advance nearly in step, and come
+// from L2.  The state of one (gate, row) fills most of an SM's shared
+// memory (160 KB at N = 2048, l = 4, 4 primes), so one CTA runs per SM and
+// whatever makes its warps wait idles the SM: barriers, and the bytes that
+// go through shared memory per step.  Integer operations set the floor.
+//
 // Design.  One CTA per (gate, row); the loop over steps runs inside the CTA,
 // where the TPU kernel had a sequential grid dimension with the accumulator
 // in VMEM scratch.  Rows and gates never interact, so there is no grid-wide
@@ -30,22 +38,26 @@
 // lives in shared memory: the accumulator (16 N bytes), the 2l transformed
 // digit polynomials of the current prime (8 l N bytes; primes run one after
 // the other and reuse it), and the inverse-transformed residues of every
-// prime waiting for Garner (8 npr N bytes): 160 KB at N = 2048, l = 4,
-// 4 primes, hence the opt-in to more than 48 KB of dynamic shared memory.
-// N/2 threads, one butterfly each per polynomial and stage; the 2l forward
-// transforms of a prime advance together, so they share each stage's twiddle
-// load and barrier (the digits, the stage loops and Garner are in modarith.cuh,
-// shared with cggi_step.cu).  Keys are read as the scheme stores them (standard NTT
-// domain in the plain transform's bit-reversed order, no Shoup companions):
-// products of two runtime residues are summed in 64 bits (at most 2l <= 16
-// terms) and reduced by one Barrett step.
-//
-// What bounds it.  Integer arithmetic and shared-memory round trips, not
-// device memory: a step does about 0.9 M modular multiplies per CTA at
-// KMS8partyblock widths, while the step's key rows (1.57 MB) are shared by
-// all CTAs, which advance nearly in step, and are served from L2.  Making it
-// fast is later work: register-resident radix-4 stages, twiddles in shared
-// memory, compile-time shapes.
+// prime waiting for Garner (8 npr N bytes).  Against the barriers and the
+// shared-memory bytes (modarith.cuh has the parts):
+//  - the transforms are register-resident radix-8 passes with lazy
+//    butterflies: 4 passes and 4 barriers per transform at N = 2048 where a
+//    stage-by-stage transform has 11, a prime's step 9 barriers for 25;
+//  - the first forward pass decomposes the accumulator on the fly (each
+//    digit is a shift and a mask of the value plus an offset, no carry
+//    chain), so the digits never make a trip of their own;
+//  - the polynomials lie swizzled, so every pass and the pointwise walk meet
+//    32 banks; the last pass moves 16 bytes a thread;
+//  - the pointwise stage holds a position's 2l digits in registers over the
+//    ell members, and the 4l key loads of a member are in flight together;
+//  - the scaling by 1/N rides on the inverse's last pass;
+//  - the shapes (log2 N, l, primes, ell) are template arguments for the
+//    parameter sets of the main paths (kInstances below); every other shape
+//    the wrapper admits runs the same kernel with run-time shapes.
+// Keys are read as the scheme stores them (standard NTT domain in the plain
+// transform's bit-reversed order, no Shoup companions): products of two
+// runtime residues are summed in 64 bits (at most 2l <= 12 canonical terms)
+// and reduced by one Barrett step.
 //
 // Built by mktfhe_tpu_torch/kernels/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -61,6 +73,21 @@ namespace {
 
 using namespace mktfhe;
 
+// threads of a CTA at N >= 1024 (a build flag may set 1024 or 256)
+#ifndef MKTFHE_SWEEP_THREADS
+#define MKTFHE_SWEEP_THREADS 512
+#endif
+constexpr int kMaxThreads = MKTFHE_SWEEP_THREADS;
+// Timing probes (tools/time_sweeps.py): a build with bit 0, 1, 2 or 3 set
+// leaves out the forward transforms, the pointwise stage, the inverse
+// transforms, or Garner and the accumulation.  Its output is wrong; only its
+// time is read, against the whole kernel's in the same call.
+#ifndef MKTFHE_SWEEP_PROBE
+#define MKTFHE_SWEEP_PROBE 0
+#endif
+constexpr int kProbe = MKTFHE_SWEEP_PROBE;
+constexpr int kMaxTerms = 12;  // 2 l_gsw digit polynomials, l_gsw <= 6
+
 struct SweepShape {
     int rows, n_steps, ell, npr, l, log_b, log_n;
 };
@@ -71,8 +98,9 @@ struct SweepShape {
 // mono:   [2n, npr, n] images of X^a - 1 (block variant only)
 // tw_*:   [npr, n] bit-reversed psi / psi^-1 tables with Shoup companions
 // consts: [npr, kConstCols]
-template <bool kBlock>
-__global__ void __launch_bounds__(1024)
+// kLogN, kL, kNpr, kEll: the shape at compile time, or 0 to take it from `s`.
+template <bool kBlock, int kLogN, int kL, int kNpr, int kEll>
+__global__ void __launch_bounds__(kMaxThreads)
 phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea,
                     const uint32_t* __restrict__ brk, const uint32_t* __restrict__ mono,
                     const uint32_t* __restrict__ tw_f, const uint32_t* __restrict__ tw_f_sh,
@@ -81,16 +109,20 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ uint64_t sc[kMaxPrimes * kConstCols];
 
-    const int n = 1 << s.log_n;
-    const int nthreads = blockDim.x;  // n / 2
+    const int log_n = kLogN ? kLogN : s.log_n;
+    const int l = kL ? kL : s.l;
+    const int npr = kNpr ? kNpr : s.npr;
+    const int ell = kEll ? kEll : s.ell;
+    const int n = 1 << log_n;
+    const int nthreads = blockDim.x;
     const int tid = threadIdx.x;
-    const int npr = s.npr, l = s.l, ell = s.ell, log_b = s.log_b, log_n = s.log_n;
     const int terms = 2 * l;
+    const DigitShape gadget = digit_shape(l, s.log_b);
 
     uint64_t* acc = reinterpret_cast<uint64_t*>(smem);  // [2, n]
-    uint32_t* dig = reinterpret_cast<uint32_t*>(acc + 2 * n);  // [2l, n]
+    uint32_t* dig = reinterpret_cast<uint32_t*>(acc + 2 * n);  // [2l, n], swizzled rows
     const int dig_words = terms * n > 4 * n ? terms * n : 4 * n;
-    uint32_t* res = dig + dig_words;  // [npr, 2, n]
+    uint32_t* res = dig + dig_words;  // [npr, 2, n], swizzled rows
     // binary variant: e on the torus, [2, n] u64, over the idle digit buffer
     uint64_t* etor = reinterpret_cast<uint64_t*>(dig);
 
@@ -112,30 +144,41 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             const uint32_t p = static_cast<uint32_t>(sc[q * kConstCols + kColP]);
             const uint64_t mu = sc[q * kConstCols + kColMu];
 
-            // 1-2. balanced gadget digits of both components, lifted mod p,
-            // and their forward NTTs together
-            for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                const int c = idx >> log_n;
-                const int i = idx & (n - 1);
-                balanced_digits<uint64_t>(acc[idx], l, log_b, p,
-                                          dig + static_cast<size_t>(c) * l * n + i, n);
+            // 1-2. forward NTTs of the 2l lifted digit polynomials (polynomial
+            // c * l + j: digit j of component c), decomposed in the first pass
+            const uint32_t* tw_q = tw_f + static_cast<size_t>(q) * n;
+            const uint32_t* tw_q_sh = tw_f_sh + static_cast<size_t>(q) * n;
+            if (!(kProbe & 1)) {
+                digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+                __syncthreads();
+                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tw_q, tw_q_sh, p);
             }
-            __syncthreads();
-            fwd_ntt_shared(dig, terms, tid, log_n, tw_f + static_cast<size_t>(q) * n,
-                           tw_f_sh + static_cast<size_t>(q) * n, p);
 
             // 3-4. external product per output component; block variant:
             // weighted by the members' monomial images and summed
             uint32_t* out = res + static_cast<size_t>(q) * 2 * n;
-            for (int i = tid; i < n; i += nthreads) {
+            // binary variant: neighbouring CTAs start their walk n / 32 positions
+            // apart, so that the SMs, which advance nearly in step, do not all
+            // ask the same L2 lines at once
+            const int first = kBlock ? 0 : (static_cast<int>(cta) & 31) * (n / 32);
+            for (int i0 = tid; i0 < ((kProbe & 2) ? 0 : n); i0 += nthreads) {
+                const int i = (i0 + first) & (n - 1);
+                const int pi = swz(i);
+                uint32_t d[kMaxTerms];
+#pragma unroll
+                for (int t = 0; t < kMaxTerms; ++t) {
+                    if (t < terms) d[t] = canonical(dig[t * n + pi], p);
+                }
                 uint32_t u0 = 0, u1 = 0;
                 for (int m = 0; m < ell; ++m) {
                     const uint32_t* key = brk_s + m * member_stride + static_cast<size_t>(q) * n + i;
                     uint64_t s0 = 0, s1 = 0;
-                    for (int t = 0; t < terms; ++t) {
-                        const uint64_t d = dig[t * n + i];
-                        s0 += d * key[(2 * t) * poly_stride];
-                        s1 += d * key[(2 * t + 1) * poly_stride];
+#pragma unroll
+                    for (int t = 0; t < kMaxTerms; ++t) {
+                        if (t < terms) {
+                            s0 += static_cast<uint64_t>(d[t]) * key[(2 * t) * poly_stride];
+                            s1 += static_cast<uint64_t>(d[t]) * key[(2 * t + 1) * poly_stride];
+                        }
                     }
                     const uint32_t e0 = barrett_reduce(s0, mu, p);
                     const uint32_t e1 = barrett_reduce(s1, mu, p);
@@ -149,30 +192,33 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
                         u1 = e1;
                     }
                 }
-                out[i] = u0;
-                out[n + i] = u1;
+                out[pi] = u0;
+                out[n + pi] = u1;
             }
             __syncthreads();
 
-            // 5. inverse NTT of the two output polynomials, 1/N folded
-            inv_ntt_shared(out, 2, tid, log_n, tw_i + static_cast<size_t>(q) * n,
-                           tw_i_sh + static_cast<size_t>(q) * n, p);
-            const uint32_t ninv = static_cast<uint32_t>(sc[q * kConstCols + kColNinv]);
-            const uint32_t ninv_sh = static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]);
-            for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                out[idx] = shoup_mul(ninv, ninv_sh, out[idx], p);
+            // 5. inverse NTT of the two output polynomials, scaled by 1/N
+            if (!(kProbe & 4)) {
+                inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads,
+                                      tw_i + static_cast<size_t>(q) * n,
+                                      tw_i_sh + static_cast<size_t>(q) * n, p,
+                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
+                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
             }
         }
-        __syncthreads();
 
-        // Garner mod 2^64 and accumulate
-        if (kBlock) {
+        // Garner mod 2^64 over the canonical residues, and accumulate
+        if (kProbe & 8) {
+            // left out
+        } else if (kBlock) {
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                acc[idx] += garner<uint64_t>(res + idx, 2 * n, npr, sc, prod_mod64);
+                const int at = (idx & n) | swz(idx & (n - 1));
+                acc[idx] += garner<uint64_t>(res + at, 2 * n, npr, sc, prod_mod64);
             }
         } else {
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
-                etor[idx] = garner<uint64_t>(res + idx, 2 * n, npr, sc, prod_mod64);
+                const int at = (idx & n) | swz(idx & (n - 1));
+                etor[idx] = garner<uint64_t>(res + at, 2 * n, npr, sc, prod_mod64);
             }
             __syncthreads();
             // acc += X^a e - e: coefficient j of X^a e is [e, -e][(j - a) mod 2n]
@@ -191,26 +237,64 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     for (int i = tid; i < 2 * n; i += nthreads) acc_io[i] = acc[i];
 }
 
+using SweepKernel = decltype(&phase1_sweep_kernel<true, 0, 0, 0, 0>);
+
+// The kernel for the wrapper's `instance` (kernels/fused_mx3.py:INSTANCES keeps
+// the same list): 0 is the kernel with run-time shapes; the others are
+// compiled for one shape each and refused (nullptr) for any other.
+//   1  KMS8partyblock: block keys, N = 2048, l = 4, 4 primes, ell = 3
+//   2  KMS8party:      binary keys, N = 2048, l = 4, 3 primes
+//   3  a small wide-gadget set: binary keys, N = 256, l = 3, 3 primes
+inline SweepKernel sweep_instance(int instance, bool block, const SweepShape& s) {
+    const auto is = [&](bool b, int log_n, int l, int npr, int ell) {
+        return block == b && s.log_n == log_n && s.l == l && s.npr == npr && s.ell == ell;
+    };
+    switch (instance) {
+        case 0:
+            return block ? &phase1_sweep_kernel<true, 0, 0, 0, 0>
+                         : &phase1_sweep_kernel<false, 0, 0, 0, 1>;
+        case 1:
+            return is(true, 11, 4, 4, 3) ? &phase1_sweep_kernel<true, 11, 4, 4, 3> : nullptr;
+        case 2:
+            return is(false, 11, 4, 3, 1) ? &phase1_sweep_kernel<false, 11, 4, 3, 1> : nullptr;
+        case 3:
+            return is(false, 8, 3, 3, 1) ? &phase1_sweep_kernel<false, 8, 3, 3, 1> : nullptr;
+        default:
+            return nullptr;
+    }
+}
+
+// Threads of a CTA: one per butterfly of a stage, at most kMaxThreads.
+inline int sweep_threads(int log_n) {
+    return (1 << log_n) / 2 < kMaxThreads ? (1 << log_n) / 2 : kMaxThreads;
+}
+
+// Dynamic shared memory of one CTA.
+inline int sweep_shared_bytes(int log_n, int l, int npr) {
+    const int n = 1 << log_n;
+    const int dig_words = 2 * l * n > 4 * n ? 2 * l * n : 4 * n;
+    return 16 * n + 4 * dig_words + 8 * npr * n;
+}
+
 }  // namespace
 
-// `mono` is null for binary keys and selects the variant.
+// `mono` is null for binary keys and selects the variant.  Returns
+// cudaErrorInvalidValue when the shape is not the instance's.
 extern "C" int mktfhe_phase1_sweep(void* acc, const void* tildea, const void* brk,
                                    const void* mono, const void* tw_f, const void* tw_f_sh,
                                    const void* tw_i, const void* tw_i_sh, const void* consts,
                                    unsigned long long prod_mod64, long long ctas, int rows,
                                    int n_steps, int ell, int npr, int l, int log_b, int log_n,
-                                   void* stream) {
+                                   int instance, void* stream) {
     const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
-    const int n = 1 << log_n;
-    const int dig_words = 2 * l * n > 4 * n ? 2 * l * n : 4 * n;
-    const int smem = 16 * n + 4 * dig_words + 8 * npr * n;
-    decltype(&phase1_sweep_kernel<true>) kernel =
-        mono != nullptr ? &phase1_sweep_kernel<true> : &phase1_sweep_kernel<false>;
+    const SweepKernel kernel = sweep_instance(instance, mono != nullptr, shape);
+    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int smem = sweep_shared_bytes(log_n, l, npr);
     const cudaError_t attr =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned int>(ctas));
-    const dim3 block(n / 2);
+    const dim3 block(sweep_threads(log_n));
     kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t*>(acc), static_cast<const int32_t*>(tildea),
         static_cast<const uint32_t*>(brk), static_cast<const uint32_t*>(mono),

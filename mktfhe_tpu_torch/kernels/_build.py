@@ -2,9 +2,13 @@
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, in mktfhe_tpu_torch/_build/, and loaded with ctypes.  The
-library is named by a hash of the source and of the headers beside it, so an
-edited source is rebuilt.  There is no other way to a kernel: a missing nvcc
-or a failed compilation raises.
+library is named by a hash of the source, of the headers beside it and of
+the extra flags, so an edited source is rebuilt.  There is no other way to a
+kernel: a missing nvcc or a failed compilation raises.
+
+MKTFHE_NVCC_FLAGS in the environment adds flags (space-separated, e.g.
+`-DMKTFHE_SWEEP_THREADS=512`): how tools/time_sweeps.py builds the variants
+it times against each other.
 """
 
 from __future__ import annotations
@@ -42,9 +46,11 @@ def _nvcc() -> str:
 def build(source: Path) -> Path:
     """Compile `source` (a file of csrc/) for sm_90a unless the library for
     this source and its headers exists; returns the library path."""
+    extra = os.environ.get("MKTFHE_NVCC_FLAGS", "").split()
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(extra).encode())
     lib = BUILD_DIR / f"libmktfhe_{source.stem}_{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
@@ -53,7 +59,7 @@ def build(source: Path) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
+            [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:
@@ -66,18 +72,35 @@ def build(source: Path) -> Path:
     return lib
 
 
+def _kernel_name(mangled: str) -> str:
+    """`phase1_sweep_kernel<1,11,4,4,3>` out of a mangled entry name (a
+    length-prefixed identifier that ends in `_kernel`, then its integral
+    template arguments)."""
+    for m in re.finditer(r"\d+", mangled):
+        name = mangled[m.end(): m.end() + int(m.group()[-2:])]
+        if name.endswith("_kernel"):
+            targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[m.end() + len(name):])
+            args = re.findall(r"L[a-z](\d+)E", targs.group(1)) if targs else []
+            return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def resource_usage(lib: Path) -> list[str]:
-    """What ptxas reported when `lib` was built, one entry per kernel:
-    registers, spill bytes (stores + loads) and static shared memory."""
-    out, spill = [], 0
+    """What ptxas reported when `lib` was built, one entry per kernel: its
+    name with its template arguments, registers, spill bytes (stores + loads)
+    and static shared memory."""
+    out, spill, name = [], 0, "?"
     for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         used = re.search(r"Used (\d+) registers", line)
+        if entry:
+            name = _kernel_name(entry.group(1))
         if spills:  # comes on the line before the kernel's "Used ... registers"
             spill = int(spills.group(1)) + int(spills.group(2))
         if used:
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"{used.group(1)} registers, {spill} spill bytes, "
+            out.append(f"{name}: {used.group(1)} registers, {spill} spill bytes, "
                        f"{smem.group(1) if smem else 0} bytes static smem")
     return out
 

@@ -86,7 +86,15 @@ SWEEP_CASES = [
     (2048, 4, 3, 1, 3, 12, 140),
     (2048, 2, 1, 1, 6, 8, 3),
     (2048, 4, 1, 2, 6, 7, 4),
+    # the compiled instances with one row (party 1), and run-time shapes at N = 1024
+    (2048, 3, 1, 1, 4, 9, 140),
+    (2048, 4, 3, 1, 4, 9, 140),
+    (256, 3, 1, 1, 3, 12, 5),
+    (1024, 3, 2, 2, 2, 9, 6),
+    (1024, 3, 1, 3, 2, 9, 6),
 ]
+# (N, primes, ell, l_gsw) -> index into fused_mx3.INSTANCES; every other case: 0
+SWEEP_INSTANCE = {(2048, 4, 3, 4): 1, (2048, 3, 1, 4): 2, (256, 3, 1, 3): 3}
 
 
 def _sweep_inputs(n, npr, ell, rows, l, log_b, g, device, seed=1):
@@ -112,6 +120,7 @@ def _sweep_inputs(n, npr, ell, rows, l, log_b, g, device, seed=1):
 def test_sweep_kernel_matches_plain(device, shape):
     n, npr, ell, rows, l, log_b, g = shape
     params, ctx, ta, brk, mono, acc0 = _sweep_inputs(*shape, device)
+    assert fused_mx3.sweep_instance(params, ctx) == SWEEP_INSTANCE.get((n, npr, ell, l), 0)
     fused_mx3.reset_launches()
     keep = acc0.clone()
     got = fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx, acc0=acc0)
@@ -125,6 +134,24 @@ def test_sweep_kernel_matches_plain(device, shape):
     levkey = fused_mx3.kms_phase1_mx3(ta, brk, rows, mono, params, ctx)
     assert tuple(levkey.shape) == (g, rows, 2, npr, n) and levkey.dtype == torch.int32
     assert fused_mx3.phase1_sweep.launches == 3
+
+
+@pytest.mark.parametrize("shape", [(2048, 4, 3, 3, 4, 9, 2), (2048, 3, 1, 3, 4, 9, 2), (512, 3, 1, 2, 3, 8, 2)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_sweep_instances_refuse_other_shapes(device, shape, monkeypatch):
+    """The C entry point launches an instance only at the shape it is
+    compiled for; the kernel with run-time shapes takes every shape."""
+    n, npr, ell, rows, l, log_b, g = shape
+    params, ctx, ta, brk, mono, acc0 = _sweep_inputs(*shape, device)
+    mine = fused_mx3.sweep_instance(params, ctx)
+    want = fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx, acc0=acc0)
+    for instance in range(len(fused_mx3.INSTANCES) + 1):
+        monkeypatch.setattr(fused_mx3, "sweep_instance", lambda params, ctx, i=instance: i)
+        if instance in (0, mine):
+            assert torch.equal(fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx, acc0=acc0), want)
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx, acc0=acc0)
 
 
 def test_sweep_wrapper_contract_on_cuda(device):
@@ -164,7 +191,14 @@ MX_CASES = [
     (2048, 4, 3, 3, 12, 10),
     (2048, 3, 2, 6, 8, 4),
     (2048, 4, 2, 6, 7, 4),
+    # the compiled instances with the other row counts, and run-time shapes at N = 1024
+    (2048, 4, 1, 6, 7, 4),
+    (256, 3, 2, 3, 12, 5),
+    (256, 3, 1, 3, 12, 5),
+    (1024, 4, 1, 2, 9, 6),
 ]
+# (N, primes, l_gsw) -> index into fused_mx2.INSTANCES; every other case: 0
+MX_INSTANCE = {(2048, 3, 4): 1, (256, 3, 3): 2, (2048, 4, 6): 3}
 
 
 def _mx_inputs(n, npr, rows, l, log_b, g, device, seed=3):
@@ -187,6 +221,7 @@ def _mx_inputs(n, npr, rows, l, log_b, g, device, seed=3):
 def test_mx_sweep_kernel_matches_plain(device, shape):
     n, npr, rows, l, log_b, g = shape
     params, ctx, ta, brk, acc0 = _mx_inputs(*shape, device)
+    assert fused_mx2.mx_instance(params, ctx) == MX_INSTANCE.get((n, npr, l), 0)
     fused_mx2.reset_launches()
     keep = acc0.clone()
     got = fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0)
@@ -201,6 +236,24 @@ def test_mx_sweep_kernel_matches_plain(device, shape):
     levkey = fused_mx2.kms_phase1_mx2(ta, brk, rows, params, out_ctx)
     assert tuple(levkey.shape) == (g, rows, 2, 3, n) and levkey.dtype == torch.int32
     assert fused_mx2.mx_sweep.launches == 3
+
+
+@pytest.mark.parametrize("shape", [(2048, 3, 3, 4, 9, 2), (2048, 4, 2, 6, 7, 2), (512, 3, 2, 3, 8, 2)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_mx_sweep_instances_refuse_other_shapes(device, shape, monkeypatch):
+    """The C entry point launches an instance only at the shape it is
+    compiled for; the kernel with run-time shapes takes every shape."""
+    n, npr, rows, l, log_b, g = shape
+    params, ctx, ta, brk, acc0 = _mx_inputs(*shape, device)
+    mine = fused_mx2.mx_instance(params, ctx)
+    want = fused_mx2.mx_sweep_plain(ta, brk, rows, params, ctx, acc0=acc0)
+    for instance in range(len(fused_mx2.INSTANCES) + 1):
+        monkeypatch.setattr(fused_mx2, "mx_instance", lambda params, ctx_p, i=instance: i)
+        if instance in (0, mine):
+            assert torch.equal(fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0), want)
+        else:
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0)
 
 
 def test_mx_sweep_wrapper_contract_on_cuda(device):

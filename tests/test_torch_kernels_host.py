@@ -52,6 +52,7 @@ inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)
 inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
     return (uint64_t)(((unsigned __int128)a * b) >> 64);
 }
+inline uint32_t min(uint32_t a, uint32_t b) { return a < b ? a : b; }
 inline uint32_t __brev(uint32_t v) {
     uint32_t r = 0;
     for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
@@ -80,18 +81,23 @@ DYNAMIC_SHARED = {
     "extern __shared__ __align__(16) uint32_t a[];": "uint32_t* a = (uint32_t*)g_smem;",
 }
 
+# `instance` picks the kernel as the C entry point does (0: run-time shapes);
+# returns 1 where the instance refuses the shape
 SWEEP_ENTRY = r"""
-extern "C" void host_phase1_sweep(void* acc, const void* tildea, const void* brk, const void* mono,
+extern "C" int host_phase1_sweep(void* acc, const void* tildea, const void* brk, const void* mono,
         const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
         const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
-        int ell, int npr, int l, int log_b, int log_n) {
+        int ell, int npr, int l, int log_b, int log_n, int instance) {
     const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
-    auto kernel = mono != nullptr ? &phase1_sweep_kernel<true> : &phase1_sweep_kernel<false>;
-    run_grid(ctas, (1 << log_n) / 2, [=]() {
+    const SweepKernel kernel = sweep_instance(instance, mono != nullptr, shape);
+    if (kernel == nullptr) return 1;
+    if (sweep_shared_bytes(log_n, l, npr) > (int)sizeof(g_smem)) return 2;
+    run_grid(ctas, sweep_threads(log_n), [=]() {
         kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
                (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
     });
+    return 0;
 }
 """
 
@@ -133,20 +139,24 @@ extern "C" void host_cggi_step(void* acc, const void* tildea, const void* brk, c
 }
 """
 
-# `pow_shared` picks the kernel with the power table in shared memory or in
-# device memory, as the C entry point does from the CTA's shared-memory need
+# `instance` picks the kernel as the C entry point does (0: run-time shapes);
+# `pow_shared` < 0 puts the power table where the C entry point would, 0 / 1
+# force device / shared memory; returns 1 where the instance refuses the shape
 MX_ENTRY = r"""
-extern "C" void host_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
+extern "C" int host_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
         const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
         const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
-        int npr, int l, int log_b, int log_n, int pow_shared) {
+        int npr, int l, int log_b, int log_n, int instance, int pow_shared) {
     const MxShape shape{rows, n_steps, npr, l, log_b, log_n};
-    auto kernel = pow_shared ? &mx_sweep_kernel<true> : &mx_sweep_kernel<false>;
-    run_grid(ctas, (1 << log_n) / 2, [=]() {
+    const bool shared = pow_shared < 0 ? table_in_shared(log_n, npr, l) : pow_shared != 0;
+    const MxKernel kernel = mx_instance(instance, shared, shape);
+    if (kernel == nullptr) return 1;
+    run_grid(ctas, mx_threads(log_n), [=]() {
         kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)pow,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
                (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
     });
+    return 0;
 }
 """
 
@@ -181,8 +191,8 @@ def _host_library(source, entry: str, workdir):
 def sweep_lib(tmp_path_factory):
     lib = _host_library(fused_mx3.SOURCE, SWEEP_ENTRY, tmp_path_factory.mktemp("sweep_host"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_phase1_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 7
-    lib.host_phase1_sweep.restype = None
+    lib.host_phase1_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 8
+    lib.host_phase1_sweep.restype = i32
     return lib
 
 
@@ -210,13 +220,15 @@ def step_lib(tmp_path_factory):
 def mx_lib(tmp_path_factory):
     lib = _host_library(fused_mx2.SOURCE, MX_ENTRY, tmp_path_factory.mktemp("mx_host"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_mx_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 7
-    lib.host_mx_sweep.restype = None
+    lib.host_mx_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 8
+    lib.host_mx_sweep.restype = i32
     return lib
 
 
-def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0):
-    """The wrapper's launch (fused_mx3._launch), on the host library."""
+def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, instance=None):
+    """The wrapper's launch (fused_mx3._launch), on the host library, with the
+    instance the wrapper picks unless one is given; None where the instance
+    refuses the shape."""
     fused_mx3._check(ta, brk, rows, mono, params, ctx, acc0)
     n, npr = ctx.n, ctx.nprimes
     ell = params.ell if isinstance(params, KmsBlockParams) else 1
@@ -224,14 +236,17 @@ def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0):
     tw_f, tw_f_sh, _ = kntt._kernel_tables(n, npr, True, CPU)
     tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
     consts = fused_mx3._sweep_consts(n, npr, CPU)
-    lib.host_phase1_sweep(
+    if instance is None:
+        instance = fused_mx3.sweep_instance(params, ctx)
+    refused = lib.host_phase1_sweep(
         acc.data_ptr(), ta.data_ptr(), brk.data_ptr(),
         mono.data_ptr() if isinstance(params, KmsBlockParams) else None,
         tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
         consts.data_ptr(), ctx.crt.prod_mod64, ta.shape[0] * rows, rows, params.n // ell, ell,
-        npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1,
+        npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1, instance,
     )
-    return acc
+    assert refused in (0, 1)
+    return None if refused else acc
 
 
 _COMMON = dict(alpha=16.0, f=8, log_d=2, beta=4.0, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2)
@@ -251,7 +266,18 @@ SWEEP_CASES = {
     "block_n128_4primes": (dataclasses.replace(BLOCK, l_gsw=4, log_b_gsw=9, big_n=128), 4, 2, 2),
     "block_ell1": (dataclasses.replace(BLOCK, ell=1, d=4), 3, 2, 2),
     "block_n256_ell2": (dataclasses.replace(BLOCK, big_n=256, ell=2), 3, 1, 2),
+    # index arithmetic of the passes and the swizzle beyond 8 address bits
+    "binary_n1024": (dataclasses.replace(BINARY, big_n=1024, n=2, l_gsw=2, log_b_gsw=9), 3, 1, 1),
+    "block_n1024": (dataclasses.replace(BLOCK, big_n=1024, d=1, ell=2, l_gsw=2, log_b_gsw=9), 3, 1, 1),
+    "block_n2048_run_time_shapes": (
+        dataclasses.replace(BLOCK, big_n=2048, d=1, ell=2, l_gsw=2, log_b_gsw=10), 3, 1, 1),
+    # the shapes the kernel is compiled for (fused_mx3.INSTANCES)
+    "instance_kms8partyblock": (
+        dataclasses.replace(BLOCK, big_n=2048, d=1, ell=3, l_gsw=4, log_b_gsw=9), 4, 1, 1),
+    "instance_kms8party": (dataclasses.replace(BINARY, big_n=2048, n=2, l_gsw=4, log_b_gsw=9), 3, 1, 1),
+    "instance_wide_gadget": (dataclasses.replace(BINARY, big_n=256, n=3, log_b_gsw=12), 3, 2, 2),
 }
+SWEEP_INSTANCE = {"instance_kms8partyblock": 1, "instance_kms8party": 2, "instance_wide_gadget": 3}
 
 
 @pytest.mark.parametrize("name", list(SWEEP_CASES))
@@ -270,8 +296,16 @@ def test_sweep_kernel_source_matches_plain(sweep_lib, name):
     acc0[0, 0, 0, :8] = [-1, -(1 << 63), (1 << 63) - 1, 0, 1, -(1 << 62), (1 << 62) - 1, -2]
     acc0 = torch.from_numpy(acc0)
     want = fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx, acc0)
+    instance = fused_mx3.sweep_instance(params, ctx)
+    assert instance == SWEEP_INSTANCE.get(name, 0)
     got = _host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0)
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+    if instance and n < 2048:  # the same shape through the kernel with run-time shapes
+        assert torch.equal(_host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0, 0), want)
+        # and every other instance refuses it
+        for other in range(1, len(fused_mx3.INSTANCES) + 1):
+            if other != instance:
+                assert _host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0, other) is None
 
 
 _MX = KmsParams(n=4, big_n=128, l_gsw=3, log_b_gsw=8, **_COMMON)
@@ -289,7 +323,17 @@ MX_CASES = {
     # nb = 8: the first size at which a warp's 4 values of k2' are not all of them
     "n1024_two_digits": (dataclasses.replace(_MX, big_n=1024, n=2, l_gsw=2, log_b_gsw=9), 3, 1, 1, True),
     "n2048_kms8party_gadget": (dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=4, log_b_gsw=9), 3, 1, 1, True),
+    "n1024_table_in_device_memory": (
+        dataclasses.replace(_MX, big_n=1024, n=2, l_gsw=2, log_b_gsw=9), 3, 1, 1, False),
+    # the shapes the kernel is compiled for (fused_mx2.INSTANCES); None: the
+    # table where the C entry point puts it
+    "instance_kms8party": (dataclasses.replace(_MX, big_n=2048, n=2, l_gsw=4, log_b_gsw=9), 3, 1, 1, None),
+    "instance_wide_gadget": (dataclasses.replace(_MX, big_n=256, n=3, log_b_gsw=12), 3, 2, 2, None),
+    "instance_six_digits_table_in_device_memory": (
+        dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=6, log_b_gsw=7), 4, 1, 1, None),
 }
+MX_INSTANCE = {"instance_kms8party": 1, "instance_wide_gadget": 2,
+               "instance_six_digits_table_in_device_memory": 3}
 
 
 @pytest.mark.parametrize("name", list(MX_CASES))
@@ -314,13 +358,23 @@ def test_mx_sweep_kernel_source_matches_plain(mx_lib, name):
     tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
     consts = fused_mx3._sweep_consts(n, npr, CPU)
     powers = fused_mx2._power_table_on(n, npr, CPU)
-    mx_lib.host_mx_sweep(
-        got.data_ptr(), ta.data_ptr(), brk.data_ptr(), powers.data_ptr(),
-        tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
-        consts.data_ptr(), ctx.crt.prod_mod64, g * rows, rows, params.n, npr, l,
-        params.log_b_gsw, n.bit_length() - 1, int(pow_shared),
-    )
+    # a forced table place runs the kernel with run-time shapes (instance 0)
+    instance = fused_mx2.mx_instance(params, ctx) if pow_shared is None else 0
+    assert instance == MX_INSTANCE.get(name, 0)
+
+    def host(instance, out):
+        return mx_lib.host_mx_sweep(
+            out.data_ptr(), ta.data_ptr(), brk.data_ptr(), powers.data_ptr(),
+            tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
+            consts.data_ptr(), ctx.crt.prod_mod64, g * rows, rows, params.n, npr, l,
+            params.log_b_gsw, n.bit_length() - 1, instance, -1 if pow_shared is None else int(pow_shared),
+        )
+
+    assert host(instance, got) == 0
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+    for other in range(1, len(fused_mx2.INSTANCES) + 1):  # every other instance refuses the shape
+        if pow_shared is None and other != instance:
+            assert host(other, acc0.clone()) == 1
 
 
 @pytest.mark.parametrize("n", [64, 256])
