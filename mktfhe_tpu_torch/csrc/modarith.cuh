@@ -366,6 +366,38 @@ __device__ __forceinline__ void digits_first_pass(uint32_t* dig, const uint64_t*
     }
 }
 
+// One prime's twiddles in shared memory: tws [4, n] = psi table, its Shoup
+// companion, psi^-1 table, its companion (n a multiple of 4, 16-byte aligned
+// rows).  The passes read 2^R - 1 twiddle pairs per task; from shared memory
+// they cost the binary sweep 4% less than from device memory through L1.
+// Called by all threads; a barrier must follow before a pass reads them (the
+// one behind the first pass does: it takes its 7 twiddles from device
+// memory) and must lie behind the last pass that read the previous prime's.
+__device__ __forceinline__ void stage_twiddles(uint32_t* tws, const uint32_t* __restrict__ f,
+                                               const uint32_t* __restrict__ f_sh,
+                                               const uint32_t* __restrict__ i,
+                                               const uint32_t* __restrict__ i_sh, int n, int tid,
+                                               int nthreads) {
+    const uint32_t* src[4] = {f, f_sh, i, i_sh};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+        const uint4* from = reinterpret_cast<const uint4*>(src[t]);
+        uint4* to = reinterpret_cast<uint4*>(tws + static_cast<size_t>(t) * n);
+        for (int j = tid; j < n / 4; j += nthreads) to[j] = from[j];
+    }
+}
+
+// The barrier between two passes.  A build with bit 5 of MKTFHE_SWEEP_PROBE
+// set (a timing probe, see phase1_sweep.cu; the output is wrong) leaves it
+// out, to show what the whole-CTA barriers cost.
+__device__ __forceinline__ void pass_barrier() {
+#if defined(MKTFHE_SWEEP_PROBE) && (MKTFHE_SWEEP_PROBE & 32)
+    __syncwarp();
+#else
+    __syncthreads();
+#endif
+}
+
 // The passes of one transform: 3 stages each from the widest down, and what
 // is left of log_n (2 stages, 1 or none) as the last pass on neighbouring
 // words; the inverse runs the same passes backwards.  kLogN = 0 takes log_n
@@ -396,7 +428,7 @@ __device__ __forceinline__ void fwd_ntt_passes(uint32_t* a, int count, int log_n
             s = 0;
             radix_pass<1, true>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
         }
-        __syncthreads();
+        pass_barrier();
     }
 }
 
@@ -412,10 +444,10 @@ __device__ __forceinline__ void inv_ntt_passes(uint32_t* a, int count, int log_n
     const int rem = log_n % 3;
     if (rem == 2) {
         radix_pass<2, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        __syncthreads();
+        pass_barrier();
     } else if (rem == 1) {
         radix_pass<1, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        __syncthreads();
+        pass_barrier();
     }
 #pragma unroll
     for (int pass = 0; pass < kMaxPasses; ++pass) {
@@ -423,7 +455,7 @@ __device__ __forceinline__ void inv_ntt_passes(uint32_t* a, int count, int log_n
         if (s >= log_n) break;
         radix_pass<3, false>(a, count, log_n, s, tid, nthreads, w, w_sh, p, s + 3 == log_n, ninv,
                              ninv_sh);
-        __syncthreads();
+        pass_barrier();
     }
 }
 

@@ -41,21 +41,24 @@
 //    torus roll of phase1_sweep.cu's binary variant: npr is the KEY's prime
 //    count (fused_mx2.mx_nprimes), not the scheme's.
 //
-// What bounds it on this card: as phase1_sweep.cu, integer operations at the
-// floor, and above it the barriers and the bytes through shared memory of
-// the one CTA that an SM holds (192 KB at KMS8party: N = 2048, l = 4,
-// 3 primes, with the power table); the step's key rows (393 KB at KMS8party)
-// are shared by all CTAs, which advance nearly in step, and come from L2.
+// What bounds it on this card: as phase1_sweep.cu.  Integer operations set
+// the floor; above it one CTA fills an SM's shared memory (224 KB at
+// KMS8party: N = 2048, l = 4, 3 primes, with the power table and the
+// twiddles), so whatever makes its warps wait idles the SM: the step's key
+// rows (393 KB at KMS8party), which all CTAs read from L2 at about the same
+// time (9% of the sweep, measured with the probes below on an H100), and the
+// barriers between the passes (9%).
 //
 // Design.  One CTA per (gate, row), the loop over steps inside it, one launch
 // per party.  Shared memory: the accumulator (16 N bytes), the 2l
 // transformed digit polynomials of the current prime (8 l N), the
-// inverse-transformed residues of every prime waiting for Garner (8 npr N)
-// and the power table (8 npr N).  The transforms are phase1_sweep.cu's
-// (modarith.cuh): register-resident radix-8 passes with lazy butterflies,
-// the accumulator decomposed in the first pass, 1/N on the inverse's last
-// pass, swizzled polynomial rows, compile-time shapes for the parameter sets
-// of the main path and run-time shapes for the rest.
+// inverse-transformed residues of every prime waiting for Garner (8 npr N),
+// the power table (8 npr N) and the current prime's twiddles (16 N), the last
+// two where they fit.  The transforms are phase1_sweep.cu's (modarith.cuh):
+// register-resident radix-8 passes with lazy butterflies, the accumulator
+// decomposed in the first pass, 1/N on the inverse's last pass, swizzled
+// polynomial rows, 512 threads, compile-time shapes for the parameter sets of
+// the main path and run-time shapes for the rest.
 //
 // The pointwise stage is a transposition: key rows want consecutive mx
 // positions (k1 minor), the digits in shared memory sit nb words apart along
@@ -89,8 +92,10 @@ constexpr int kLogNk = 7;  // log2 of the 128 positions along k1
 constexpr int kMaxThreads = MKTFHE_SWEEP_THREADS;
 // Timing probes (tools/time_sweeps.py): a build with bit 0, 1, 2 or 3 set
 // leaves out the forward transforms, the pointwise stage, the inverse
-// transforms, or Garner and the accumulation.  Its output is wrong; only its
-// time is read, against the whole kernel's in the same call.
+// transforms, or Garner and the accumulation; bit 4 reads every key row from
+// one 8 KB window (no traffic from L2), bit 5 leaves out the barriers between
+// the passes.  Its output is wrong; only its time is read, against the whole
+// kernel's in the same call.
 #ifndef MKTFHE_SWEEP_PROBE
 #define MKTFHE_SWEEP_PROBE 0
 #endif
@@ -99,6 +104,7 @@ constexpr int kMaxTerms = 12;  // 2 l_gsw digit polynomials, l_gsw <= 6
 
 struct MxShape {
     int rows, n_steps, npr, l, log_b, log_n;
+    int tw_shared;  // the current prime's twiddles are staged in shared memory
 };
 
 // Reverse the low `bits` bits of v (0 for bits = 0).
@@ -137,6 +143,8 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
     uint32_t* dig = reinterpret_cast<uint32_t*>(acc + 2 * n);  // [2l, n], swizzled rows
     uint32_t* res = dig + static_cast<size_t>(terms) * n;  // [npr, 2, n], swizzled rows
     uint32_t* pow_s = res + static_cast<size_t>(npr) * 2 * n;  // [npr, 2n] if kPowShared
+    // [4, n] if s.tw_shared: the prime's twiddles
+    uint32_t* tws = pow_s + (kPowShared ? static_cast<size_t>(npr) * 2 * n : 0);
 
     const long long cta = blockIdx.x;
     const long long gate = cta / s.rows;
@@ -165,10 +173,14 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
             // first pass
             const uint32_t* tw_q = tw_f + static_cast<size_t>(q) * n;
             const uint32_t* tw_q_sh = tw_f_sh + static_cast<size_t>(q) * n;
+            const uint32_t* ti_q = tw_i + static_cast<size_t>(q) * n;
+            const uint32_t* ti_q_sh = tw_i_sh + static_cast<size_t>(q) * n;
+            if (s.tw_shared) stage_twiddles(tws, tw_q, tw_q_sh, ti_q, ti_q_sh, n, tid, nthreads);
             if (!(kProbe & 1)) {
                 digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
                 __syncthreads();
-                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, s.tw_shared ? tws : tw_q,
+                                      s.tw_shared ? tws + n : tw_q_sh, p);
             }
 
             // external product along the mx positions, times psi^(a o) - 1
@@ -179,14 +191,15 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
                 const int k1 = w & ((1 << kLogNk) - 1), k2 = w >> kLogNk;  // mx position w
                 const int t = static_cast<int>(bitrev(k1, kLogNk) << log_nb) | k2;
                 const int pt = swz(t);
-                const uint32_t* key = key_q + w;
+                const uint32_t* key = (kProbe & 16) ? brk + w : key_q + w;
+                const int key_row = (kProbe & 16) ? 0 : n;
                 uint64_t s0 = 0, s1 = 0;
 #pragma unroll
                 for (int j = 0; j < kMaxTerms; ++j) {
                     if (j < terms) {
                         const uint64_t d = canonical(dig[j * n + pt], p);
-                        s0 += d * key[(2 * j) * n];
-                        s1 += d * key[(2 * j + 1) * n];
+                        s0 += d * key[(2 * j) * key_row];
+                        s1 += d * key[(2 * j + 1) * key_row];
                     }
                 }
                 const uint32_t o = 2 * bitrev(t, log_n) + 1;
@@ -199,8 +212,8 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
             // inverse NTT of the two output polynomials, scaled by 1/N
             if (!(kProbe & 4)) {
                 inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads,
-                                      tw_i + static_cast<size_t>(q) * n,
-                                      tw_i_sh + static_cast<size_t>(q) * n, p,
+                                      s.tw_shared ? tws + 2 * n : ti_q,
+                                      s.tw_shared ? tws + 3 * n : ti_q_sh, p,
                                       static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
                                       static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
             }
@@ -230,6 +243,15 @@ constexpr size_t kMaxDynamicShared = 232448 - sizeof(uint64_t) * kMaxPrimes * kC
 inline bool table_in_shared(int log_n, int npr, int l) {
     const int n = 1 << log_n;
     return state_bytes(n, npr, l) + table_bytes(n, npr) <= kMaxDynamicShared;
+}
+
+// One prime's twiddles go to shared memory too when they fit behind the state
+// and the table (the table comes first: it is read at random, the twiddles
+// in rows that L1 serves well).
+inline bool twiddles_in_shared(int log_n, int npr, int l) {
+    const int n = 1 << log_n;
+    const size_t used = state_bytes(n, npr, l) + (table_in_shared(log_n, npr, l) ? table_bytes(n, npr) : 0);
+    return used + static_cast<size_t>(16) * n <= kMaxDynamicShared;
 }
 
 using MxKernel = decltype(&mx_sweep_kernel<true, 0, 0, 0>);
@@ -273,10 +295,12 @@ extern "C" int mktfhe_mx_sweep(void* acc, const void* tildea, const void* brk, c
                                unsigned long long prod_mod64, long long ctas, int rows,
                                int n_steps, int npr, int l, int log_b, int log_n, int instance,
                                void* stream) {
-    const MxShape shape{rows, n_steps, npr, l, log_b, log_n};
+    const bool tw_shared = twiddles_in_shared(log_n, npr, l);
+    const MxShape shape{rows, n_steps, npr, l, log_b, log_n, tw_shared};
     const int n = 1 << log_n;
     const bool pow_shared = table_in_shared(log_n, npr, l);
-    const size_t smem = state_bytes(n, npr, l) + (pow_shared ? table_bytes(n, npr) : 0);
+    const size_t smem = state_bytes(n, npr, l) + (pow_shared ? table_bytes(n, npr) : 0) +
+                        (tw_shared ? static_cast<size_t>(16) * n : 0);
     const MxKernel kernel = mx_instance(instance, pow_shared, shape);
     if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t attr = cudaFuncSetAttribute(

@@ -27,9 +27,12 @@
 // modular multiplies per CTA at KMS8partyblock widths while its key rows
 // (1.57 MB) are shared by all CTAs, which advance nearly in step, and come
 // from L2.  The state of one (gate, row) fills most of an SM's shared
-// memory (160 KB at N = 2048, l = 4, 4 primes), so one CTA runs per SM and
-// whatever makes its warps wait idles the SM: barriers, and the bytes that
-// go through shared memory per step.  Integer operations set the floor.
+// memory (192 KB at N = 2048, l = 4, 4 primes), so one CTA runs per SM and
+// whatever makes its warps wait idles the SM.  Integer operations set the
+// floor; above it, measured with the probes below on an H100: the key rows
+// from L2 (a quarter of the block variant's time, a tenth of the binary
+// variant's: 132 SMs ask for the same 123 GB per party sweep within the
+// pointwise stages), and the barriers between the passes (8%).
 //
 // Design.  One CTA per (gate, row); the loop over steps runs inside the CTA,
 // where the TPU kernel had a sequential grid dimension with the accumulator
@@ -37,9 +40,10 @@
 // synchronisation and one launch does a party's whole rotation.  All state
 // lives in shared memory: the accumulator (16 N bytes), the 2l transformed
 // digit polynomials of the current prime (8 l N bytes; primes run one after
-// the other and reuse it), and the inverse-transformed residues of every
-// prime waiting for Garner (8 npr N bytes).  Against the barriers and the
-// shared-memory bytes (modarith.cuh has the parts):
+// the other and reuse it), the inverse-transformed residues of every prime
+// waiting for Garner (8 npr N bytes) and the current prime's twiddles
+// (16 N bytes).  Against the barriers and the shared-memory bytes
+// (modarith.cuh has the parts):
 //  - the transforms are register-resident radix-8 passes with lazy
 //    butterflies: 4 passes and 4 barriers per transform at N = 2048 where a
 //    stage-by-stage transform has 11, a prime's step 9 barriers for 25;
@@ -48,12 +52,17 @@
 //    chain), so the digits never make a trip of their own;
 //  - the polynomials lie swizzled, so every pass and the pointwise walk meet
 //    32 banks; the last pass moves 16 bytes a thread;
+//  - a thread keeps a task's twiddles in registers over the polynomials it
+//    serves, and takes them from shared memory, where each prime's tables
+//    are copied while the first pass runs;
 //  - the pointwise stage holds a position's 2l digits in registers over the
 //    ell members, and the 4l key loads of a member are in flight together;
 //  - the scaling by 1/N rides on the inverse's last pass;
+//  - 512 threads, so that a thread may hold 128 registers (1,024 threads of
+//    64 registers spilled and were 3% slower, 256 threads 25% slower);
 //  - the shapes (log2 N, l, primes, ell) are template arguments for the
-//    parameter sets of the main paths (kInstances below); every other shape
-//    the wrapper admits runs the same kernel with run-time shapes.
+//    parameter sets of the main paths (sweep_instance below); every other
+//    shape the wrapper admits runs the same kernel with run-time shapes.
 // Keys are read as the scheme stores them (standard NTT domain in the plain
 // transform's bit-reversed order, no Shoup companions): products of two
 // runtime residues are summed in 64 bits (at most 2l <= 12 canonical terms)
@@ -80,8 +89,10 @@ using namespace mktfhe;
 constexpr int kMaxThreads = MKTFHE_SWEEP_THREADS;
 // Timing probes (tools/time_sweeps.py): a build with bit 0, 1, 2 or 3 set
 // leaves out the forward transforms, the pointwise stage, the inverse
-// transforms, or Garner and the accumulation.  Its output is wrong; only its
-// time is read, against the whole kernel's in the same call.
+// transforms, or Garner and the accumulation; bit 4 reads every key row from
+// one 8 KB window (no traffic from L2), bit 5 leaves out the barriers between
+// the passes, bit 6 the loads of the monomial images.  Its output is wrong;
+// only its time is read, against the whole kernel's in the same call.
 #ifndef MKTFHE_SWEEP_PROBE
 #define MKTFHE_SWEEP_PROBE 0
 #endif
@@ -125,6 +136,7 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     uint32_t* res = dig + dig_words;  // [npr, 2, n], swizzled rows
     // binary variant: e on the torus, [2, n] u64, over the idle digit buffer
     uint64_t* etor = reinterpret_cast<uint64_t*>(dig);
+    uint32_t* tws = res + static_cast<size_t>(npr) * 2 * n;  // [4, n]: the prime's twiddles
 
     const long long cta = blockIdx.x;
     const long long gate = cta / s.rows;
@@ -135,7 +147,8 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     for (int i = tid; i < 2 * n; i += nthreads) acc[i] = acc_io[i];
     __syncthreads();
 
-    const size_t poly_stride = static_cast<size_t>(npr) * n;  // one (term, cout) key row
+    // one (term, cout) key row
+    const size_t poly_stride = (kProbe & 16) ? 0 : static_cast<size_t>(npr) * n;
     const size_t member_stride = static_cast<size_t>(terms) * 2 * poly_stride;
 
     for (int step = 0; step < s.n_steps; ++step) {
@@ -148,10 +161,12 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             // c * l + j: digit j of component c), decomposed in the first pass
             const uint32_t* tw_q = tw_f + static_cast<size_t>(q) * n;
             const uint32_t* tw_q_sh = tw_f_sh + static_cast<size_t>(q) * n;
+            stage_twiddles(tws, tw_q, tw_q_sh, tw_i + static_cast<size_t>(q) * n,
+                           tw_i_sh + static_cast<size_t>(q) * n, n, tid, nthreads);
             if (!(kProbe & 1)) {
                 digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
                 __syncthreads();
-                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tws, tws + n, p);
             }
 
             // 3-4. external product per output component; block variant:
@@ -171,7 +186,9 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
                 }
                 uint32_t u0 = 0, u1 = 0;
                 for (int m = 0; m < ell; ++m) {
-                    const uint32_t* key = brk_s + m * member_stride + static_cast<size_t>(q) * n + i;
+                    const uint32_t* key =
+                        (kProbe & 16) ? brk + i
+                                      : brk_s + m * member_stride + static_cast<size_t>(q) * n + i;
                     uint64_t s0 = 0, s1 = 0;
 #pragma unroll
                     for (int t = 0; t < kMaxTerms; ++t) {
@@ -184,7 +201,8 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
                     const uint32_t e1 = barrett_reduce(s1, mu, p);
                     if (kBlock) {
                         const uint32_t a = static_cast<uint32_t>(ta[step * ell + m]);
-                        const uint64_t mon = mono[(static_cast<size_t>(a) * npr + q) * n + i];
+                        const uint64_t mon =
+                            (kProbe & 64) ? a : mono[(static_cast<size_t>(a) * npr + q) * n + i];
                         u0 = barrett_reduce(u0 + e0 * mon, mu, p);
                         u1 = barrett_reduce(u1 + e1 * mon, mu, p);
                     } else {
@@ -199,9 +217,7 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
 
             // 5. inverse NTT of the two output polynomials, scaled by 1/N
             if (!(kProbe & 4)) {
-                inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads,
-                                      tw_i + static_cast<size_t>(q) * n,
-                                      tw_i_sh + static_cast<size_t>(q) * n, p,
+                inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads, tws + 2 * n, tws + 3 * n, p,
                                       static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
                                       static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
             }
@@ -269,11 +285,13 @@ inline int sweep_threads(int log_n) {
     return (1 << log_n) / 2 < kMaxThreads ? (1 << log_n) / 2 : kMaxThreads;
 }
 
-// Dynamic shared memory of one CTA.
+// Dynamic shared memory of one CTA: accumulator, digit polynomials, residues
+// and one prime's twiddles; at most 112 n bytes (l = 6, 4 primes), 224 KB at
+// N = 2048.
 inline int sweep_shared_bytes(int log_n, int l, int npr) {
     const int n = 1 << log_n;
     const int dig_words = 2 * l * n > 4 * n ? 2 * l * n : 4 * n;
-    return 16 * n + 4 * dig_words + 8 * npr * n;
+    return 16 * n + 4 * dig_words + 8 * npr * n + 16 * n;
 }
 
 }  // namespace

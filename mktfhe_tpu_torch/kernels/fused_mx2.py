@@ -45,7 +45,7 @@ from ..ring.ntt import fwd_ntt
 from ..ring.torus import from_crt, lift
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
-from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, SWEEP_THREADS, _sweep_consts, phase1_init
+from .fused_mx3 import MAX_DYNAMIC_SHARED, MAX_L_GSW, MAX_LOG_B, SWEEP_THREADS, _sweep_consts, phase1_init
 from .mx_ntt import NK, mx_eval_index, mx_fwd_ref, mx_inv_ref, mx_odd_exponents
 from .ntt import MAX_N, MAX_NPR, MIN_NPR, _kernel_tables, fwd_ntt_nat
 
@@ -177,27 +177,27 @@ def mx_instance(params: KmsParams, ctx_p: RingCtx) -> int:
     return INSTANCES.index(shape) if shape in INSTANCES else 0
 
 
-# what a CTA may ask for on sm_90 (227 KB), less the kernel's static constants
-# (csrc/mx_sweep.cu:kMaxDynamicShared)
-_MAX_DYNAMIC_SHARED = 232448 - 320
-
-
 def mx_kernel(params: KmsParams, ctx_p: RingCtx) -> dict:
     """The kernel of csrc/mx_sweep.cu that serves this shape and how it is
     launched: its name with its template arguments as ptxas reports them
     (first: the power table in shared memory; zeros: run-time shapes),
-    threads per CTA and dynamic shared memory."""
+    threads per CTA and dynamic shared memory: the state, then the power
+    table if it fits, then one prime's twiddles if they fit
+    (csrc/mx_sweep.cu:table_in_shared, twiddles_in_shared)."""
     instance = mx_instance(params, ctx_p)
     n, npr, l = ctx_p.n, ctx_p.nprimes, params.l_gsw
     state, table = n * (16 + 8 * l + 8 * npr), n * 8 * npr
-    shared = state + table <= _MAX_DYNAMIC_SHARED
+    shared = state + table <= MAX_DYNAMIC_SHARED
+    used = state + (table if shared else 0)
+    twiddles = used + 16 * n <= MAX_DYNAMIC_SHARED
     args = INSTANCES[instance] or (0, 0, 0)
     return {
         "instance": instance,
         "name": f"mx_sweep_kernel<{int(shared)}," + ",".join(str(a) for a in args) + ">",
         "threads": min(n // 2, SWEEP_THREADS),
-        "shared_bytes": state + (table if shared else 0),
+        "shared_bytes": used + (16 * n if twiddles else 0),
         "table_in_shared": shared,
+        "twiddles_in_shared": twiddles,
     }
 
 

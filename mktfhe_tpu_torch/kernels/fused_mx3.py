@@ -44,6 +44,8 @@ MAX_L_GSW = 6  # 2l digit polynomials of N u32 in shared memory (KMS32party)
 MAX_LOG_B = 16
 _CONST_COLS = 10  # csrc/phase1_sweep.cu:kConstCols
 SWEEP_THREADS = 512  # csrc/phase1_sweep.cu:kMaxThreads
+# what a CTA may ask for on sm_90 (227 KB), less the kernels' static constants
+MAX_DYNAMIC_SHARED = 232448 - 320
 # The kernel's template instances, as csrc/phase1_sweep.cu:sweep_instance lists
 # them: (block keys, log2 N, l_gsw, primes, ell) compiled in; index 0, the
 # kernel with run-time shapes, serves every other shape `_check` admits.
@@ -155,7 +157,8 @@ def sweep_instance(params, ctx: RingCtx) -> int:
 def sweep_kernel(params, ctx: RingCtx) -> dict:
     """The kernel of csrc/phase1_sweep.cu that serves this shape and how it
     is launched: its name with its template arguments as ptxas reports them
-    (zeros: run-time shapes), threads per CTA and dynamic shared memory."""
+    (zeros: run-time shapes), threads per CTA and dynamic shared memory
+    (accumulator, digit polynomials, residues, one prime's twiddles)."""
     instance = sweep_instance(params, ctx)
     block = isinstance(params, KmsBlockParams)
     args = INSTANCES[instance] or (block, 0, 0, 0, 0 if block else 1)
@@ -164,7 +167,7 @@ def sweep_kernel(params, ctx: RingCtx) -> dict:
         "instance": instance,
         "name": "phase1_sweep_kernel<" + ",".join(str(int(a)) for a in args) + ">",
         "threads": min(n // 2, SWEEP_THREADS),
-        "shared_bytes": 16 * n + 4 * max(terms, 4) * n + 8 * ctx.nprimes * n,
+        "shared_bytes": 16 * n + 4 * max(terms, 4) * n + 8 * ctx.nprimes * n + 16 * n,
     }
 
 

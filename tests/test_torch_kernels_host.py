@@ -147,8 +147,11 @@ extern "C" int host_mx_sweep(void* acc, const void* tildea, const void* brk, con
         const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
         const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
         int npr, int l, int log_b, int log_n, int instance, int pow_shared) {
-    const MxShape shape{rows, n_steps, npr, l, log_b, log_n};
+    // the twiddles from shared memory behind a table in shared memory, else
+    // from device memory: both ways run in the cases of the test
     const bool shared = pow_shared < 0 ? table_in_shared(log_n, npr, l) : pow_shared != 0;
+    const MxShape shape{rows, n_steps, npr, l, log_b, log_n,
+                        pow_shared < 0 ? twiddles_in_shared(log_n, npr, l) : shared};
     const MxKernel kernel = mx_instance(instance, shared, shape);
     if (kernel == nullptr) return 1;
     run_grid(ctas, mx_threads(log_n), [=]() {

@@ -91,6 +91,9 @@ def test_mx_kernel_of_preset(name):
     assert kernel["name"] == MX_KERNEL[name]
     assert kernel["instance"] == fused_mx2.mx_instance(params, ctx_p)
     assert kernel["table_in_shared"] and kernel["shared_bytes"] <= MAX_SHARED
+    # the twiddles follow the table into shared memory where 16 N bytes are left:
+    # at N = 2048 only beside KMS8party's four digits over three primes
+    assert kernel["twiddles_in_shared"] == (name in ("KMS_8PARTY", "TINY_KMS_2PARTY_MX"))
     if kernel["instance"]:
         assert fused_mx2.INSTANCES[kernel["instance"]] == (ctx_p.n.bit_length() - 1, params.l_gsw, ctx_p.nprimes)
 
@@ -105,7 +108,7 @@ def test_other_compiled_instances():
     assert fused_mx2.mx_kernel(wide, ctx)["name"] == "mx_sweep_kernel<1,8,3,3>"
     six = fused_mx2.mx_kernel(presets.KMS_32PARTY, make_ring_ctx(2048, 64, 4))
     assert six["name"] == "mx_sweep_kernel<0,11,6,4>" and not six["table_in_shared"]
-    assert six["shared_bytes"] == 2048 * (16 + 8 * 6 + 8 * 4)
+    assert six["twiddles_in_shared"] and six["shared_bytes"] == 2048 * (16 + 8 * 6 + 8 * 4 + 16)
     # the same gadget over three primes keeps the table in shared memory, with run-time shapes
     assert fused_mx2.mx_kernel(presets.KMS_32PARTY, make_ring_ctx(2048, 64, 3))["name"] == "mx_sweep_kernel<1,0,0,0>"
     # one more prime or digit than an instance's: run-time shapes
