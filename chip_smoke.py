@@ -5,7 +5,9 @@ Phases, each printing one line; any failure exits non-zero:
   1. require a CUDA card; print `nvidia-smi` name and power limit;
   2. build the CUDA kernels from mktfhe_tpu_torch/csrc/ (nvcc, sm_90a, one
      process per source, started together); the sweep kernels' template
-     instances that the main paths run must not spill registers;
+     instances that the main paths run must not spill registers; time the
+     sweep kernels' own butterflies on registers alone (a measuring kernel,
+     csrc/butterfly_rate.cu), the second yardstick beside their bounds;
   3. hold the NTT kernel against its plain PyTorch version on the card,
      bit-exact, forward and inverse, at the bootstrap's shapes, and time both;
   4. keygen on the card for KMS8partyblock and KMS8party: crs, 8 party
@@ -89,6 +91,7 @@ from mktfhe_tpu_torch.schemes.gates import (
 )
 from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
 from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM, KMS_8PARTY, KMS_8PARTY_BLOCK, KMS_32PARTY
+from mktfhe_tpu_torch.tools import butterfly_rate
 
 BATCH = 128
 CHAIN = 2
@@ -140,12 +143,21 @@ RUN_TIME_SHAPES_BLOCK = KmsBlockParams(
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 # 32-bit integer operations of the arithmetic as csrc/modarith.cuh writes it
-# (a multiply and an add count one each; a 64-bit add counts two)
+# (a multiply and an add count one each; a 64-bit add counts two).  The
+# stage-by-stage transforms (ntt.cu, cggi_step.cu) run canonical butterflies
+# and a carry-chain decomposition:
 OPS_SHOUP_MUL = 6  # mulhi, two mullo, subtract, compare, subtract
 OPS_BUTTERFLY = OPS_SHOUP_MUL + 3 + 4  # + add_mod + sub_mod
 OPS_PRODUCT_TERM = 4  # 32x32 -> 64 multiply (lo, hi) and a 64-bit add
 OPS_BARRETT = 12  # 64x64 high product as eight 32-bit mul/adds, then as Shoup's tail
 OPS_DIGIT = 5  # mask, shift, carry add, sign test, lift
+# the sweep kernels run lazy butterflies and take each digit from the
+# accumulator word plus an offset:
+OPS_CT_LAZY = 10  # csub (subtract, min), mulhi, two multiply-adds, 2 u0 + 2p, subtract
+OPS_GS_LAZY = 9  # subtract, add, add, csub (subtract, min), mulhi, multiply, multiply-subtract
+OPS_CANONICAL = 4  # two csub: [0, 4p) -> [0, p), once per transformed digit
+OPS_DIGIT_SOURCE = 8  # per accumulator word and step: 64-bit shift, rounding bit (shift, mask), two 64-bit adds
+OPS_LIFTED_DIGIT = 6  # funnel shift, mask, subtract, compare, select, add
 NO_LIBRARY_CALL = (
     "library_ms is null for every kernel: no single PyTorch call computes a negacyclic "
     "NTT over CRT primes, a blind rotation or one step of it"
@@ -228,7 +240,7 @@ def check_run_time_shapes(gen, device) -> int:
         mono = kms.monomial_table(ctx, device) if block else None
         tildea = torch.randint(0, 2 * n, (5, params.n), generator=gen, device=device, dtype=torch.int32)
         args = (tildea, brk, params.l_lev, mono, params, ctx)
-        if fused_mx3.sweep_instance(params, ctx) != 0:
+        if not fused_mx3.sweep_kernel(params, ctx)["run_time_shapes"]:
             raise SystemExit(f"{params} should run the sweep kernel with run-time shapes")
         err = max(err, _max_abs_diff(fused_mx3.phase1_sweep(*args), fused_mx3.phase1_sweep_plain(*args)))
     params = RUN_TIME_SHAPES
@@ -238,7 +250,7 @@ def check_run_time_shapes(gen, device) -> int:
     brk_mx = _residues(gen, (params.n, npr, 2 * l * 2 * n), device).reshape(params.n, npr, 2 * l, 2, n)
     tildea = torch.randint(0, 2 * n, (5, params.n), generator=gen, device=device, dtype=torch.int32)
     args = (tildea, brk_mx, params.l_lev, params, ctx_p)
-    if fused_mx2.mx_instance(params, ctx_p) != 0:
+    if not fused_mx2.mx_kernel(params, ctx_p)["run_time_shapes"]:
         raise SystemExit(f"{params} should run the mx sweep kernel with run-time shapes")
     err = max(err, _max_abs_diff(fused_mx2.mx_sweep(*args), fused_mx2.mx_sweep_plain(*args)))
     torch.cuda.synchronize()
@@ -308,30 +320,75 @@ def keygen(gen, params):
     return [p[0] for p in parties], kms.setup(a, party_keys, params), party_keys
 
 
-def sweep_bound(params, ctx, g: int, rows: int, tildea: torch.Tensor) -> dict:
+def sweep_step_ops(n: int, npr: int, l: int, per_position: int, accumulate: int, lazy: bool) -> int:
+    """32-bit integer operations of one step of one (gate, row) of a sweep:
+    per prime the 2l digit polynomials and their forward transforms,
+    `per_position` operations of the pointwise stage at each of n positions,
+    two inverse transforms scaled by 1/N; then per coefficient Garner mod 2^64
+    and `accumulate` operations.  `lazy`: the arithmetic the sweep kernels run
+    (lazy butterflies, digits from the accumulator word plus an offset, one
+    canonical reduction per transformed digit); else the canonical radix-2
+    arithmetic of the stage-by-stage transforms, by which the sweeps' bounds
+    were counted before their redesign."""
+    log_n = n.bit_length() - 1
+    if lazy:
+        fwd, inv = (n // 2 * log_n * ops for ops in (OPS_CT_LAZY, OPS_GS_LAZY))
+        digits = 2 * l * n * (OPS_LIFTED_DIGIT + OPS_CANONICAL)
+        sources = 2 * n * OPS_DIGIT_SOURCE
+    else:
+        fwd = inv = n // 2 * log_n * OPS_BUTTERFLY
+        digits = 2 * l * n * OPS_DIGIT
+        sources = 0
+    per_prime = digits + 2 * l * fwd + n * per_position + 2 * inv + 2 * n * OPS_SHOUP_MUL
+    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 8 + 4
+    return sources + npr * per_prime + 2 * n * (garner + accumulate)
+
+
+def sweep_bounds(nbytes: int, units: int, n: int, npr: int, l: int, per_position: int, accumulate: int,
+                 rate: dict) -> dict:
+    """The bound of a sweep of `units` (gate, row, step) triples: bytes
+    against operations of the arithmetic the kernel runs (`bound_ms`); beside
+    it the same bound counted in the canonical radix-2 arithmetic
+    (`bound_ms_canonical_radix2`, the yardstick of the rows before the
+    redesign), and the time that the sweep's butterflies alone take at the
+    rate the card reaches on them in registers (`butterflies_only_ms`, from
+    csrc/butterfly_rate.cu at the sweeps' occupancy of one CTA per SM)."""
+    half_stages = n // 2 * (n.bit_length() - 1)
+    return {
+        **_bound(nbytes, units * sweep_step_ops(n, npr, l, per_position, accumulate, lazy=True)),
+        "bound_ms_canonical_radix2":
+            _bound(nbytes, units * sweep_step_ops(n, npr, l, per_position, accumulate, lazy=False))["bound_ms"],
+        "butterflies_only_ms": units * npr * half_stages * (
+            2 * l / rate["fwd_one_cta"] + 2 / rate["inv_one_cta"]) * 1e3,
+    }
+
+
+def bounds_note(res: dict) -> str:
+    return (f"bound {res['bound_ms']:.2f} ms by {res['bound_by']} in the kernel's arithmetic, "
+            f"{res['bound_ms_canonical_radix2']:.2f} ms counted in canonical radix-2 arithmetic; its "
+            f"butterflies alone in registers {res['butterflies_only_ms']:.2f} ms")
+
+
+def sweep_bound(params, ctx, g: int, rows: int, tildea: torch.Tensor, rate: dict) -> dict:
     """Least time of one sweep on the card.  Bytes: the accumulator read and
     written, the rotation amounts, the party's key rows, the twiddles, and
     the monomial images that these amounts select, each once.  Operations:
-    per (gate, row, step) and prime the digits, 2l forward transforms, the
-    members' external products (and monomial products), two inverse
-    transforms; then Garner and the accumulation per coefficient."""
+    `sweep_step_ops` with, per position, the members' external products (and
+    monomial products); the accumulation is one 64-bit add for block keys and
+    the signed roll for binary keys."""
     n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
     block = isinstance(params, KmsBlockParams)
     ell = params.ell if block else 1
     steps = params.n // ell
-    log_n = n.bit_length() - 1
     nbytes = 2 * g * rows * 2 * n * 8 + tildea.numel() * 4 + params.n * 2 * l * 2 * npr * n * 4 + 4 * npr * n * 4
     if block:
         nbytes += int(torch.unique(tildea).numel()) * npr * n * 4
-    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
     member = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + (2 * (OPS_PRODUCT_TERM + OPS_BARRETT) if block else 0)
-    per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * ell * member + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
-    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 8 + 4
-    per_step = npr * per_prime + 2 * n * (garner + (2 if block else 8))
-    return _bound(nbytes, g * rows * steps * per_step)
+    return sweep_bounds(nbytes, g * rows * steps, n, npr, l, ell * member, 2 if block else 8, rate)
 
 
-def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool, plain: bool = True) -> dict:
+def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool, plain: bool = True,
+                rate: dict | None = None) -> dict:
     """The sweep kernel vs its plain version on the card, on `party`'s real
     keys and uniform rotation amounts: bit-exact over CHECK_STEPS steps from
     the LEV gadget rows; then, if `timed`, the kernel (and, if `plain`, the
@@ -356,7 +413,7 @@ def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool,
         out["ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep(*args), 3)
         if plain:
             out["plain_ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep_plain(*args), 1)
-        out.update(sweep_bound(params, ctx, g, rows, tildea))
+        out.update(sweep_bound(params, ctx, g, rows, tildea, rate))
     return out
 
 
@@ -594,7 +651,7 @@ def cggi_gate_inputs(gen, params, lwe_key, batch: int):
     return gate_affine(GATE_IDS["NAND"], c1, c2), c2, m1, m2
 
 
-def mx_sweep_bound(params, ctx_p, g: int, rows: int, tildea: torch.Tensor) -> dict:
+def mx_sweep_bound(params, ctx_p, g: int, rows: int, tildea: torch.Tensor, rate: dict) -> dict:
     """Least time of one mx sweep on the card, as `sweep_bound` for binary
     keys, with the monomial formed from the power table: per position, prime
     and output component one more 64-bit product and Barrett step, plus the
@@ -604,15 +661,10 @@ def mx_sweep_bound(params, ctx_p, g: int, rows: int, tildea: torch.Tensor) -> di
     of CTAs: one CTA fills an SM, the waves run one after the other, and a
     party's keys exceed the L2 cache.  That is its cost, not the function's.)"""
     n, npr, l = ctx_p.n, ctx_p.nprimes, params.l_gsw
-    log_n = n.bit_length() - 1
     nbytes = (2 * g * rows * 2 * n * 8 + tildea.numel() * 4 + params.n * 2 * l * 2 * npr * n * 4
               + 4 * npr * n * 4 + 2 * n * npr * 4)
-    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
     position = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + 2 * (OPS_PRODUCT_TERM + OPS_BARRETT) + 8
-    per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * position + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
-    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 8 + 4
-    per_step = npr * per_prime + 2 * n * (garner + 2)
-    return _bound(nbytes, g * rows * params.n * per_step)
+    return sweep_bounds(nbytes, g * rows * params.n, n, npr, l, position, 2, rate)
 
 
 def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple]:
@@ -635,7 +687,7 @@ def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple
     return err, (tildea, brk_mx_p, rows, params, ctx_p)
 
 
-def run_mx2(gen, smi: str, binary: dict, usage: list[str]) -> list[dict]:
+def run_mx2(gen, smi: str, binary: dict, usage: list[str], rate: dict) -> list[dict]:
     """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
     KMS batch-minor engine; returns the mx sweep's row of the kernels line."""
     params = KMS_8PARTY
@@ -673,7 +725,7 @@ def run_mx2(gen, smi: str, binary: dict, usage: list[str]) -> list[dict]:
         "err": max(err3, err1, err_wide, err_six),
         "ms": _sync_ms(lambda: fused_mx2.mx_sweep(*args3), 3),
         "plain_ms": _sync_ms(lambda: fused_mx2.mx_sweep_plain(*args3), 1),
-        **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0]),
+        **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0], rate),
     }
     row1_ms = _sync_ms(lambda: fused_mx2.mx_sweep(*args1), 3)
     notes = [
@@ -691,7 +743,7 @@ def run_mx2(gen, smi: str, binary: dict, usage: list[str]) -> list[dict]:
         f"l_gsw={SIX_DIGITS.l_gsw}, {six_keys.brk_mx.shape[2]} primes, G=5) through {notes[2]}; the "
         f"kernel with run-time shapes: phase 5; "
         f"one party's sweep, G={BATCH}, {params.n} steps: rows=3 kernel {rows3['ms']:.2f} ms vs plain "
-        f"{rows3['plain_ms']:.1f} ms (bound {rows3['bound_ms']:.2f} ms by {rows3['bound_by']}), "
+        f"{rows3['plain_ms']:.1f} ms ({bounds_note(rows3)}), "
         f"rows=1 kernel {row1_ms:.2f} ms; the torus-roll sweep "
         f"of phase 5 on the same card, same steps: {binary['sweep_ms']:.2f} ms ({smi})"
     )
@@ -764,6 +816,9 @@ def run_mx2(gen, smi: str, binary: dict, usage: list[str]) -> list[dict]:
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> dict:
+    """One kernel's entry of the kernels line; a sweep's carries its two
+    further yardsticks (`sweep_bounds`) beside the keys every kernel has."""
+    extra = {k: bound[k] for k in ("bound_ms_canonical_radix2", "butterflies_only_ms") if k in bound}
     return {
         "name": name,
         "route": "cuda",
@@ -776,10 +831,11 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> di
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": None,
+        **extra,
     }
 
 
-def run_kms(gen, device, smi: str, usage: list[str]) -> tuple[list[dict], dict]:
+def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[dict], dict]:
     """Phases 3-9: the KMS paths and their kernels; returns their rows of
     the kernels line, and the KMS8party keys, ciphertext and `bootstrap_mx3`
     output that the later phases go on from."""
@@ -811,10 +867,10 @@ def run_kms(gen, device, smi: str, usage: list[str]) -> tuple[list[dict], dict]:
     )
 
     # 5. sweep kernel vs plain version
-    sweep_block = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True)
-    sweep_bin = check_sweep(gen, KMS_8PARTY, bin_scheme, 1, BATCH, KMS_8PARTY.l_lev, timed=True)
-    sweep_block1 = check_sweep(gen, params, scheme, 0, BATCH, 1, timed=True, plain=False)
-    sweep_bin1 = check_sweep(gen, KMS_8PARTY, bin_scheme, 0, BATCH, 1, timed=True, plain=False)
+    sweep_block = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True, rate=rate)
+    sweep_bin = check_sweep(gen, KMS_8PARTY, bin_scheme, 1, BATCH, KMS_8PARTY.l_lev, timed=True, rate=rate)
+    sweep_block1 = check_sweep(gen, params, scheme, 0, BATCH, 1, timed=True, plain=False, rate=rate)
+    sweep_bin1 = check_sweep(gen, KMS_8PARTY, bin_scheme, 0, BATCH, 1, timed=True, plain=False, rate=rate)
     sweep_wide = check_sweep(gen, WIDE_GADGET, wide_scheme, 1, 5, WIDE_GADGET.l_lev, timed=False)
     err_run_time = check_run_time_shapes(gen, device)
     notes = [
@@ -828,11 +884,11 @@ def run_kms(gen, device, smi: str, usage: list[str]) -> tuple[list[dict], dict]:
         f"log_b_gsw={WIDE_GADGET.log_b_gsw}) through {notes[2]}, and block, binary and mx keys at "
         f"N={RUN_TIME_SHAPES.big_n}, l_gsw={RUN_TIME_SHAPES.l_gsw} through the kernels with run-time "
         f"shapes (max |diff| {err_run_time}); one party's sweep, G={BATCH}: block, {params.d} steps: "
-        f"rows=3 kernel {sweep_block['ms']:.2f} ms vs plain {sweep_block['plain_ms']:.1f} ms (bound "
-        f"{sweep_block['bound_ms']:.2f} ms by {sweep_block['bound_by']}), rows=1 kernel "
+        f"rows=3 kernel {sweep_block['ms']:.2f} ms vs plain {sweep_block['plain_ms']:.1f} ms "
+        f"({bounds_note(sweep_block)}), rows=1 kernel "
         f"{sweep_block1['ms']:.2f} ms; binary, {KMS_8PARTY.n} steps: rows=3 kernel "
-        f"{sweep_bin['ms']:.2f} ms vs plain {sweep_bin['plain_ms']:.1f} ms (bound "
-        f"{sweep_bin['bound_ms']:.2f} ms by {sweep_bin['bound_by']}), rows=1 kernel "
+        f"{sweep_bin['ms']:.2f} ms vs plain {sweep_bin['plain_ms']:.1f} ms "
+        f"({bounds_note(sweep_bin)}), rows=1 kernel "
         f"{sweep_bin1['ms']:.2f} ms ({smi})"
     )
     del wide_scheme
@@ -1047,12 +1103,13 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE, fused_mx2.SOURCE]
+    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE, fused_mx2.SOURCE, butterfly_rate.SOURCE]
     libs = _build.build_all(sources)
     kntt.load_library()
     fused_mx3.load_library()
     fused_step.load_library()
     fused_mx2.load_library()
+    butterfly_rate.load_library()
     per_kernel = [_build.resource_usage(lib) for lib in libs]
     usage = "; ".join(f"{src.name}: {' | '.join(said)}" for src, said in zip(sources, per_kernel))
     print(
@@ -1060,10 +1117,22 @@ def main() -> int:
         f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {usage}"
     )
 
+    # the sweeps' own butterflies on registers alone: the rate behind `butterflies_only_ms`
+    rate = butterfly_rate.measure(device)
+    peak = INT32_OPS_PER_S / OPS_CT_LAZY
+    print(
+        f"[2b butterfly rate] csrc/butterfly_rate.cu, radix-8 tasks in registers, {rate['rounds']} rounds, "
+        f"{rate['sms']} SMs, in 1e12 butterflies/s: ct_lazy (forward) {rate['fwd_one_cta'] / 1e12:.3f} with one "
+        f"CTA of 512 threads per SM (the sweeps' occupancy), {rate['fwd_full'] / 1e12:.3f} with as many as "
+        f"fit; gs_lazy (inverse) {rate['inv_one_cta'] / 1e12:.3f} and {rate['inv_full'] / 1e12:.3f}; the "
+        f"bounds' peak of {INT32_OPS_PER_S / 1e12:.1f} T operations/s is {peak / 1e12:.3f} of ct_lazy's "
+        f"{OPS_CT_LAZY} operations ({smi})"
+    )
+
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kernels, binary = run_kms(gen, device, smi, per_kernel[1])
+    kernels, binary = run_kms(gen, device, smi, per_kernel[1], rate)
     kernels += run_cggi(gen, device, smi)
-    kernels += run_mx2(gen, smi, binary, per_kernel[3])
+    kernels += run_mx2(gen, smi, binary, per_kernel[3], rate)
 
     # 19. results
     print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")

@@ -387,17 +387,6 @@ __device__ __forceinline__ void stage_twiddles(uint32_t* tws, const uint32_t* __
     }
 }
 
-// The barrier between two passes.  A build with bit 5 of MKTFHE_SWEEP_PROBE
-// set (a timing probe, see phase1_sweep.cu; the output is wrong) leaves it
-// out, to show what the whole-CTA barriers cost.
-__device__ __forceinline__ void pass_barrier() {
-#if defined(MKTFHE_SWEEP_PROBE) && (MKTFHE_SWEEP_PROBE & 32)
-    __syncwarp();
-#else
-    __syncthreads();
-#endif
-}
-
 // The passes of one transform: 3 stages each from the widest down, and what
 // is left of log_n (2 stages, 1 or none) as the last pass on neighbouring
 // words; the inverse runs the same passes backwards.  kLogN = 0 takes log_n
@@ -428,7 +417,7 @@ __device__ __forceinline__ void fwd_ntt_passes(uint32_t* a, int count, int log_n
             s = 0;
             radix_pass<1, true>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
         }
-        pass_barrier();
+        __syncthreads();
     }
 }
 
@@ -444,10 +433,10 @@ __device__ __forceinline__ void inv_ntt_passes(uint32_t* a, int count, int log_n
     const int rem = log_n % 3;
     if (rem == 2) {
         radix_pass<2, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        pass_barrier();
+        __syncthreads();
     } else if (rem == 1) {
         radix_pass<1, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        pass_barrier();
+        __syncthreads();
     }
 #pragma unroll
     for (int pass = 0; pass < kMaxPasses; ++pass) {
@@ -455,7 +444,7 @@ __device__ __forceinline__ void inv_ntt_passes(uint32_t* a, int count, int log_n
         if (s >= log_n) break;
         radix_pass<3, false>(a, count, log_n, s, tid, nthreads, w, w_sh, p, s + 3 == log_n, ninv,
                              ninv_sh);
-        pass_barrier();
+        __syncthreads();
     }
 }
 

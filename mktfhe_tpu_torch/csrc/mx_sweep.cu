@@ -46,8 +46,8 @@
 // KMS8party: N = 2048, l = 4, 3 primes, with the power table and the
 // twiddles), so whatever makes its warps wait idles the SM: the step's key
 // rows (393 KB at KMS8party), which all CTAs read from L2 at about the same
-// time (9% of the sweep, measured with the probes below on an H100), and the
-// barriers between the passes (9%).
+// time (9% of the sweep, measured on an H100 with a build that read them from
+// one L1-resident window instead), and the barriers between the passes (9%).
 //
 // Design.  One CTA per (gate, row), the loop over steps inside it, one launch
 // per party.  Shared memory: the accumulator (16 N bytes), the 2l
@@ -57,8 +57,8 @@
 // two where they fit.  The transforms are phase1_sweep.cu's (modarith.cuh):
 // register-resident radix-8 passes with lazy butterflies, the accumulator
 // decomposed in the first pass, 1/N on the inverse's last pass, swizzled
-// polynomial rows, 512 threads, compile-time shapes for the parameter sets of
-// the main path and run-time shapes for the rest.
+// polynomial rows, 512 threads, compile-time shapes for the KMS presets and
+// run-time shapes for the rest.
 //
 // The pointwise stage is a transposition: key rows want consecutive mx
 // positions (k1 minor), the digits in shared memory sit nb words apart along
@@ -85,21 +85,7 @@ namespace {
 using namespace mktfhe;
 
 constexpr int kLogNk = 7;  // log2 of the 128 positions along k1
-// threads of a CTA at N >= 1024 (a build flag may set 1024 or 256)
-#ifndef MKTFHE_SWEEP_THREADS
-#define MKTFHE_SWEEP_THREADS 512
-#endif
-constexpr int kMaxThreads = MKTFHE_SWEEP_THREADS;
-// Timing probes (tools/time_sweeps.py): a build with bit 0, 1, 2 or 3 set
-// leaves out the forward transforms, the pointwise stage, the inverse
-// transforms, or Garner and the accumulation; bit 4 reads every key row from
-// one 8 KB window (no traffic from L2), bit 5 leaves out the barriers between
-// the passes.  Its output is wrong; only its time is read, against the whole
-// kernel's in the same call.
-#ifndef MKTFHE_SWEEP_PROBE
-#define MKTFHE_SWEEP_PROBE 0
-#endif
-constexpr int kProbe = MKTFHE_SWEEP_PROBE;
+constexpr int kMaxThreads = 512;  // threads of a CTA at N >= 1024
 constexpr int kMaxTerms = 12;  // 2 l_gsw digit polynomials, l_gsw <= 6
 
 struct MxShape {
@@ -176,30 +162,39 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
             const uint32_t* ti_q = tw_i + static_cast<size_t>(q) * n;
             const uint32_t* ti_q_sh = tw_i_sh + static_cast<size_t>(q) * n;
             if (s.tw_shared) stage_twiddles(tws, tw_q, tw_q_sh, ti_q, ti_q_sh, n, tid, nthreads);
-            if (!(kProbe & 1)) {
-                digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
-                __syncthreads();
-                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, s.tw_shared ? tws : tw_q,
-                                      s.tw_shared ? tws + n : tw_q_sh, p);
-            }
+            digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+            __syncthreads();
+            fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, s.tw_shared ? tws : tw_q,
+                                  s.tw_shared ? tws + n : tw_q_sh, p);
 
             // external product along the mx positions, times psi^(a o) - 1
             const uint32_t* key_q = brk + step * step_stride + q * prime_stride;
             const uint32_t* pw_q = pw + static_cast<size_t>(q) * 2 * n;
             uint32_t* out = res + static_cast<size_t>(q) * 2 * n;
-            for (int w = tid; w < ((kProbe & 2) ? 0 : n); w += nthreads) {
+            for (int w = tid; w < n; w += nthreads) {
                 const int k1 = w & ((1 << kLogNk) - 1), k2 = w >> kLogNk;  // mx position w
                 const int t = static_cast<int>(bitrev(k1, kLogNk) << log_nb) | k2;
                 const int pt = swz(t);
-                const uint32_t* key = (kProbe & 16) ? brk + w : key_q + w;
-                const int key_row = (kProbe & 16) ? 0 : n;
+                const uint32_t* key = key_q + w;
                 uint64_t s0 = 0, s1 = 0;
+                // compile-time digit count: all 4l key loads in flight together;
+                // run-time: the terms stay a loop (unrolled to the most terms,
+                // its predicated loads spilled registers)
+                if (kL != 0) {
 #pragma unroll
-                for (int j = 0; j < kMaxTerms; ++j) {
-                    if (j < terms) {
+                    for (int j = 0; j < kMaxTerms; ++j) {
+                        if (j < terms) {
+                            const uint64_t d = canonical(dig[j * n + pt], p);
+                            s0 += d * key[(2 * j) * n];
+                            s1 += d * key[(2 * j + 1) * n];
+                        }
+                    }
+                } else {
+#pragma unroll 2
+                    for (int j = 0; j < terms; ++j) {
                         const uint64_t d = canonical(dig[j * n + pt], p);
-                        s0 += d * key[(2 * j) * key_row];
-                        s1 += d * key[(2 * j + 1) * key_row];
+                        s0 += d * key[(2 * j) * n];
+                        s1 += d * key[(2 * j + 1) * n];
                     }
                 }
                 const uint32_t o = 2 * bitrev(t, log_n) + 1;
@@ -210,17 +205,14 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
             __syncthreads();
 
             // inverse NTT of the two output polynomials, scaled by 1/N
-            if (!(kProbe & 4)) {
-                inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads,
-                                      s.tw_shared ? tws + 2 * n : ti_q,
-                                      s.tw_shared ? tws + 3 * n : ti_q_sh, p,
-                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
-                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
-            }
+            inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads, s.tw_shared ? tws + 2 * n : ti_q,
+                                  s.tw_shared ? tws + 3 * n : ti_q_sh, p,
+                                  static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
+                                  static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
         }
 
         // Garner mod 2^64 over the canonical residues, and accumulate
-        for (int idx = tid; idx < ((kProbe & 8) ? 0 : 2 * n); idx += nthreads) {
+        for (int idx = tid; idx < 2 * n; idx += nthreads) {
             const int at = (idx & n) | swz(idx & (n - 1));
             acc[idx] += garner<uint64_t>(res + at, 2 * n, npr, sc, prod_mod64);
         }
@@ -256,65 +248,96 @@ inline bool twiddles_in_shared(int log_n, int npr, int l) {
 
 using MxKernel = decltype(&mx_sweep_kernel<true, 0, 0, 0>);
 
-// The kernel for the wrapper's `instance` (kernels/fused_mx2.py:INSTANCES keeps
-// the same list): 0 is the kernel with run-time shapes, with the power table
-// in shared memory (`pow_shared`) or in device memory; the others are compiled
-// for one shape each and refused (nullptr) for any other.
-//   1  KMS8party:  N = 2048, l = 4, 3 primes, table in shared memory
-//   2  a small wide-gadget set: N = 256, l = 3, 3 primes, table in shared memory
-//   3  KMS32party's gadget over 4 primes: N = 2048, l = 6, table in device memory
-inline MxKernel mx_instance(int instance, bool pow_shared, const MxShape& s) {
-    const auto is = [&](bool shared, int log_n, int l, int npr) {
-        return pow_shared == shared && s.log_n == log_n && s.l == l && s.npr == npr;
-    };
-    switch (instance) {
-        case 0:
-            return pow_shared ? &mx_sweep_kernel<true, 0, 0, 0> : &mx_sweep_kernel<false, 0, 0, 0>;
-        case 1:
-            return is(true, 11, 4, 3) ? &mx_sweep_kernel<true, 11, 4, 3> : nullptr;
-        case 2:
-            return is(true, 8, 3, 3) ? &mx_sweep_kernel<true, 8, 3, 3> : nullptr;
-        case 3:
-            return is(false, 11, 6, 4) ? &mx_sweep_kernel<false, 11, 6, 4> : nullptr;
-        default:
-            return nullptr;
-    }
-}
-
 // Threads of a CTA: one per butterfly of a stage, at most kMaxThreads.
 inline int mx_threads(int log_n) {
     return (1 << log_n) / 2 < kMaxThreads ? (1 << log_n) / 2 : kMaxThreads;
 }
 
+// How a shape is served: the kernel, its template arguments (power table in
+// shared memory, log2 N, l, primes; 0 where the kernel takes the value at run
+// time), its launch, and whether the twiddles are staged in shared memory.
+struct MxPlan {
+    MxKernel kernel;
+    int targs[4];
+    int threads;
+    size_t shared_bytes;
+    bool tw_shared;
+};
+
+template <bool kPowShared, int kLogN, int kL, int kNpr>
+inline MxPlan plan_with(int log_n, int npr, int l) {
+    const int n = 1 << log_n;
+    const bool tw_shared = twiddles_in_shared(log_n, npr, l);
+    return {&mx_sweep_kernel<kPowShared, kLogN, kL, kNpr>,
+            {kPowShared, kLogN, kL, kNpr},
+            mx_threads(log_n),
+            state_bytes(n, npr, l) + (kPowShared ? table_bytes(n, npr) : 0) +
+                (tw_shared ? static_cast<size_t>(16) * n : 0),
+            tw_shared};
+}
+
+// The one place that decides which kernel serves a shape: the instance
+// compiled for it -- the mx keys of every binary KMS preset of
+// schemes/presets.py at N = 2048, the table in shared memory:
+//   KMS2party:             l = 3, 4 primes
+//   KMS4party, KMS16party: l = 5, 3 primes
+//   KMS8party:             l = 4, 3 primes (the twiddles fit there too)
+//   KMS32party:            l = 6, 3 primes
+// a small wide-gadget set (N = 256, l = 3, 3 primes, table in shared memory),
+// and KMS32party's gadget over 4 primes (N = 2048, l = 6, table in device
+// memory) -- else the kernel with run-time shapes, with the power table in
+// shared memory where it fits and in device memory where not.  That one runs
+// at about two thirds of an instance's speed: a parameter set that is to be
+// served wants its line here.
+inline MxPlan mx_plan(int log_n, int npr, int l) {
+    const auto is = [&](int a, int b, int c) { return log_n == a && l == b && npr == c; };
+    if (is(11, 4, 3)) return plan_with<true, 11, 4, 3>(log_n, npr, l);
+    if (is(11, 3, 4)) return plan_with<true, 11, 3, 4>(log_n, npr, l);
+    if (is(11, 5, 3)) return plan_with<true, 11, 5, 3>(log_n, npr, l);
+    if (is(11, 6, 3)) return plan_with<true, 11, 6, 3>(log_n, npr, l);
+    if (is(8, 3, 3)) return plan_with<true, 8, 3, 3>(log_n, npr, l);
+    if (is(11, 6, 4)) return plan_with<false, 11, 6, 4>(log_n, npr, l);
+    return table_in_shared(log_n, npr, l) ? plan_with<true, 0, 0, 0>(log_n, npr, l)
+                                          : plan_with<false, 0, 0, 0>(log_n, npr, l);
+}
+
+// What `mx_plan` says of a shape, for the wrapper's notes: out[0..3] the
+// template arguments, out[4] threads per CTA, out[5] dynamic shared bytes,
+// out[6] whether the twiddles are staged in shared memory.
+inline void describe_plan(int npr, int l, int log_n, int* out) {
+    const MxPlan plan = mx_plan(log_n, npr, l);
+    for (int i = 0; i < 4; ++i) out[i] = plan.targs[i];
+    out[4] = plan.threads;
+    out[5] = static_cast<int>(plan.shared_bytes);
+    out[6] = plan.tw_shared;
+}
+
 }  // namespace
 
-// Returns cudaErrorInvalidValue when the shape is not the instance's.
 extern "C" int mktfhe_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
                                const void* tw_f, const void* tw_f_sh, const void* tw_i,
                                const void* tw_i_sh, const void* consts,
                                unsigned long long prod_mod64, long long ctas, int rows,
-                               int n_steps, int npr, int l, int log_b, int log_n, int instance,
-                               void* stream) {
-    const bool tw_shared = twiddles_in_shared(log_n, npr, l);
-    const MxShape shape{rows, n_steps, npr, l, log_b, log_n, tw_shared};
-    const int n = 1 << log_n;
-    const bool pow_shared = table_in_shared(log_n, npr, l);
-    const size_t smem = state_bytes(n, npr, l) + (pow_shared ? table_bytes(n, npr) : 0) +
-                        (tw_shared ? static_cast<size_t>(16) * n : 0);
-    const MxKernel kernel = mx_instance(instance, pow_shared, shape);
-    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+                               int n_steps, int npr, int l, int log_b, int log_n, void* stream) {
+    const MxPlan plan = mx_plan(log_n, npr, l);
+    const MxShape shape{rows, n_steps, npr, l, log_b, log_n, plan.tw_shared};
+    const cudaError_t attr =
+        cudaFuncSetAttribute(plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(plan.shared_bytes));
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned int>(ctas));
-    const dim3 block(mx_threads(log_n));
-    kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 block(plan.threads);
+    plan.kernel<<<grid, block, plan.shared_bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t*>(acc), static_cast<const int32_t*>(tildea),
         static_cast<const uint32_t*>(brk), static_cast<const uint32_t*>(pow),
         static_cast<const uint32_t*>(tw_f), static_cast<const uint32_t*>(tw_f_sh),
         static_cast<const uint32_t*>(tw_i), static_cast<const uint32_t*>(tw_i_sh),
         static_cast<const uint64_t*>(consts), prod_mod64, shape);
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" void mktfhe_mx_sweep_describe(int npr, int l, int log_n, int* out) {
+    describe_plan(npr, l, log_n, out);
 }
 
 extern "C" const char* mktfhe_cuda_error_string(int code) {

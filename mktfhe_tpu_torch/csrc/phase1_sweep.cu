@@ -29,10 +29,10 @@
 // from L2.  The state of one (gate, row) fills most of an SM's shared
 // memory (192 KB at N = 2048, l = 4, 4 primes), so one CTA runs per SM and
 // whatever makes its warps wait idles the SM.  Integer operations set the
-// floor; above it, measured with the probes below on an H100: the key rows
-// from L2 (a quarter of the block variant's time, a tenth of the binary
-// variant's: 132 SMs ask for the same 123 GB per party sweep within the
-// pointwise stages), and the barriers between the passes (8%).
+// floor; above it, measured on an H100 with builds that left one part out:
+// the key rows from L2 (a quarter of the block variant's time, a tenth of the
+// binary variant's: 132 SMs ask for the same 123 GB per party sweep within
+// the pointwise stages), and the barriers between the passes (8%).
 //
 // Design.  One CTA per (gate, row); the loop over steps runs inside the CTA,
 // where the TPU kernel had a sequential grid dimension with the accumulator
@@ -61,8 +61,9 @@
 //  - 512 threads, so that a thread may hold 128 registers (1,024 threads of
 //    64 registers spilled and were 3% slower, 256 threads 25% slower);
 //  - the shapes (log2 N, l, primes, ell) are template arguments for the
-//    parameter sets of the main paths (sweep_instance below); every other
-//    shape the wrapper admits runs the same kernel with run-time shapes.
+//    KMS presets (sweep_plan below picks by the shape); every other shape
+//    the wrapper admits runs the same kernel with run-time shapes, whose
+//    loops do not unroll and which is half as fast.
 // Keys are read as the scheme stores them (standard NTT domain in the plain
 // transform's bit-reversed order, no Shoup companions): products of two
 // runtime residues are summed in 64 bits (at most 2l <= 12 canonical terms)
@@ -82,21 +83,7 @@ namespace {
 
 using namespace mktfhe;
 
-// threads of a CTA at N >= 1024 (a build flag may set 1024 or 256)
-#ifndef MKTFHE_SWEEP_THREADS
-#define MKTFHE_SWEEP_THREADS 512
-#endif
-constexpr int kMaxThreads = MKTFHE_SWEEP_THREADS;
-// Timing probes (tools/time_sweeps.py): a build with bit 0, 1, 2 or 3 set
-// leaves out the forward transforms, the pointwise stage, the inverse
-// transforms, or Garner and the accumulation; bit 4 reads every key row from
-// one 8 KB window (no traffic from L2), bit 5 leaves out the barriers between
-// the passes, bit 6 the loads of the monomial images.  Its output is wrong;
-// only its time is read, against the whole kernel's in the same call.
-#ifndef MKTFHE_SWEEP_PROBE
-#define MKTFHE_SWEEP_PROBE 0
-#endif
-constexpr int kProbe = MKTFHE_SWEEP_PROBE;
+constexpr int kMaxThreads = 512;  // threads of a CTA at N >= 1024
 constexpr int kMaxTerms = 12;  // 2 l_gsw digit polynomials, l_gsw <= 6
 
 struct SweepShape {
@@ -148,7 +135,7 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     __syncthreads();
 
     // one (term, cout) key row
-    const size_t poly_stride = (kProbe & 16) ? 0 : static_cast<size_t>(npr) * n;
+    const size_t poly_stride = static_cast<size_t>(npr) * n;
     const size_t member_stride = static_cast<size_t>(terms) * 2 * poly_stride;
 
     for (int step = 0; step < s.n_steps; ++step) {
@@ -163,11 +150,9 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             const uint32_t* tw_q_sh = tw_f_sh + static_cast<size_t>(q) * n;
             stage_twiddles(tws, tw_q, tw_q_sh, tw_i + static_cast<size_t>(q) * n,
                            tw_i_sh + static_cast<size_t>(q) * n, n, tid, nthreads);
-            if (!(kProbe & 1)) {
-                digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
-                __syncthreads();
-                fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tws, tws + n, p);
-            }
+            digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+            __syncthreads();
+            fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tws, tws + n, p);
 
             // 3-4. external product per output component; block variant:
             // weighted by the members' monomial images and summed
@@ -176,33 +161,47 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             // apart, so that the SMs, which advance nearly in step, do not all
             // ask the same L2 lines at once
             const int first = kBlock ? 0 : (static_cast<int>(cta) & 31) * (n / 32);
-            for (int i0 = tid; i0 < ((kProbe & 2) ? 0 : n); i0 += nthreads) {
+            for (int i0 = tid; i0 < n; i0 += nthreads) {
                 const int i = (i0 + first) & (n - 1);
                 const int pi = swz(i);
+                // Compile-time digit count: the position's 2l digits stay in
+                // registers over the ell members and a member's 4l key loads are
+                // in flight together.  Run-time digit count: the terms stay a
+                // loop that reads each digit where it is needed (unrolled to
+                // the most terms, its predicated loads spilled registers and
+                // the block variant fell behind the stage-by-stage kernel).
                 uint32_t d[kMaxTerms];
+                if (kL != 0) {
 #pragma unroll
-                for (int t = 0; t < kMaxTerms; ++t) {
-                    if (t < terms) d[t] = canonical(dig[t * n + pi], p);
+                    for (int t = 0; t < kMaxTerms; ++t) {
+                        if (t < terms) d[t] = canonical(dig[t * n + pi], p);
+                    }
                 }
                 uint32_t u0 = 0, u1 = 0;
                 for (int m = 0; m < ell; ++m) {
-                    const uint32_t* key =
-                        (kProbe & 16) ? brk + i
-                                      : brk_s + m * member_stride + static_cast<size_t>(q) * n + i;
+                    const uint32_t* key = brk_s + m * member_stride + static_cast<size_t>(q) * n + i;
                     uint64_t s0 = 0, s1 = 0;
+                    if (kL != 0) {
 #pragma unroll
-                    for (int t = 0; t < kMaxTerms; ++t) {
-                        if (t < terms) {
-                            s0 += static_cast<uint64_t>(d[t]) * key[(2 * t) * poly_stride];
-                            s1 += static_cast<uint64_t>(d[t]) * key[(2 * t + 1) * poly_stride];
+                        for (int t = 0; t < kMaxTerms; ++t) {
+                            if (t < terms) {
+                                s0 += static_cast<uint64_t>(d[t]) * key[(2 * t) * poly_stride];
+                                s1 += static_cast<uint64_t>(d[t]) * key[(2 * t + 1) * poly_stride];
+                            }
+                        }
+                    } else {
+#pragma unroll 2
+                        for (int t = 0; t < terms; ++t) {
+                            const uint64_t dt = canonical(dig[t * n + pi], p);
+                            s0 += dt * key[(2 * t) * poly_stride];
+                            s1 += dt * key[(2 * t + 1) * poly_stride];
                         }
                     }
                     const uint32_t e0 = barrett_reduce(s0, mu, p);
                     const uint32_t e1 = barrett_reduce(s1, mu, p);
                     if (kBlock) {
                         const uint32_t a = static_cast<uint32_t>(ta[step * ell + m]);
-                        const uint64_t mon =
-                            (kProbe & 64) ? a : mono[(static_cast<size_t>(a) * npr + q) * n + i];
+                        const uint64_t mon = mono[(static_cast<size_t>(a) * npr + q) * n + i];
                         u0 = barrett_reduce(u0 + e0 * mon, mu, p);
                         u1 = barrett_reduce(u1 + e1 * mon, mu, p);
                     } else {
@@ -216,17 +215,13 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             __syncthreads();
 
             // 5. inverse NTT of the two output polynomials, scaled by 1/N
-            if (!(kProbe & 4)) {
-                inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads, tws + 2 * n, tws + 3 * n, p,
-                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
-                                      static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
-            }
+            inv_ntt_passes<kLogN>(out, 2, log_n, tid, nthreads, tws + 2 * n, tws + 3 * n, p,
+                                  static_cast<uint32_t>(sc[q * kConstCols + kColNinv]),
+                                  static_cast<uint32_t>(sc[q * kConstCols + kColNinvSh]));
         }
 
         // Garner mod 2^64 over the canonical residues, and accumulate
-        if (kProbe & 8) {
-            // left out
-        } else if (kBlock) {
+        if (kBlock) {
             for (int idx = tid; idx < 2 * n; idx += nthreads) {
                 const int at = (idx & n) | swz(idx & (n - 1));
                 acc[idx] += garner<uint64_t>(res + at, 2 * n, npr, sc, prod_mod64);
@@ -255,31 +250,6 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
 
 using SweepKernel = decltype(&phase1_sweep_kernel<true, 0, 0, 0, 0>);
 
-// The kernel for the wrapper's `instance` (kernels/fused_mx3.py:INSTANCES keeps
-// the same list): 0 is the kernel with run-time shapes; the others are
-// compiled for one shape each and refused (nullptr) for any other.
-//   1  KMS8partyblock: block keys, N = 2048, l = 4, 4 primes, ell = 3
-//   2  KMS8party:      binary keys, N = 2048, l = 4, 3 primes
-//   3  a small wide-gadget set: binary keys, N = 256, l = 3, 3 primes
-inline SweepKernel sweep_instance(int instance, bool block, const SweepShape& s) {
-    const auto is = [&](bool b, int log_n, int l, int npr, int ell) {
-        return block == b && s.log_n == log_n && s.l == l && s.npr == npr && s.ell == ell;
-    };
-    switch (instance) {
-        case 0:
-            return block ? &phase1_sweep_kernel<true, 0, 0, 0, 0>
-                         : &phase1_sweep_kernel<false, 0, 0, 0, 1>;
-        case 1:
-            return is(true, 11, 4, 4, 3) ? &phase1_sweep_kernel<true, 11, 4, 4, 3> : nullptr;
-        case 2:
-            return is(false, 11, 4, 3, 1) ? &phase1_sweep_kernel<false, 11, 4, 3, 1> : nullptr;
-        case 3:
-            return is(false, 8, 3, 3, 1) ? &phase1_sweep_kernel<false, 8, 3, 3, 1> : nullptr;
-        default:
-            return nullptr;
-    }
-}
-
 // Threads of a CTA: one per butterfly of a stage, at most kMaxThreads.
 inline int sweep_threads(int log_n) {
     return (1 << log_n) / 2 < kMaxThreads ? (1 << log_n) / 2 : kMaxThreads;
@@ -294,32 +264,88 @@ inline int sweep_shared_bytes(int log_n, int l, int npr) {
     return 16 * n + 4 * dig_words + 8 * npr * n + 16 * n;
 }
 
+// How a shape is served: the kernel, its template arguments (block keys,
+// log2 N, l, primes, ell; 0 where the kernel takes the value at run time) and
+// its launch.
+struct SweepPlan {
+    SweepKernel kernel;
+    int targs[5];
+    int threads, shared_bytes;
+};
+
+template <bool kBlock, int kLogN, int kL, int kNpr, int kEll>
+inline SweepPlan plan_with(const SweepShape& s) {
+    return {&phase1_sweep_kernel<kBlock, kLogN, kL, kNpr, kEll>,
+            {kBlock, kLogN, kL, kNpr, kEll},
+            sweep_threads(s.log_n),
+            sweep_shared_bytes(s.log_n, s.l, s.npr)};
+}
+
+// The one place that decides which kernel serves a shape: the instance
+// compiled for it -- every KMS preset of schemes/presets.py at N = 2048 has
+// one, with binary keys and with block keys (ell = 3):
+//   KMS2party, KMS2partyblock:          l = 3, 4 primes
+//   KMS4party, KMS16party, their block: l = 5, 3 primes
+//   KMS8party:                          l = 4, 3 primes
+//   KMS8partyblock:                     l = 4, 4 primes
+//   KMS32party, KMS32partyblock:        l = 6, 3 primes
+// and a small wide-gadget set (binary keys, N = 256, l = 3, 3 primes) --
+// else the kernel with run-time shapes, which runs at about the speed of a
+// stage-by-stage kernel (half of an instance's): a parameter set that is
+// to be served wants its line here.
+inline SweepPlan sweep_plan(bool block, const SweepShape& s) {
+    const auto is = [&](bool b, int log_n, int l, int npr, int ell) {
+        return block == b && s.log_n == log_n && s.l == l && s.npr == npr && s.ell == ell;
+    };
+    if (is(true, 11, 4, 4, 3)) return plan_with<true, 11, 4, 4, 3>(s);
+    if (is(false, 11, 4, 3, 1)) return plan_with<false, 11, 4, 3, 1>(s);
+    if (is(true, 11, 3, 4, 3)) return plan_with<true, 11, 3, 4, 3>(s);
+    if (is(false, 11, 3, 4, 1)) return plan_with<false, 11, 3, 4, 1>(s);
+    if (is(true, 11, 5, 3, 3)) return plan_with<true, 11, 5, 3, 3>(s);
+    if (is(false, 11, 5, 3, 1)) return plan_with<false, 11, 5, 3, 1>(s);
+    if (is(true, 11, 6, 3, 3)) return plan_with<true, 11, 6, 3, 3>(s);
+    if (is(false, 11, 6, 3, 1)) return plan_with<false, 11, 6, 3, 1>(s);
+    if (is(false, 8, 3, 3, 1)) return plan_with<false, 8, 3, 3, 1>(s);
+    return block ? plan_with<true, 0, 0, 0, 0>(s) : plan_with<false, 0, 0, 0, 1>(s);
+}
+
+// What `sweep_plan` says of a shape, for the wrapper's notes: out[0..4] the
+// template arguments, out[5] threads per CTA, out[6] dynamic shared bytes.
+inline void describe_plan(int block, int ell, int npr, int l, int log_n, int* out) {
+    const SweepPlan plan = sweep_plan(block != 0, SweepShape{1, 0, ell, npr, l, 1, log_n});
+    for (int i = 0; i < 5; ++i) out[i] = plan.targs[i];
+    out[5] = plan.threads;
+    out[6] = plan.shared_bytes;
+}
+
 }  // namespace
 
-// `mono` is null for binary keys and selects the variant.  Returns
-// cudaErrorInvalidValue when the shape is not the instance's.
+// `mono` is null for binary keys and selects the variant.
 extern "C" int mktfhe_phase1_sweep(void* acc, const void* tildea, const void* brk,
                                    const void* mono, const void* tw_f, const void* tw_f_sh,
                                    const void* tw_i, const void* tw_i_sh, const void* consts,
                                    unsigned long long prod_mod64, long long ctas, int rows,
                                    int n_steps, int ell, int npr, int l, int log_b, int log_n,
-                                   int instance, void* stream) {
+                                   void* stream) {
     const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
-    const SweepKernel kernel = sweep_instance(instance, mono != nullptr, shape);
-    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int smem = sweep_shared_bytes(log_n, l, npr);
-    const cudaError_t attr =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const SweepPlan plan = sweep_plan(mono != nullptr, shape);
+    const cudaError_t attr = cudaFuncSetAttribute(
+        plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.shared_bytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     const dim3 grid(static_cast<unsigned int>(ctas));
-    const dim3 block(sweep_threads(log_n));
-    kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 block(plan.threads);
+    plan.kernel<<<grid, block, plan.shared_bytes, static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t*>(acc), static_cast<const int32_t*>(tildea),
         static_cast<const uint32_t*>(brk), static_cast<const uint32_t*>(mono),
         static_cast<const uint32_t*>(tw_f), static_cast<const uint32_t*>(tw_f_sh),
         static_cast<const uint32_t*>(tw_i), static_cast<const uint32_t*>(tw_i_sh),
         static_cast<const uint64_t*>(consts), prod_mod64, shape);
     return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" void mktfhe_phase1_sweep_describe(int block, int ell, int npr, int l, int log_n,
+                                             int* out) {
+    describe_plan(block, ell, npr, l, log_n, out);
 }
 
 extern "C" const char* mktfhe_cuda_error_string(int code) {

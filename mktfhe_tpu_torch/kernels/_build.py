@@ -2,13 +2,9 @@
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, in mktfhe_tpu_torch/_build/, and loaded with ctypes.  The
-library is named by a hash of the source, of the headers beside it and of
-the extra flags, so an edited source is rebuilt.  There is no other way to a
-kernel: a missing nvcc or a failed compilation raises.
-
-MKTFHE_NVCC_FLAGS in the environment adds flags (space-separated, e.g.
-`-DMKTFHE_SWEEP_THREADS=512`): how tools/time_sweeps.py builds the variants
-it times against each other.
+library is named by a hash of the source and of the headers beside it, so an
+edited source is rebuilt.  There is no other way to a kernel: a missing nvcc
+or a failed compilation raises.
 """
 
 from __future__ import annotations
@@ -46,11 +42,9 @@ def _nvcc() -> str:
 def build(source: Path) -> Path:
     """Compile `source` (a file of csrc/) for sm_90a unless the library for
     this source and its headers exists; returns the library path."""
-    extra = os.environ.get("MKTFHE_NVCC_FLAGS", "").split()
     h = hashlib.sha256(source.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(extra).encode())
     lib = BUILD_DIR / f"libmktfhe_{source.stem}_{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
@@ -59,7 +53,7 @@ def build(source: Path) -> Path:
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, str(source)],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
             capture_output=True, text=True,
         )
         if proc.returncode != 0:

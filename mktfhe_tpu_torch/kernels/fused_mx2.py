@@ -45,21 +45,12 @@ from ..ring.ntt import fwd_ntt
 from ..ring.torus import from_crt, lift
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
-from .fused_mx3 import MAX_DYNAMIC_SHARED, MAX_L_GSW, MAX_LOG_B, SWEEP_THREADS, _sweep_consts, phase1_init
+from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, phase1_init
 from .mx_ntt import NK, mx_eval_index, mx_fwd_ref, mx_inv_ref, mx_odd_exponents
 from .ntt import MAX_N, MAX_NPR, MIN_NPR, _kernel_tables, fwd_ntt_nat
 
 SOURCE = _build.CSRC / "mx_sweep.cu"
 BINARY_ONLY = "the mx phase-1 kernel implements the binary-key rotation"
-# The kernel's template instances, as csrc/mx_sweep.cu:mx_instance lists them:
-# (log2 N, l_gsw, primes of the key) compiled in; index 0, the kernel with
-# run-time shapes, serves every other shape `_check` admits.
-INSTANCES = (
-    None,
-    (11, 4, 3),  # KMS8party
-    (8, 3, 3),  # a small wide-gadget set (N = 256)
-    (11, 6, 4),  # KMS32party's gadget over 4 primes: the power table in device memory
-)
 
 
 @dataclass(frozen=True)
@@ -164,40 +155,30 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mktfhe_mx_sweep.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_ulonglong, ctypes.c_longlong,
-        i32, i32, i32, i32, i32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.mktfhe_mx_sweep.restype = ctypes.c_int
     return lib
 
 
-def mx_instance(params: KmsParams, ctx_p: RingCtx) -> int:
-    """Index into INSTANCES of the kernel that serves this shape: the one
-    compiled for it, else 0 (run-time shapes)."""
-    shape = (ctx_p.n.bit_length() - 1, params.l_gsw, ctx_p.nprimes)
-    return INSTANCES.index(shape) if shape in INSTANCES else 0
-
-
-def mx_kernel(params: KmsParams, ctx_p: RingCtx) -> dict:
+def mx_kernel(params: KmsParams, ctx_p: RingCtx, lib=None) -> dict:
     """The kernel of csrc/mx_sweep.cu that serves this shape and how it is
-    launched: its name with its template arguments as ptxas reports them
-    (first: the power table in shared memory; zeros: run-time shapes),
-    threads per CTA and dynamic shared memory: the state, then the power
-    table if it fits, then one prime's twiddles if they fit
-    (csrc/mx_sweep.cu:table_in_shared, twiddles_in_shared)."""
-    instance = mx_instance(params, ctx_p)
-    n, npr, l = ctx_p.n, ctx_p.nprimes, params.l_gsw
-    state, table = n * (16 + 8 * l + 8 * npr), n * 8 * npr
-    shared = state + table <= MAX_DYNAMIC_SHARED
-    used = state + (table if shared else 0)
-    twiddles = used + 16 * n <= MAX_DYNAMIC_SHARED
-    args = INSTANCES[instance] or (0, 0, 0)
+    launched, as the source's own dispatcher (`mx_plan`) says: its name with
+    its template arguments as ptxas reports them (the power table in shared
+    memory, log2 N, l_gsw, primes; zeros: run-time shapes), threads per CTA,
+    dynamic shared memory (the state, then the power table if it fits, then
+    one prime's twiddles if they fit).  `lib`: the library to ask (default:
+    the built one)."""
+    out = (ctypes.c_int * 7)()
+    (lib or load_library()).mktfhe_mx_sweep_describe(
+        ctx_p.nprimes, params.l_gsw, ctx_p.n.bit_length() - 1, out)
     return {
-        "instance": instance,
-        "name": f"mx_sweep_kernel<{int(shared)}," + ",".join(str(a) for a in args) + ">",
-        "threads": min(n // 2, SWEEP_THREADS),
-        "shared_bytes": used + (16 * n if twiddles else 0),
-        "table_in_shared": shared,
-        "twiddles_in_shared": twiddles,
+        "name": "mx_sweep_kernel<" + ",".join(str(a) for a in out[:4]) + ">",
+        "run_time_shapes": out[1] == 0,
+        "threads": out[4],
+        "shared_bytes": out[5],
+        "table_in_shared": bool(out[0]),
+        "twiddles_in_shared": bool(out[6]),
     }
 
 
@@ -270,7 +251,7 @@ def _launch(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0) -> torch.Tensor:
             acc.data_ptr(), tildea_p.data_ptr(), brk_mx_p.data_ptr(), powers.data_ptr(),
             tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
             consts.data_ptr(), ctx_p.crt.prod_mod64, ctas, iter_rows, params.n, npr,
-            params.l_gsw, params.log_b_gsw, n.bit_length() - 1, mx_instance(params, ctx_p), stream,
+            params.l_gsw, params.log_b_gsw, n.bit_length() - 1, stream,
         )
     _build.check_launch(lib, err, "mx sweep kernel")
     mx_sweep.launches += 1

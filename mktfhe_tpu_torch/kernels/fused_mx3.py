@@ -43,18 +43,6 @@ SOURCE = _build.CSRC / "phase1_sweep.cu"
 MAX_L_GSW = 6  # 2l digit polynomials of N u32 in shared memory (KMS32party)
 MAX_LOG_B = 16
 _CONST_COLS = 10  # csrc/phase1_sweep.cu:kConstCols
-SWEEP_THREADS = 512  # csrc/phase1_sweep.cu:kMaxThreads
-# what a CTA may ask for on sm_90 (227 KB), less the kernels' static constants
-MAX_DYNAMIC_SHARED = 232448 - 320
-# The kernel's template instances, as csrc/phase1_sweep.cu:sweep_instance lists
-# them: (block keys, log2 N, l_gsw, primes, ell) compiled in; index 0, the
-# kernel with run-time shapes, serves every other shape `_check` admits.
-INSTANCES = (
-    None,
-    (True, 11, 4, 4, 3),  # KMS8partyblock
-    (False, 11, 4, 3, 1),  # KMS8party
-    (False, 8, 3, 3, 1),  # a small wide-gadget set (N = 256)
-)
 
 
 def phase1_init(iter_rows: int, params, ctx: RingCtx, g: int, device) -> torch.Tensor:
@@ -126,7 +114,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mktfhe_phase1_sweep.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_ulonglong, ctypes.c_longlong,
-        i32, i32, i32, i32, i32, i32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.mktfhe_phase1_sweep.restype = ctypes.c_int
     return lib
@@ -146,28 +134,21 @@ def _sweep_consts(n: int, nprimes: int, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
-def sweep_instance(params, ctx: RingCtx) -> int:
-    """Index into INSTANCES of the kernel that serves this shape: the one
-    compiled for it, else 0 (run-time shapes)."""
-    shape = (isinstance(params, KmsBlockParams), ctx.n.bit_length() - 1, params.l_gsw,
-             ctx.nprimes, _ell(params))
-    return INSTANCES.index(shape) if shape in INSTANCES else 0
-
-
-def sweep_kernel(params, ctx: RingCtx) -> dict:
+def sweep_kernel(params, ctx: RingCtx, lib=None) -> dict:
     """The kernel of csrc/phase1_sweep.cu that serves this shape and how it
-    is launched: its name with its template arguments as ptxas reports them
-    (zeros: run-time shapes), threads per CTA and dynamic shared memory
-    (accumulator, digit polynomials, residues, one prime's twiddles)."""
-    instance = sweep_instance(params, ctx)
-    block = isinstance(params, KmsBlockParams)
-    args = INSTANCES[instance] or (block, 0, 0, 0, 0 if block else 1)
-    n, terms = ctx.n, 2 * params.l_gsw
+    is launched, as the source's own dispatcher (`sweep_plan`) says: its name
+    with its template arguments as ptxas reports them (block keys, log2 N,
+    l_gsw, primes, ell; zeros: run-time shapes), threads per CTA and dynamic
+    shared memory.  `lib`: the library to ask (default: the built one)."""
+    out = (ctypes.c_int * 7)()
+    (lib or load_library()).mktfhe_phase1_sweep_describe(
+        int(isinstance(params, KmsBlockParams)), _ell(params), ctx.nprimes, params.l_gsw,
+        ctx.n.bit_length() - 1, out)
     return {
-        "instance": instance,
-        "name": "phase1_sweep_kernel<" + ",".join(str(int(a)) for a in args) + ">",
-        "threads": min(n // 2, SWEEP_THREADS),
-        "shared_bytes": 16 * n + 4 * max(terms, 4) * n + 8 * ctx.nprimes * n + 16 * n,
+        "name": "phase1_sweep_kernel<" + ",".join(str(a) for a in out[:5]) + ">",
+        "run_time_shapes": out[1] == 0,
+        "threads": out[5],
+        "shared_bytes": out[6],
     }
 
 
@@ -246,7 +227,7 @@ def _launch(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> torc
             mono_hat.data_ptr() if block else None,
             tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
             consts.data_ptr(), ctx.crt.prod_mod64, ctas, iter_rows, params.n // ell, ell, npr,
-            params.l_gsw, params.log_b_gsw, n.bit_length() - 1, sweep_instance(params, ctx), stream,
+            params.l_gsw, params.log_b_gsw, n.bit_length() - 1, stream,
         )
     _build.check_launch(lib, err, "phase-1 sweep kernel")
     phase1_sweep.launches += 1

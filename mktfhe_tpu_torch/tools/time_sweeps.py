@@ -1,18 +1,22 @@
-"""Time the two phase-1 sweep kernels on the card, one build variant beside another.
+"""Time the two phase-1 sweep kernels on the card, at the widths of KMS presets.
 
-Each variant is a set of extra nvcc flags (kernels/_build.py reads them from
-MKTFHE_NVCC_FLAGS); it is built, held bit-exact against the plain versions
-over a few steps, and timed at the shapes of the main paths (one party's
-sweep at KMS8partyblock and KMS8party widths, batch 128, 3 rows and 1 row,
-all steps) in a process of its own.  The variants run in turns, forwards then
-backwards, so that two can be compared within one call on one card.  Keys
-are uniform residues: the kernels' time does not depend on the key values.
+For each preset named, one party's sweep at batch 128 with l_lev rows and
+with 1 row, all steps: `phase1_sweep` on the preset's keys (block or binary) and,
+for a binary preset, `mx_sweep` on its mx keys.  Each is first held bit-exact
+against its plain version over a few steps.  Keys are uniform residues: the
+kernels' time does not depend on the key values.
+
+`--tree DIR` times another checkout of the repository beside this one (its
+package is imported from DIR, its kernels built there), in turns: this tree,
+the other, the other, this tree, each in a process of its own, so that two
+commits can be compared within one call on one card.  Only the wrappers'
+signatures, which are the same in every commit, are used.
 
 Usage (one CUDA card):
   python -m mktfhe_tpu_torch.tools.time_sweeps
-  python -m mktfhe_tpu_torch.tools.time_sweeps --variant default= \
-      --variant t512=-DMKTFHE_SWEEP_THREADS=512 --rounds 2
-Prints one JSON object per variant and round, each with the card's name and
+  python -m mktfhe_tpu_torch.tools.time_sweeps --preset KMS32party --preset KMS16partyblock \
+      --tree _probe/parent
+Prints one JSON object per tree and turn, each with the card's name and
 power limit.
 """
 
@@ -24,12 +28,14 @@ import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
 CHECK_STEPS = 2
 BATCH = 128
 REPS = 3
+DEFAULT_PRESETS = ("KMS8partyblock", "KMS8party")
 
 
 def _ms(fn, reps: int) -> float:
@@ -46,7 +52,7 @@ def _ms(fn, reps: int) -> float:
 
 def _residues(gen, shape, prime_axis: int, npr: int, device) -> torch.Tensor:
     """Uniform residues, the primes along `prime_axis`."""
-    from ..ring.modring import PRIMES
+    from mktfhe_tpu_torch.ring.modring import PRIMES
 
     x = torch.randint(0, 1 << 31, shape, generator=gen, device=device)
     view = [1] * len(shape)
@@ -55,86 +61,91 @@ def _residues(gen, shape, prime_axis: int, npr: int, device) -> torch.Tensor:
     return torch.remainder(x, p).to(torch.int32)
 
 
-def worker() -> dict:
-    from ..kernels import _build, fused_mx2, fused_mx3
-    from ..ring.context import make_ring_ctx
-    from ..schemes import kms
-    from ..schemes.presets import KMS_8PARTY, KMS_8PARTY_BLOCK
+def worker(names) -> dict:
+    """Times of the package that this process imports (the first
+    `mktfhe_tpu_torch` on its path)."""
+    from mktfhe_tpu_torch.kernels import _build, fused_mx2, fused_mx3
+    from mktfhe_tpu_torch.ring.context import make_ring_ctx
+    from mktfhe_tpu_torch.schemes import kms
+    from mktfhe_tpu_torch.schemes.params import KmsBlockParams
+    from mktfhe_tpu_torch.schemes.presets import ALL_PRESETS
 
     device = torch.device("cuda", 0)
     gen = torch.Generator(device=device).manual_seed(0)
-    libs = _build.build_all([fused_mx3.SOURCE, fused_mx2.SOURCE])
-    out = {"ptxas": {lib.name.split("_")[1]: _build.resource_usage(lib) for lib in libs}}
+    out = {}
 
     def tildea(params, n):
         return torch.randint(0, 2 * n, (BATCH, params.n), generator=gen, device=device, dtype=torch.int32)
 
-    for name, params in (("block", KMS_8PARTY_BLOCK), ("binary", KMS_8PARTY)):
+    for name in names:
+        params = ALL_PRESETS[name]
         ctx = kms._ctx(params)
         n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
-        block = name == "block"
+        block = isinstance(params, KmsBlockParams)
         brk = _residues(gen, (params.n, 2, l, 2, npr, n), 4, npr, device)
         mono = kms.monomial_table(ctx, device) if block else None
         ta = tildea(params, n)
         short = dataclasses.replace(params, **({"d": CHECK_STEPS} if block else {"n": CHECK_STEPS}))
-        args = (ta[:16, : short.n].contiguous(), brk[: short.n], 3, mono, short, ctx)
+        rows = params.l_lev
+        args = (ta[:16, : short.n].contiguous(), brk[: short.n], rows, mono, short, ctx)
         exact = torch.equal(fused_mx3.phase1_sweep(*args), fused_mx3.phase1_sweep_plain(*args))
         out[name] = {
-            "instance": fused_mx3.sweep_instance(params, ctx), "exact": exact,
-            "rows3_ms": _ms(lambda: fused_mx3.phase1_sweep(ta, brk, 3, mono, params, ctx), REPS),
-            "rows1_ms": _ms(lambda: fused_mx3.phase1_sweep(ta, brk, 1, mono, params, ctx), REPS),
+            "N": n, "l_gsw": l, "primes": npr, "rows": rows, "exact": exact,
+            "rows_ms": _ms(lambda: fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx), REPS),
+            "row1_ms": _ms(lambda: fused_mx3.phase1_sweep(ta, brk, 1, mono, params, ctx), REPS),
         }
         del brk, mono
-
-    params = KMS_8PARTY
-    npr = fused_mx2.mx_nprimes(params)
-    ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
-    brk_mx = _residues(gen, (params.n, npr, 2 * params.l_gsw, 2, ctx_p.n), 1, npr, device)
-    ta = tildea(params, ctx_p.n)
-    short = dataclasses.replace(params, n=CHECK_STEPS)
-    args = (ta[:16, :CHECK_STEPS].contiguous(), brk_mx[:CHECK_STEPS], 3, short, ctx_p)
-    exact = torch.equal(fused_mx2.mx_sweep(*args), fused_mx2.mx_sweep_plain(*args))
-    out["mx"] = {
-        "instance": fused_mx2.mx_instance(params, ctx_p), "exact": exact,
-        "rows3_ms": _ms(lambda: fused_mx2.mx_sweep(ta, brk_mx, 3, params, ctx_p), REPS),
-        "rows1_ms": _ms(lambda: fused_mx2.mx_sweep(ta, brk_mx, 1, params, ctx_p), REPS),
-    }
+        if block:
+            continue
+        npr = fused_mx2.mx_nprimes(params)
+        ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
+        brk_mx = _residues(gen, (params.n, npr, 2 * l, 2, n), 1, npr, device)
+        args = (ta[:16, :CHECK_STEPS].contiguous(), brk_mx[:CHECK_STEPS], rows, short, ctx_p)
+        exact = torch.equal(fused_mx2.mx_sweep(*args), fused_mx2.mx_sweep_plain(*args))
+        out[name + " mx"] = {
+            "N": n, "l_gsw": l, "primes": npr, "rows": rows, "exact": exact,
+            "rows_ms": _ms(lambda: fused_mx2.mx_sweep(ta, brk_mx, rows, params, ctx_p), REPS),
+            "row1_ms": _ms(lambda: fused_mx2.mx_sweep(ta, brk_mx, 1, params, ctx_p), REPS),
+        }
+        del brk_mx
+    if hasattr(_build, "resource_usage"):  # registers and spills of the kernels just run, as ptxas said
+        out["ptxas"] = {src.stem: _build.resource_usage(_build.build(src)) for src in (fused_mx3.SOURCE, fused_mx2.SOURCE)}
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variant", action="append", metavar="NAME=FLAGS",
-                    help="a build variant: a name and its extra nvcc flags (default: one, no flags)")
-    ap.add_argument("--rounds", type=int, default=1, help="1: each variant once; 2: forwards, then backwards")
+    ap.add_argument("--preset", action="append", metavar="NAME",
+                    help=f"a KMS preset of schemes/presets.py:ALL_PRESETS (default: {', '.join(DEFAULT_PRESETS)})")
+    ap.add_argument("--tree", metavar="DIR", help="another checkout to time beside this one")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_sweeps: needs a CUDA card", file=sys.stderr)
         return 1
+    names = ns.preset or list(DEFAULT_PRESETS)
     if ns.worker:
-        print(json.dumps(worker()))
+        print(json.dumps(worker(names)))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    variants = [v.split("=", 1) for v in (ns.variant or ["default="])]
-    order = variants + (variants[::-1] if ns.rounds > 1 else [])
+    here = Path(__file__).resolve().parents[2]
+    trees = [here] if ns.tree is None else [here, Path(ns.tree).resolve()]
     failed = False
-    for name, flags in order:
-        proc = subprocess.run(
-            [sys.executable, "-m", "mktfhe_tpu_torch.tools.time_sweeps", "--worker"],
-            env={**os.environ, "MKTFHE_NVCC_FLAGS": flags}, capture_output=True, text=True,
-        )
+    # the worker is this file, whichever tree's package it then imports
+    command = [sys.executable, str(Path(__file__).resolve()), "--worker", *(a for n in names for a in ("--preset", n))]
+    for tree in trees + trees[::-1][: 2 * (len(trees) - 1)]:
+        proc = subprocess.run(command, cwd=tree, env={**os.environ, "PYTHONPATH": str(tree)},
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            print(json.dumps({"variant": name, "flags": flags, "error": proc.stderr[-3000:]}))
+            print(json.dumps({"tree": str(tree), "error": proc.stderr[-3000:]}))
             failed = True
             continue
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        if "PROBE" not in flags:  # a probe build leaves a part out: only its time is read
-            failed |= not all(res[k]["exact"] for k in ("block", "binary", "mx"))
-        print(json.dumps({"variant": name, "flags": flags, "card": smi, **res}))
+        failed |= not all(r["exact"] for name, r in res.items() if name != "ptxas")
+        print(json.dumps({"tree": str(tree), "card": smi, **res}))
     return 1 if failed else 0
 
 

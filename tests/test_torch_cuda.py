@@ -92,9 +92,26 @@ SWEEP_CASES = [
     (256, 3, 1, 1, 3, 12, 5),
     (1024, 3, 2, 2, 2, 9, 6),
     (1024, 3, 1, 3, 2, 9, 6),
+    # the other presets' instances: KMS2party, KMS16party, KMS32party, binary and block
+    (2048, 4, 1, 2, 3, 12, 140),
+    (2048, 3, 1, 3, 5, 8, 50),
+    (2048, 3, 3, 3, 5, 8, 50),
+    (2048, 3, 1, 3, 6, 7, 50),
+    (2048, 3, 3, 1, 6, 7, 140),
 ]
-# (N, primes, ell, l_gsw) -> index into fused_mx3.INSTANCES; every other case: 0
-SWEEP_INSTANCE = {(2048, 4, 3, 4): 1, (2048, 3, 1, 4): 2, (256, 3, 1, 3): 3}
+# (N, primes, ell, l_gsw) -> the instance compiled for the shape; every other
+# case: the kernel with run-time shapes
+SWEEP_INSTANCE = {
+    (2048, 4, 3, 4): "phase1_sweep_kernel<1,11,4,4,3>",
+    (2048, 3, 1, 4): "phase1_sweep_kernel<0,11,4,3,1>",
+    (256, 3, 1, 3): "phase1_sweep_kernel<0,8,3,3,1>",
+    (2048, 4, 3, 3): "phase1_sweep_kernel<1,11,3,4,3>",
+    (2048, 4, 1, 3): "phase1_sweep_kernel<0,11,3,4,1>",
+    (2048, 3, 1, 5): "phase1_sweep_kernel<0,11,5,3,1>",
+    (2048, 3, 3, 5): "phase1_sweep_kernel<1,11,5,3,3>",
+    (2048, 3, 1, 6): "phase1_sweep_kernel<0,11,6,3,1>",
+    (2048, 3, 3, 6): "phase1_sweep_kernel<1,11,6,3,3>",
+}
 
 
 def _sweep_inputs(n, npr, ell, rows, l, log_b, g, device, seed=1):
@@ -120,7 +137,8 @@ def _sweep_inputs(n, npr, ell, rows, l, log_b, g, device, seed=1):
 def test_sweep_kernel_matches_plain(device, shape):
     n, npr, ell, rows, l, log_b, g = shape
     params, ctx, ta, brk, mono, acc0 = _sweep_inputs(*shape, device)
-    assert fused_mx3.sweep_instance(params, ctx) == SWEEP_INSTANCE.get((n, npr, ell, l), 0)
+    run_time = "phase1_sweep_kernel<1,0,0,0,0>" if ell > 1 else "phase1_sweep_kernel<0,0,0,0,1>"
+    assert fused_mx3.sweep_kernel(params, ctx)["name"] == SWEEP_INSTANCE.get((n, npr, ell, l), run_time)
     fused_mx3.reset_launches()
     keep = acc0.clone()
     got = fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx, acc0=acc0)
@@ -138,20 +156,21 @@ def test_sweep_kernel_matches_plain(device, shape):
 
 @pytest.mark.parametrize("shape", [(2048, 4, 3, 3, 4, 9, 2), (2048, 3, 1, 3, 4, 9, 2), (512, 3, 1, 2, 3, 8, 2)],
                          ids=lambda c: "-".join(map(str, c)))
-def test_sweep_instances_refuse_other_shapes(device, shape, monkeypatch):
-    """The C entry point launches an instance only at the shape it is
-    compiled for; the kernel with run-time shapes takes every shape."""
+def test_sweep_kernel_is_built_as_described(device, shape):
+    """What the dispatcher says of a shape names a kernel that ptxas built,
+    and its launch fits the card; the instances of the main paths do not
+    spill."""
+    from mktfhe_tpu_torch.kernels import _build
+
     n, npr, ell, rows, l, log_b, g = shape
-    params, ctx, ta, brk, mono, acc0 = _sweep_inputs(*shape, device)
-    mine = fused_mx3.sweep_instance(params, ctx)
-    want = fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx, acc0=acc0)
-    for instance in range(len(fused_mx3.INSTANCES) + 1):
-        monkeypatch.setattr(fused_mx3, "sweep_instance", lambda params, ctx, i=instance: i)
-        if instance in (0, mine):
-            assert torch.equal(fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx, acc0=acc0), want)
-        else:
-            with pytest.raises(RuntimeError, match="invalid argument"):
-                fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx, acc0=acc0)
+    params, ctx, *_ = _sweep_inputs(*shape, device)
+    kernel = fused_mx3.sweep_kernel(params, ctx)
+    said = [u for u in _build.resource_usage(_build.build(fused_mx3.SOURCE)) if u.startswith(kernel["name"] + ":")]
+    assert len(said) == 1
+    assert kernel["run_time_shapes"] == (n == 512)
+    assert kernel["run_time_shapes"] or ", 0 spill bytes" in said[0]
+    assert kernel["threads"] == min(n // 2, 512)
+    assert kernel["shared_bytes"] <= torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def test_sweep_wrapper_contract_on_cuda(device):
@@ -196,9 +215,18 @@ MX_CASES = [
     (256, 3, 2, 3, 12, 5),
     (256, 3, 1, 3, 12, 5),
     (1024, 4, 1, 2, 9, 6),
+    (2048, 3, 3, 5, 8, 50),  # KMS16party's instance
 ]
-# (N, primes, l_gsw) -> index into fused_mx2.INSTANCES; every other case: 0
-MX_INSTANCE = {(2048, 3, 4): 1, (256, 3, 3): 2, (2048, 4, 6): 3}
+# (N, primes, l_gsw) -> the instance compiled for the shape; every other case:
+# the kernel with run-time shapes, the power table where it fits
+MX_INSTANCE = {
+    (2048, 3, 4): "mx_sweep_kernel<1,11,4,3>",
+    (256, 3, 3): "mx_sweep_kernel<1,8,3,3>",
+    (2048, 4, 6): "mx_sweep_kernel<0,11,6,4>",
+    (2048, 4, 3): "mx_sweep_kernel<1,11,3,4>",
+    (2048, 3, 6): "mx_sweep_kernel<1,11,6,3>",
+    (2048, 3, 5): "mx_sweep_kernel<1,11,5,3>",
+}
 
 
 def _mx_inputs(n, npr, rows, l, log_b, g, device, seed=3):
@@ -221,7 +249,8 @@ def _mx_inputs(n, npr, rows, l, log_b, g, device, seed=3):
 def test_mx_sweep_kernel_matches_plain(device, shape):
     n, npr, rows, l, log_b, g = shape
     params, ctx, ta, brk, acc0 = _mx_inputs(*shape, device)
-    assert fused_mx2.mx_instance(params, ctx) == MX_INSTANCE.get((n, npr, l), 0)
+    kernel = fused_mx2.mx_kernel(params, ctx)
+    assert kernel["name"] == MX_INSTANCE.get((n, npr, l), f"mx_sweep_kernel<{int(kernel['table_in_shared'])},0,0,0>")
     fused_mx2.reset_launches()
     keep = acc0.clone()
     got = fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0)
@@ -240,20 +269,20 @@ def test_mx_sweep_kernel_matches_plain(device, shape):
 
 @pytest.mark.parametrize("shape", [(2048, 3, 3, 4, 9, 2), (2048, 4, 2, 6, 7, 2), (512, 3, 2, 3, 8, 2)],
                          ids=lambda c: "-".join(map(str, c)))
-def test_mx_sweep_instances_refuse_other_shapes(device, shape, monkeypatch):
-    """The C entry point launches an instance only at the shape it is
-    compiled for; the kernel with run-time shapes takes every shape."""
+def test_mx_sweep_kernel_is_built_as_described(device, shape):
+    """What the dispatcher says of a shape names a kernel that ptxas built,
+    and its launch fits the card; the instances do not spill."""
+    from mktfhe_tpu_torch.kernels import _build
+
     n, npr, rows, l, log_b, g = shape
-    params, ctx, ta, brk, acc0 = _mx_inputs(*shape, device)
-    mine = fused_mx2.mx_instance(params, ctx)
-    want = fused_mx2.mx_sweep_plain(ta, brk, rows, params, ctx, acc0=acc0)
-    for instance in range(len(fused_mx2.INSTANCES) + 1):
-        monkeypatch.setattr(fused_mx2, "mx_instance", lambda params, ctx_p, i=instance: i)
-        if instance in (0, mine):
-            assert torch.equal(fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0), want)
-        else:
-            with pytest.raises(RuntimeError, match="invalid argument"):
-                fused_mx2.mx_sweep(ta, brk, rows, params, ctx, acc0=acc0)
+    params, ctx, *_ = _mx_inputs(*shape, device)
+    kernel = fused_mx2.mx_kernel(params, ctx)
+    said = [u for u in _build.resource_usage(_build.build(fused_mx2.SOURCE)) if u.startswith(kernel["name"] + ":")]
+    assert len(said) == 1
+    assert kernel["run_time_shapes"] == (n == 512)
+    assert kernel["run_time_shapes"] or ", 0 spill bytes" in said[0]
+    assert kernel["threads"] == min(n // 2, 512)
+    assert kernel["shared_bytes"] <= torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def test_mx_sweep_wrapper_contract_on_cuda(device):
@@ -407,3 +436,19 @@ def test_step_wrapper_contract_on_cuda(device):
     empty = fused_step.cggi_step(acc[:0], ta[:0], brk, mono, params, ctx)
     assert torch.equal(same, acc) and tuple(empty.shape) == (0, 2, ctx.n)
     assert fused_step.cggi_step.launches == 0
+
+
+def test_butterfly_rate_kernel_on_cuda(device):
+    """The measuring kernel of csrc/butterfly_rate.cu launches at both
+    occupancies and gives the same residues whatever the grid."""
+    from mktfhe_tpu_torch.tools import butterfly_rate
+
+    for forward in (True, False):
+        one = butterfly_rate.run(device, forward, 5, 2, butterfly_rate.ONE_CTA_PER_SM)
+        many = butterfly_rate.run(device, forward, 5, 4, 0)
+        torch.cuda.synchronize()
+        assert tuple(one.shape) == (2 * butterfly_rate.THREADS, 8)
+        assert torch.equal(one, many[: one.shape[0]])
+        assert int(one.min()) >= 0  # canonical residues below a 30-bit prime
+    rate = butterfly_rate.measure(device, rounds=200)
+    assert all(rate[k] > 0 for k in ("fwd_one_cta", "fwd_full", "inv_one_cta", "inv_full"))

@@ -3,8 +3,8 @@
 There is no CUDA compiler or card where the CPU tests run, so the kernels
 in mktfhe_tpu_torch/csrc/ are otherwise only checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py).  Here the device code of each
-source (ntt.cu, phase1_sweep.cu, cggi_step.cu, mx_sweep.cu) -- everything above its `extern "C"` entry points -- is compiled for
-the host with g++ against a small stand-in for the CUDA runtime header: one
+source (ntt.cu, phase1_sweep.cu, cggi_step.cu, mx_sweep.cu, butterfly_rate.cu)
+-- everything above its `extern "C"` entry points -- is compiled for the host with g++ against a small stand-in for the CUDA runtime header: one
 std::thread per CUDA thread, a std::barrier for `__syncthreads()`, CTAs one
 after the other.  That exercises the kernels' arithmetic, indexing and
 barrier placement at small sizes, bit for bit against the plain PyTorch
@@ -14,6 +14,7 @@ speed.  Skips where there is no g++ with C++20.
 
 import ctypes
 import dataclasses
+import functools
 import shutil
 import subprocess
 
@@ -81,23 +82,29 @@ DYNAMIC_SHARED = {
     "extern __shared__ __align__(16) uint32_t a[];": "uint32_t* a = (uint32_t*)g_smem;",
 }
 
-# `instance` picks the kernel as the C entry point does (0: run-time shapes);
-# returns 1 where the instance refuses the shape
+# the kernel that the source's dispatcher picks for the shape, or, with
+# `run_time_shapes` set, the kernel with run-time shapes whatever the shape;
+# the second entry point is the C library's own, word for word
 SWEEP_ENTRY = r"""
 extern "C" int host_phase1_sweep(void* acc, const void* tildea, const void* brk, const void* mono,
         const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
         const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
-        int ell, int npr, int l, int log_b, int log_n, int instance) {
+        int ell, int npr, int l, int log_b, int log_n, int run_time_shapes) {
     const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
-    const SweepKernel kernel = sweep_instance(instance, mono != nullptr, shape);
-    if (kernel == nullptr) return 1;
-    if (sweep_shared_bytes(log_n, l, npr) > (int)sizeof(g_smem)) return 2;
-    run_grid(ctas, sweep_threads(log_n), [=]() {
+    const SweepPlan plan = sweep_plan(mono != nullptr, shape);
+    const SweepKernel kernel = !run_time_shapes ? plan.kernel
+        : mono != nullptr ? &phase1_sweep_kernel<true, 0, 0, 0, 0> : &phase1_sweep_kernel<false, 0, 0, 0, 1>;
+    if (plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    run_grid(ctas, plan.threads, [=]() {
         kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
                (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
     });
     return 0;
+}
+extern "C" void mktfhe_phase1_sweep_describe(int block, int ell, int npr, int l, int log_n,
+                                             int* out) {
+    describe_plan(block, ell, npr, l, log_n, out);
 }
 """
 
@@ -139,27 +146,40 @@ extern "C" void host_cggi_step(void* acc, const void* tildea, const void* brk, c
 }
 """
 
-# `instance` picks the kernel as the C entry point does (0: run-time shapes);
-# `pow_shared` < 0 puts the power table where the C entry point would, 0 / 1
-# force device / shared memory; returns 1 where the instance refuses the shape
+# `pow_shared` < 0: the kernel that the source's dispatcher picks for the
+# shape; 0 / 1: the kernel with run-time shapes with the power table in device
+# / shared memory, and the twiddles where the table is: both ways run in the
+# cases of the test.  The second entry point is the C library's own.
 MX_ENTRY = r"""
 extern "C" int host_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
         const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
         const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
-        int npr, int l, int log_b, int log_n, int instance, int pow_shared) {
-    // the twiddles from shared memory behind a table in shared memory, else
-    // from device memory: both ways run in the cases of the test
-    const bool shared = pow_shared < 0 ? table_in_shared(log_n, npr, l) : pow_shared != 0;
+        int npr, int l, int log_b, int log_n, int pow_shared) {
+    const MxPlan plan = mx_plan(log_n, npr, l);
+    const MxKernel kernel = pow_shared < 0 ? plan.kernel
+        : pow_shared ? &mx_sweep_kernel<true, 0, 0, 0> : &mx_sweep_kernel<false, 0, 0, 0>;
     const MxShape shape{rows, n_steps, npr, l, log_b, log_n,
-                        pow_shared < 0 ? twiddles_in_shared(log_n, npr, l) : shared};
-    const MxKernel kernel = mx_instance(instance, shared, shape);
-    if (kernel == nullptr) return 1;
-    run_grid(ctas, mx_threads(log_n), [=]() {
+                        pow_shared < 0 ? plan.tw_shared : pow_shared != 0};
+    if (2 * plan.shared_bytes > sizeof(g_smem)) return 2;  // room for a table forced into shared memory
+    run_grid(ctas, plan.threads, [=]() {
         kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)pow,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
                (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
     });
     return 0;
+}
+extern "C" void mktfhe_mx_sweep_describe(int npr, int l, int log_n, int* out) {
+    describe_plan(npr, l, log_n, out);
+}
+"""
+
+RATE_ENTRY = r"""
+extern "C" void host_butterfly_rate(void* out, const void* tw, const void* tw_sh, unsigned int p,
+        unsigned int seed, int rounds, int forward, int ctas, int threads) {
+    auto kernel = forward ? &butterfly_rate_kernel<true> : &butterfly_rate_kernel<false>;
+    run_grid(ctas, threads, [=]() {
+        kernel((uint32_t*)out, (const uint32_t*)tw, (const uint32_t*)tw_sh, p, seed, rounds);
+    });
 }
 """
 
@@ -223,15 +243,15 @@ def step_lib(tmp_path_factory):
 def mx_lib(tmp_path_factory):
     lib = _host_library(fused_mx2.SOURCE, MX_ENTRY, tmp_path_factory.mktemp("mx_host"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.host_mx_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 8
+    lib.host_mx_sweep.argtypes = [ptr] * 9 + [ctypes.c_ulonglong, ctypes.c_longlong] + [i32] * 7
     lib.host_mx_sweep.restype = i32
     return lib
 
 
-def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, instance=None):
-    """The wrapper's launch (fused_mx3._launch), on the host library, with the
-    instance the wrapper picks unless one is given; None where the instance
-    refuses the shape."""
+def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, run_time_shapes=False):
+    """The wrapper's launch (fused_mx3._launch), on the host library, through
+    the kernel the source's dispatcher picks, or through the kernel with
+    run-time shapes."""
     fused_mx3._check(ta, brk, rows, mono, params, ctx, acc0)
     n, npr = ctx.n, ctx.nprimes
     ell = params.ell if isinstance(params, KmsBlockParams) else 1
@@ -239,17 +259,15 @@ def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, instance=None):
     tw_f, tw_f_sh, _ = kntt._kernel_tables(n, npr, True, CPU)
     tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
     consts = fused_mx3._sweep_consts(n, npr, CPU)
-    if instance is None:
-        instance = fused_mx3.sweep_instance(params, ctx)
-    refused = lib.host_phase1_sweep(
+    err = lib.host_phase1_sweep(
         acc.data_ptr(), ta.data_ptr(), brk.data_ptr(),
         mono.data_ptr() if isinstance(params, KmsBlockParams) else None,
         tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
         consts.data_ptr(), ctx.crt.prod_mod64, ta.shape[0] * rows, rows, params.n // ell, ell,
-        npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1, instance,
+        npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1, int(run_time_shapes),
     )
-    assert refused in (0, 1)
-    return None if refused else acc
+    assert err == 0
+    return acc
 
 
 _COMMON = dict(alpha=16.0, f=8, log_d=2, beta=4.0, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2)
@@ -274,13 +292,38 @@ SWEEP_CASES = {
     "block_n1024": (dataclasses.replace(BLOCK, big_n=1024, d=1, ell=2, l_gsw=2, log_b_gsw=9), 3, 1, 1),
     "block_n2048_run_time_shapes": (
         dataclasses.replace(BLOCK, big_n=2048, d=1, ell=2, l_gsw=2, log_b_gsw=10), 3, 1, 1),
-    # the shapes the kernel is compiled for (fused_mx3.INSTANCES)
+    # the shapes the kernel is compiled for (csrc/phase1_sweep.cu:sweep_plan)
     "instance_kms8partyblock": (
         dataclasses.replace(BLOCK, big_n=2048, d=1, ell=3, l_gsw=4, log_b_gsw=9), 4, 1, 1),
     "instance_kms8party": (dataclasses.replace(BINARY, big_n=2048, n=2, l_gsw=4, log_b_gsw=9), 3, 1, 1),
     "instance_wide_gadget": (dataclasses.replace(BINARY, big_n=256, n=3, log_b_gsw=12), 3, 2, 2),
+    "instance_kms2party": (dataclasses.replace(BINARY, big_n=2048, n=1, l_gsw=3, log_b_gsw=12), 4, 1, 1),
+    "instance_kms16party": (dataclasses.replace(BINARY, big_n=2048, n=1, l_gsw=5, log_b_gsw=8), 3, 1, 1),
+    "instance_kms32party": (dataclasses.replace(BINARY, big_n=2048, n=1, l_gsw=6, log_b_gsw=7), 3, 1, 1),
+    "instance_kms2partyblock": (
+        dataclasses.replace(BLOCK, big_n=2048, d=1, ell=3, l_gsw=3, log_b_gsw=12), 4, 1, 1),
+    "instance_kms16partyblock": (
+        dataclasses.replace(BLOCK, big_n=2048, d=1, ell=3, l_gsw=5, log_b_gsw=8), 3, 1, 1),
+    "instance_kms32partyblock": (
+        dataclasses.replace(BLOCK, big_n=2048, d=1, ell=3, l_gsw=6, log_b_gsw=7), 3, 1, 1),
 }
-SWEEP_INSTANCE = {"instance_kms8partyblock": 1, "instance_kms8party": 2, "instance_wide_gadget": 3}
+SWEEP_INSTANCE = {
+    "instance_kms8partyblock": "phase1_sweep_kernel<1,11,4,4,3>",
+    "instance_kms8party": "phase1_sweep_kernel<0,11,4,3,1>",
+    "instance_wide_gadget": "phase1_sweep_kernel<0,8,3,3,1>",
+    "instance_kms2party": "phase1_sweep_kernel<0,11,3,4,1>",
+    "instance_kms16party": "phase1_sweep_kernel<0,11,5,3,1>",
+    "instance_kms32party": "phase1_sweep_kernel<0,11,6,3,1>",
+    "instance_kms2partyblock": "phase1_sweep_kernel<1,11,3,4,3>",
+    "instance_kms16partyblock": "phase1_sweep_kernel<1,11,5,3,3>",
+    "instance_kms32partyblock": "phase1_sweep_kernel<1,11,6,3,3>",
+}
+
+
+@functools.cache
+def _monomial_table(n: int, npr: int) -> torch.Tensor:
+    """One table per ring for all the block cases (seconds at N = 2048)."""
+    return kms.monomial_table(make_ring_ctx(n, 64, npr), CPU)
 
 
 @pytest.mark.parametrize("name", list(SWEEP_CASES))
@@ -294,21 +337,18 @@ def test_sweep_kernel_source_matches_plain(sweep_lib, name):
     brk = torch.from_numpy((rng.integers(0, 1 << 62, size=shape) % p).astype(np.int32))
     ta = torch.from_numpy(rng.integers(0, 2 * n, size=(g, params.n)).astype(np.int32))
     ta[0, 0], ta[-1, -1] = 0, 2 * n - 1
-    mono = kms.monomial_table(ctx, CPU) if isinstance(params, KmsBlockParams) else None
+    mono = _monomial_table(n, npr) if isinstance(params, KmsBlockParams) else None
     acc0 = rng.integers(-(1 << 63), (1 << 63) - 1, size=(g, rows, 2, n), dtype=np.int64)
     acc0[0, 0, 0, :8] = [-1, -(1 << 63), (1 << 63) - 1, 0, 1, -(1 << 62), (1 << 62) - 1, -2]
     acc0 = torch.from_numpy(acc0)
     want = fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx, acc0)
-    instance = fused_mx3.sweep_instance(params, ctx)
-    assert instance == SWEEP_INSTANCE.get(name, 0)
+    kernel = fused_mx3.sweep_kernel(params, ctx, sweep_lib)
+    run_time = "phase1_sweep_kernel<1,0,0,0,0>" if mono is not None else "phase1_sweep_kernel<0,0,0,0,1>"
+    assert kernel["name"] == SWEEP_INSTANCE.get(name, run_time)
     got = _host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0)
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
-    if instance and n < 2048:  # the same shape through the kernel with run-time shapes
-        assert torch.equal(_host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0, 0), want)
-        # and every other instance refuses it
-        for other in range(1, len(fused_mx3.INSTANCES) + 1):
-            if other != instance:
-                assert _host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0, other) is None
+    if not kernel["run_time_shapes"] and n < 2048:  # the same shape through the kernel with run-time shapes
+        assert torch.equal(_host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0, True), want)
 
 
 _MX = KmsParams(n=4, big_n=128, l_gsw=3, log_b_gsw=8, **_COMMON)
@@ -328,15 +368,24 @@ MX_CASES = {
     "n2048_kms8party_gadget": (dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=4, log_b_gsw=9), 3, 1, 1, True),
     "n1024_table_in_device_memory": (
         dataclasses.replace(_MX, big_n=1024, n=2, l_gsw=2, log_b_gsw=9), 3, 1, 1, False),
-    # the shapes the kernel is compiled for (fused_mx2.INSTANCES); None: the
-    # table where the C entry point puts it
+    # the shapes the kernel is compiled for (csrc/mx_sweep.cu:mx_plan); None:
+    # the kernel and the table's place as the source's dispatcher picks them
     "instance_kms8party": (dataclasses.replace(_MX, big_n=2048, n=2, l_gsw=4, log_b_gsw=9), 3, 1, 1, None),
     "instance_wide_gadget": (dataclasses.replace(_MX, big_n=256, n=3, log_b_gsw=12), 3, 2, 2, None),
     "instance_six_digits_table_in_device_memory": (
         dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=6, log_b_gsw=7), 4, 1, 1, None),
+    "instance_kms2party": (dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=3, log_b_gsw=12), 4, 1, 1, None),
+    "instance_kms16party": (dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=5, log_b_gsw=8), 3, 1, 1, None),
+    "instance_kms32party": (dataclasses.replace(_MX, big_n=2048, n=1, l_gsw=6, log_b_gsw=7), 3, 1, 1, None),
 }
-MX_INSTANCE = {"instance_kms8party": 1, "instance_wide_gadget": 2,
-               "instance_six_digits_table_in_device_memory": 3}
+MX_INSTANCE = {
+    "instance_kms8party": "mx_sweep_kernel<1,11,4,3>",
+    "instance_wide_gadget": "mx_sweep_kernel<1,8,3,3>",
+    "instance_six_digits_table_in_device_memory": "mx_sweep_kernel<0,11,6,4>",
+    "instance_kms2party": "mx_sweep_kernel<1,11,3,4>",
+    "instance_kms16party": "mx_sweep_kernel<1,11,5,3>",
+    "instance_kms32party": "mx_sweep_kernel<1,11,6,3>",
+}
 
 
 @pytest.mark.parametrize("name", list(MX_CASES))
@@ -361,23 +410,16 @@ def test_mx_sweep_kernel_source_matches_plain(mx_lib, name):
     tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
     consts = fused_mx3._sweep_consts(n, npr, CPU)
     powers = fused_mx2._power_table_on(n, npr, CPU)
-    # a forced table place runs the kernel with run-time shapes (instance 0)
-    instance = fused_mx2.mx_instance(params, ctx) if pow_shared is None else 0
-    assert instance == MX_INSTANCE.get(name, 0)
-
-    def host(instance, out):
-        return mx_lib.host_mx_sweep(
-            out.data_ptr(), ta.data_ptr(), brk.data_ptr(), powers.data_ptr(),
-            tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
-            consts.data_ptr(), ctx.crt.prod_mod64, g * rows, rows, params.n, npr, l,
-            params.log_b_gsw, n.bit_length() - 1, instance, -1 if pow_shared is None else int(pow_shared),
-        )
-
-    assert host(instance, got) == 0
+    if pow_shared is None:  # a forced table place runs the kernel with run-time shapes
+        assert fused_mx2.mx_kernel(params, ctx, mx_lib)["name"] == MX_INSTANCE[name]
+    err = mx_lib.host_mx_sweep(
+        got.data_ptr(), ta.data_ptr(), brk.data_ptr(), powers.data_ptr(),
+        tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
+        consts.data_ptr(), ctx.crt.prod_mod64, g * rows, rows, params.n, npr, l,
+        params.log_b_gsw, n.bit_length() - 1, -1 if pow_shared is None else int(pow_shared),
+    )
+    assert err == 0
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
-    for other in range(1, len(fused_mx2.INSTANCES) + 1):  # every other instance refuses the shape
-        if pow_shared is None and other != instance:
-            assert host(other, acc0.clone()) == 1
 
 
 @pytest.mark.parametrize("n", [64, 256])
@@ -464,3 +506,40 @@ def test_cggi_step_kernel_source_matches_plain(step_lib, name):
         params.log_b_gsw, n.bit_length() - 1,
     )
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+
+
+@pytest.fixture(scope="module")
+def rate_lib(tmp_path_factory):
+    from mktfhe_tpu_torch.tools import butterfly_rate
+
+    lib = _host_library(butterfly_rate.SOURCE, RATE_ENTRY, tmp_path_factory.mktemp("rate_host"))
+    lib.host_butterfly_rate.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_uint] * 2 + [ctypes.c_int] * 4
+    lib.host_butterfly_rate.restype = None
+    return lib
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["ct_lazy", "gs_lazy"])
+def test_butterfly_rate_kernel_source_matches_big_integers(rate_lib, forward):
+    """The measuring kernel's loop of lazy radix-8 butterflies stays inside
+    their ranges: after several rounds the canonical residues are those of the
+    same butterflies on Python integers mod p."""
+    rounds, threads, seed = 5, 4, 7
+    p = PRIMES[0]
+    tw, tw_sh, _ = kntt._kernel_tables(64, 2, forward, CPU)
+    out = torch.empty((threads, 8), dtype=torch.int32)
+    rate_lib.host_butterfly_rate(out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), p, seed, rounds,
+                                 int(forward), 1, threads)
+    w = [int(v) & 0xFFFFFFFF for v in tw[0]]
+    for gid in range(threads):
+        e = [((seed + gid * 2654435761 % (1 << 32) + j * 40503) % (1 << 32)) % p for j in range(8)]
+        for _ in range(rounds):
+            for k in ((2, 1, 0) if forward else (0, 1, 2)):  # half-width 2^k, 2^(2-k) twiddles from entry 2^(2-k)
+                for j in range(8):
+                    if j & (1 << k):
+                        continue
+                    u, v, tww = e[j], e[j | (1 << k)], w[(1 << (2 - k)) + (j >> (k + 1))]
+                    if forward:
+                        e[j], e[j | (1 << k)] = (u + tww * v) % p, (u - tww * v) % p
+                    else:
+                        e[j], e[j | (1 << k)] = (u + v) % p, tww * (u - v) % p
+        assert [int(v) & 0xFFFFFFFF for v in out[gid]] == e

@@ -2,16 +2,20 @@
 
 The two sweep kernels (csrc/phase1_sweep.cu, csrc/mx_sweep.cu) are compiled
 for the shapes of the main paths and once more with run-time shapes for every
-other shape their wrappers admit.  The choice is made in Python
-(`fused_mx3.sweep_instance`, `fused_mx2.mx_instance`) and checked by the C
-entry point; here it is held against the table that PERF.md prints, for every
-KMS preset, without a compiler or a card: the tensors live on the meta device.
+other shape their wrappers admit.  The choice is made in one place, the
+sources' own dispatchers (`sweep_plan`, `mx_plan`), which the wrappers ask
+through `fused_mx3.sweep_kernel` / `fused_mx2.mx_kernel`; here the dispatchers
+are compiled for the host (tests/test_torch_kernels_host.py has the stand-in
+for the CUDA header) and held against the table that PERF.md prints, for
+every KMS preset, without a card.  The refusals need no compiler: their
+tensors live on the meta device.
 """
 
 import dataclasses
 
 import pytest
 import torch
+from test_torch_kernels_host import MX_ENTRY, SWEEP_ENTRY, _host_library
 
 from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
@@ -28,20 +32,39 @@ RUN_TIME = "phase1_sweep_kernel<0,0,0,0,1>"
 RUN_TIME_BLOCK = "phase1_sweep_kernel<1,0,0,0,0>"
 # preset -> the kernel of phase1_sweep.cu that serves it (PERF.md, section 6)
 SWEEP_KERNEL = {
-    "KMS_8PARTY_BLOCK": "phase1_sweep_kernel<1,11,4,4,3>",
+    "KMS_2PARTY": "phase1_sweep_kernel<0,11,3,4,1>",
+    "KMS_4PARTY": "phase1_sweep_kernel<0,11,5,3,1>",
     "KMS_8PARTY": "phase1_sweep_kernel<0,11,4,3,1>",
-    **{name: RUN_TIME for name in (
-        "KMS_2PARTY", "KMS_4PARTY", "KMS_16PARTY", "KMS_32PARTY", "TINY_KMS_2PARTY", "TINY_KMS_2PARTY_MX")},
-    **{name: RUN_TIME_BLOCK for name in (
-        "KMS_2PARTY_BLOCK", "KMS_4PARTY_BLOCK", "KMS_16PARTY_BLOCK", "KMS_32PARTY_BLOCK")},
+    "KMS_16PARTY": "phase1_sweep_kernel<0,11,5,3,1>",
+    "KMS_32PARTY": "phase1_sweep_kernel<0,11,6,3,1>",
+    "KMS_2PARTY_BLOCK": "phase1_sweep_kernel<1,11,3,4,3>",
+    "KMS_4PARTY_BLOCK": "phase1_sweep_kernel<1,11,5,3,3>",
+    "KMS_8PARTY_BLOCK": "phase1_sweep_kernel<1,11,4,4,3>",
+    "KMS_16PARTY_BLOCK": "phase1_sweep_kernel<1,11,5,3,3>",
+    "KMS_32PARTY_BLOCK": "phase1_sweep_kernel<1,11,6,3,3>",
+    "TINY_KMS_2PARTY": RUN_TIME,
+    "TINY_KMS_2PARTY_MX": RUN_TIME,
 }
 # binary preset -> the kernel of mx_sweep.cu that serves its mx keys; every
 # preset's power table fits in shared memory
 MX_KERNEL = {
+    "KMS_2PARTY": "mx_sweep_kernel<1,11,3,4>",
+    "KMS_4PARTY": "mx_sweep_kernel<1,11,5,3>",
     "KMS_8PARTY": "mx_sweep_kernel<1,11,4,3>",
-    **{name: "mx_sweep_kernel<1,0,0,0>" for name in (
-        "KMS_2PARTY", "KMS_4PARTY", "KMS_16PARTY", "KMS_32PARTY", "TINY_KMS_2PARTY_MX")},
+    "KMS_16PARTY": "mx_sweep_kernel<1,11,5,3>",
+    "KMS_32PARTY": "mx_sweep_kernel<1,11,6,3>",
+    "TINY_KMS_2PARTY_MX": "mx_sweep_kernel<1,0,0,0>",
 }
+
+
+@pytest.fixture(scope="module")
+def sweep_lib(tmp_path_factory):
+    return _host_library(fused_mx3.SOURCE, SWEEP_ENTRY, tmp_path_factory.mktemp("sweep_shapes"))
+
+
+@pytest.fixture(scope="module")
+def mx_lib(tmp_path_factory):
+    return _host_library(fused_mx2.SOURCE, MX_ENTRY, tmp_path_factory.mktemp("mx_shapes"))
 
 
 def test_tables_cover_every_preset():
@@ -67,54 +90,63 @@ def _mx_args(params, ctx_p, rows=1):
 
 
 @pytest.mark.parametrize("name", sorted(KMS_PRESETS))
-def test_sweep_kernel_of_preset(name):
+def test_sweep_kernel_of_preset(sweep_lib, name):
     params = KMS_PRESETS[name]
     ctx = kms._ctx(params)
     fused_mx3._check(*_sweep_args(params, ctx, params.l_lev))  # admitted
-    kernel = fused_mx3.sweep_kernel(params, ctx)
+    kernel = fused_mx3.sweep_kernel(params, ctx, sweep_lib)
     assert kernel["name"] == SWEEP_KERNEL[name]
-    assert kernel["instance"] == fused_mx3.sweep_instance(params, ctx)
-    assert (kernel["instance"] == 0) == (kernel["name"] in (RUN_TIME, RUN_TIME_BLOCK))
+    assert kernel["run_time_shapes"] == (kernel["name"] in (RUN_TIME, RUN_TIME_BLOCK))
     assert kernel["threads"] == min(ctx.n // 2, 512) and kernel["shared_bytes"] <= MAX_SHARED
-    if kernel["instance"]:
-        block, log_n, l, npr, ell = fused_mx3.INSTANCES[kernel["instance"]]
-        assert (block, 1 << log_n, l, npr) == (isinstance(params, KmsBlockParams), ctx.n, params.l_gsw, ctx.nprimes)
-        assert ell == (params.ell if block else 1)
+    # accumulator, digit polynomials (at least four), residues, one prime's twiddles
+    assert kernel["shared_bytes"] == ctx.n * (16 + 8 * max(params.l_gsw, 2) + 8 * ctx.nprimes + 16)
+    if not kernel["run_time_shapes"]:
+        block = isinstance(params, KmsBlockParams)
+        shape = (int(block), ctx.n.bit_length() - 1, params.l_gsw, ctx.nprimes, params.ell if block else 1)
+        assert kernel["name"] == "phase1_sweep_kernel<" + ",".join(map(str, shape)) + ">"
 
 
 @pytest.mark.parametrize("name", sorted(MX_KERNEL))
-def test_mx_kernel_of_preset(name):
+def test_mx_kernel_of_preset(mx_lib, name):
     params = KMS_PRESETS[name]
     ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, fused_mx2.mx_nprimes(params))
     fused_mx2._check(*_mx_args(params, ctx_p, params.l_lev))  # admitted
-    kernel = fused_mx2.mx_kernel(params, ctx_p)
+    kernel = fused_mx2.mx_kernel(params, ctx_p, mx_lib)
     assert kernel["name"] == MX_KERNEL[name]
-    assert kernel["instance"] == fused_mx2.mx_instance(params, ctx_p)
+    assert kernel["threads"] == min(ctx_p.n // 2, 512)
     assert kernel["table_in_shared"] and kernel["shared_bytes"] <= MAX_SHARED
     # the twiddles follow the table into shared memory where 16 N bytes are left:
     # at N = 2048 only beside KMS8party's four digits over three primes
     assert kernel["twiddles_in_shared"] == (name in ("KMS_8PARTY", "TINY_KMS_2PARTY_MX"))
-    if kernel["instance"]:
-        assert fused_mx2.INSTANCES[kernel["instance"]] == (ctx_p.n.bit_length() - 1, params.l_gsw, ctx_p.nprimes)
+    if not kernel["run_time_shapes"]:
+        shape = (ctx_p.n.bit_length() - 1, params.l_gsw, ctx_p.nprimes)
+        assert kernel["name"] == "mx_sweep_kernel<1," + ",".join(map(str, shape)) + ">"
 
 
-def test_other_compiled_instances():
+def test_other_compiled_instances(sweep_lib, mx_lib):
     """The instances that no preset reaches: the small wide-gadget set of both
     kernels, and the six-digit gadget over four primes, whose power table does
     not fit in shared memory."""
     wide = dataclasses.replace(presets.TINY_KMS_2PARTY, big_n=256, log_b_gsw=12)
     ctx = make_ring_ctx(256, 64, 3)
-    assert fused_mx3.sweep_kernel(wide, ctx)["name"] == "phase1_sweep_kernel<0,8,3,3,1>"
-    assert fused_mx2.mx_kernel(wide, ctx)["name"] == "mx_sweep_kernel<1,8,3,3>"
-    six = fused_mx2.mx_kernel(presets.KMS_32PARTY, make_ring_ctx(2048, 64, 4))
+    assert fused_mx3.sweep_kernel(wide, ctx, sweep_lib)["name"] == "phase1_sweep_kernel<0,8,3,3,1>"
+    assert fused_mx2.mx_kernel(wide, ctx, mx_lib)["name"] == "mx_sweep_kernel<1,8,3,3>"
+    six = fused_mx2.mx_kernel(presets.KMS_32PARTY, make_ring_ctx(2048, 64, 4), mx_lib)
     assert six["name"] == "mx_sweep_kernel<0,11,6,4>" and not six["table_in_shared"]
     assert six["twiddles_in_shared"] and six["shared_bytes"] == 2048 * (16 + 8 * 6 + 8 * 4 + 16)
-    # the same gadget over three primes keeps the table in shared memory, with run-time shapes
-    assert fused_mx2.mx_kernel(presets.KMS_32PARTY, make_ring_ctx(2048, 64, 3))["name"] == "mx_sweep_kernel<1,0,0,0>"
+    # KMS16party's gadget over four primes: no instance; the table no longer fits
+    other = fused_mx2.mx_kernel(presets.KMS_16PARTY, make_ring_ctx(2048, 64, 4), mx_lib)
+    assert other["name"] == "mx_sweep_kernel<0,0,0,0>" and other["twiddles_in_shared"]
+    # two digits at N = 1024: no instance; table and twiddles in shared memory
+    small = dataclasses.replace(presets.KMS_8PARTY, big_n=1024, l_gsw=2)
+    assert fused_mx2.mx_kernel(small, make_ring_ctx(1024, 64, 3), mx_lib)["name"] == "mx_sweep_kernel<1,0,0,0>"
     # one more prime or digit than an instance's: run-time shapes
-    assert fused_mx3.sweep_instance(presets.KMS_8PARTY, make_ring_ctx(2048, 64, 4)) == 0
-    assert fused_mx3.sweep_instance(dataclasses.replace(presets.KMS_8PARTY_BLOCK, l_gsw=5, log_b_gsw=8),
-                                    make_ring_ctx(2048, 64, 4)) == 0
+    assert fused_mx3.sweep_kernel(presets.KMS_8PARTY, make_ring_ctx(2048, 64, 4), sweep_lib)["name"] == RUN_TIME
+    five = dataclasses.replace(presets.KMS_8PARTY_BLOCK, l_gsw=5, log_b_gsw=8)
+    assert fused_mx3.sweep_kernel(five, make_ring_ctx(2048, 64, 4), sweep_lib)["name"] == RUN_TIME_BLOCK
+    # another block size than the presets' ell = 3
+    two = dataclasses.replace(presets.KMS_8PARTY_BLOCK, ell=2, d=304)
+    assert fused_mx3.sweep_kernel(two, make_ring_ctx(2048, 64, 4), sweep_lib)["name"] == RUN_TIME_BLOCK
 
 
 _BIN, _BLK = presets.KMS_8PARTY, presets.KMS_8PARTY_BLOCK
