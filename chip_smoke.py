@@ -4,12 +4,15 @@
 Phases, each printing one line; any failure exits non-zero:
   1. require a CUDA card; print `nvidia-smi` name and power limit;
   2. build the CUDA kernels from mktfhe_tpu_torch/csrc/ (nvcc, sm_90a, one
-     process per source, started together); the sweep kernels' template
-     instances that the main paths run must not spill registers; time the
-     sweep kernels' own butterflies on registers alone (a measuring kernel,
+     process per source, started together) and print what ptxas said of each
+     kernel (registers, spills); the template instances that the main paths
+     run must not spill registers (checked in phases 3, 5, 12, 16); time the
+     kernels' own butterflies on registers alone (a measuring kernel,
      csrc/butterfly_rate.cu), the second yardstick beside their bounds;
-  3. hold the NTT kernel against its plain PyTorch version on the card,
-     bit-exact, forward and inverse, at the bootstrap's shapes, and time both;
+  3. hold the natural NTT kernel against its plain PyTorch version on the
+     card, bit-exact, forward and inverse, at the bootstrap's shapes and at
+     every N from 64 to 2048 (each through its instance, named with its
+     registers and spills), and time both;
   4. keygen on the card for KMS8partyblock and KMS8party: crs, 8 party
      keygens, setup;
   5. hold the phase-1 sweep kernel against its plain PyTorch version on the
@@ -23,7 +26,8 @@ Phases, each printing one line; any failure exits non-zero:
      KMS8partyblock, decrypt-checked, then a timed data-dependent chain of
      two more (decrypt-checked too); the sweep and NTT kernels must have
      been launched; then one more under torch.profiler for the device time
-     by kernel;
+     by kernel; the natural NTT's launches by shape with the time at each
+     (6c), which must add up to its share of the profile;
   7. the earlier path: one `kms.bootstrap` of the same ciphertext,
      decrypt-checked, whose output must equal `bootstrap_mx3`'s bit for bit;
   8. the binary-key path: one `bootstrap_mx3` on KMS8party, decrypt-checked;
@@ -34,9 +38,11 @@ Phases, each printing one line; any failure exits non-zero:
      a small ragged batch, and time both;
  11. CGGI keygen on the card (preset CGGI) and the batch-minor key layout;
  12. hold the fused CGGI step kernel against its plain version on real keys
-     at 256 gates, bit-exact: a one-step launch against the plain step, a
-     short range against as many plain steps; time all 630 steps as one
-     launch, as 630 one-step launches and as 630 plain steps;
+     at 256 gates, bit-exact, through the instance of preset CGGI (named with
+     its registers and spills): a one-step launch against the plain step, a
+     short range against as many plain steps; and through the kernel with
+     run-time shapes at a small set; time all 630 steps as one launch, as 630
+     one-step launches and as 630 plain steps;
  13. this slice's main path: `bootstrap_fused` of 256 NAND gates on CGGI,
      decrypt-checked, then a timed data-dependent chain of two more; the
      step kernel must have been launched; then one more under torch.profiler;
@@ -54,7 +60,8 @@ Phases, each printing one line; any failure exits non-zero:
      KMS8party, on a scheme without `brk_hat`, decrypt-checked, then a timed
      data-dependent chain of two more; the mx sweep and NTT kernels must have
      been launched; its output on the ciphertext of phase 8 must equal
-     `bootstrap_mx3`'s bit for bit; then one more under torch.profiler;
+     `bootstrap_mx3`'s bit for bit; then one more under torch.profiler, and
+     the natural NTT's launches by shape (17c);
  18. the KMS batch-minor engine on the same ciphertext: `kms.bootstrap_bm`
      (the batch-minor NTT kernel must have been launched), decrypt-checked,
      bit-identical to `bootstrap_mx2`;
@@ -66,6 +73,7 @@ Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -145,18 +153,21 @@ INT32_OPS_PER_S = 33.5e12
 # 32-bit integer operations of the arithmetic as csrc/modarith.cuh writes it
 # (a multiply and an add count one each; a 64-bit add counts two).  The
 # stage-by-stage transforms (ntt.cu, cggi_step.cu) run canonical butterflies
-# and a carry-chain decomposition:
+# and a carry-chain decomposition (the count of every kernel before its
+# redesign; the batch-minor NTT kernel still runs it):
 OPS_SHOUP_MUL = 6  # mulhi, two mullo, subtract, compare, subtract
 OPS_BUTTERFLY = OPS_SHOUP_MUL + 3 + 4  # + add_mod + sub_mod
 OPS_PRODUCT_TERM = 4  # 32x32 -> 64 multiply (lo, hi) and a 64-bit add
 OPS_BARRETT = 12  # 64x64 high product as eight 32-bit mul/adds, then as Shoup's tail
 OPS_DIGIT = 5  # mask, shift, carry add, sign test, lift
-# the sweep kernels run lazy butterflies and take each digit from the
-# accumulator word plus an offset:
+# the redesigned kernels (both sweeps, the CGGI step, the natural NTT) run
+# lazy butterflies and take each digit from the accumulator word plus an
+# offset:
 OPS_CT_LAZY = 10  # csub (subtract, min), mulhi, two multiply-adds, 2 u0 + 2p, subtract
 OPS_GS_LAZY = 9  # subtract, add, add, csub (subtract, min), mulhi, multiply, multiply-subtract
 OPS_CANONICAL = 4  # two csub: [0, 4p) -> [0, p), once per transformed digit
 OPS_DIGIT_SOURCE = 8  # per accumulator word and step: 64-bit shift, rounding bit (shift, mask), two 64-bit adds
+OPS_DIGIT_SOURCE_32 = 5  # the same on the 2^32 torus (the CGGI step kernel): shift, shift, mask, two adds
 OPS_LIFTED_DIGIT = 6  # funnel shift, mask, subtract, compare, select, add
 NO_LIBRARY_CALL = (
     "library_ms is null for every kernel: no single PyTorch call computes a negacyclic "
@@ -259,14 +270,28 @@ def check_run_time_shapes(gen, device) -> int:
     return err
 
 
-def ntt_bound(shape, forward: bool) -> dict:
+def ntt_bound(shape, forward: bool, rate: dict | None = None) -> dict:
     """Least time of one transform of [rows, npr, N] u32 on the card: every
     residue read and written once plus the twiddles, against N/2 log2 N
-    butterflies per polynomial (and N scalings by 1/N in the inverse)."""
+    butterflies per polynomial (and N scalings by 1/N in the inverse).  With
+    `rate` (the natural kernel): counted in the lazy arithmetic it runs, one
+    canonical reduction a forward output, with the canonical radix-2 count and
+    the butterflies alone at the register rate of full occupancy beside it;
+    without (the batch-minor kernel): in the canonical radix-2 arithmetic it
+    runs."""
     rows, npr, n = shape
     nbytes = 2 * rows * npr * n * 4 + 2 * npr * n * 4
-    ops = rows * npr * (n // 2 * (n.bit_length() - 1) * OPS_BUTTERFLY + (0 if forward else n * OPS_SHOUP_MUL))
-    return _bound(nbytes, ops)
+    butterflies = rows * npr * n // 2 * (n.bit_length() - 1)
+    canonical = _bound(nbytes, butterflies * OPS_BUTTERFLY + (0 if forward else rows * npr * n * OPS_SHOUP_MUL))
+    if rate is None:
+        return canonical
+    lazy = butterflies * (OPS_CT_LAZY if forward else OPS_GS_LAZY) + rows * npr * n * (
+        OPS_CANONICAL if forward else OPS_SHOUP_MUL)
+    return {
+        **_bound(nbytes, lazy),
+        "bound_ms_canonical_radix2": canonical["bound_ms"],
+        "butterflies_only_ms": butterflies / rate["fwd_full" if forward else "inv_full"] * 1e3,
+    }
 
 
 def _bound(nbytes: int, ops: int) -> dict:
@@ -275,11 +300,14 @@ def _bound(nbytes: int, ops: int) -> dict:
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
-def check_ntt(gen, device) -> dict:
-    """Kernel vs plain version on the card at NTT_SHAPES; times at the first."""
+def check_ntt(gen, device, usage: list[str]) -> dict:
+    """Kernel vs plain version on the card at NTT_SHAPES and at 5 rows of
+    every N the wrapper admits over 2, 3 and 4 primes; each instance's name
+    with what ptxas said of it (none may spill); times at the first shape."""
     err = {"fwd": 0, "inv": 0}
     times = {}
-    for shape in NTT_SHAPES:
+    every_n = [(5, npr, 1 << log_n) for log_n in range(6, 12) for npr in (2, 3, 4)]
+    for shape in NTT_SHAPES + every_n:
         plan = make_plan(shape[2], shape[1])
         x = _residues(gen, shape, device)
         fk = kntt.fwd_ntt_nat(x, plan)
@@ -308,7 +336,47 @@ def check_ntt(gen, device) -> dict:
     for d in ("fwd", "inv"):
         if err[d] > TOLERANCE:
             raise SystemExit(f"NTT {d} kernel disagrees with its plain version: max |diff| {err[d]}")
-    return {"err": err, "times": times}
+    notes = [instance_note(kntt.nat_kernel(1 << log_n, forward), usage, must_not_spill=True)
+             for log_n in range(6, 12) for forward in (True, False)]
+    return {"err": err, "times": times, "notes": notes}
+
+
+def time_ntt_shapes(gen, device, shapes) -> dict:
+    """Device time in ms of the natural kernel, forward and inverse, at each
+    [rows, npr, N] of `shapes` (torch.profiler: the short ones are faster
+    than the host enqueues them)."""
+    out = {}
+    for shape in shapes:
+        plan = make_plan(shape[2], shape[1])
+        x = _residues(gen, shape, device)
+        for _ in range(3):  # warm-up
+            kntt.fwd_ntt_nat(x, plan)
+            kntt.inv_ntt_nat(x, plan)
+        out[shape] = (
+            _kernel_ms(lambda: kntt.fwd_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
+            _kernel_ms(lambda: kntt.inv_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
+        )
+    return out
+
+
+def ntt_by_shape(path: str, fwd: dict, inv: dict, bootstraps: int, times: dict) -> list[dict]:
+    """The natural kernel's launches on a path by shape, per bootstrap, with
+    the time at each (`times`: time_ntt_shapes)."""
+    rows = []
+    for shape in sorted(set(fwd) | set(inv), reverse=True):
+        f, i = fwd.get(shape, 0) / bootstraps, inv.get(shape, 0) / bootstraps
+        rows.append({"path": path, "shape": list(shape), "fwd": f, "inv": i,
+                     "fwd_ms": times[shape][0], "inv_ms": times[shape][1],
+                     "ms_per_bootstrap": f * times[shape][0] + i * times[shape][1]})
+    return rows
+
+
+def by_shape_line(tag: str, rows: list[dict], profiled_ms: float, smi: str) -> str:
+    parts = "; ".join(f"{r['shape']} fwd {r['fwd']:g} x {r['fwd_ms']:.4f} ms, inv {r['inv']:g} x "
+                      f"{r['inv_ms']:.4f} ms" for r in rows)
+    total = sum(r["ms_per_bootstrap"] for r in rows)
+    return (f"[{tag}] natural NTT kernel per {rows[0]['path']}, by shape [rows, npr, N]: {parts}; "
+            f"launches x time = {total:.3f} ms against {profiled_ms:.3f} ms in the profile ({smi})")
 
 
 def keygen(gen, params):
@@ -320,12 +388,14 @@ def keygen(gen, params):
     return [p[0] for p in parties], kms.setup(a, party_keys, params), party_keys
 
 
-def sweep_step_ops(n: int, npr: int, l: int, per_position: int, accumulate: int, lazy: bool) -> int:
+def sweep_step_ops(n: int, npr: int, l: int, per_position: int, accumulate: int, lazy: bool,
+                   torus_bits: int = 64) -> int:
     """32-bit integer operations of one step of one (gate, row) of a sweep:
     per prime the 2l digit polynomials and their forward transforms,
     `per_position` operations of the pointwise stage at each of n positions,
-    two inverse transforms scaled by 1/N; then per coefficient Garner mod 2^64
-    and `accumulate` operations.  `lazy`: the arithmetic the sweep kernels run
+    two inverse transforms scaled by 1/N; then per coefficient Garner mod
+    2^torus_bits and `accumulate` operations.  `lazy`: the arithmetic the
+    redesigned kernels run
     (lazy butterflies, digits from the accumulator word plus an offset, one
     canonical reduction per transformed digit); else the canonical radix-2
     arithmetic of the stage-by-stage transforms, by which the sweeps' bounds
@@ -334,39 +404,41 @@ def sweep_step_ops(n: int, npr: int, l: int, per_position: int, accumulate: int,
     if lazy:
         fwd, inv = (n // 2 * log_n * ops for ops in (OPS_CT_LAZY, OPS_GS_LAZY))
         digits = 2 * l * n * (OPS_LIFTED_DIGIT + OPS_CANONICAL)
-        sources = 2 * n * OPS_DIGIT_SOURCE
+        sources = 2 * n * (OPS_DIGIT_SOURCE if torus_bits == 64 else OPS_DIGIT_SOURCE_32)
     else:
         fwd = inv = n // 2 * log_n * OPS_BUTTERFLY
         digits = 2 * l * n * OPS_DIGIT
         sources = 0
     per_prime = digits + 2 * l * fwd + n * per_position + 2 * inv + 2 * n * OPS_SHOUP_MUL
-    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 8 + 4
+    horner = (npr - 1) * 8 + 4 if torus_bits == 64 else (npr - 1) * 2 + 2
+    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + horner
     return sources + npr * per_prime + 2 * n * (garner + accumulate)
 
 
 def sweep_bounds(nbytes: int, units: int, n: int, npr: int, l: int, per_position: int, accumulate: int,
-                 rate: dict) -> dict:
+                 rate: dict, torus_bits: int = 64, occupancy: str = "one_cta") -> dict:
     """The bound of a sweep of `units` (gate, row, step) triples: bytes
     against operations of the arithmetic the kernel runs (`bound_ms`); beside
     it the same bound counted in the canonical radix-2 arithmetic
     (`bound_ms_canonical_radix2`, the yardstick of the rows before the
     redesign), and the time that the sweep's butterflies alone take at the
     rate the card reaches on them in registers (`butterflies_only_ms`, from
-    csrc/butterfly_rate.cu at the sweeps' occupancy of one CTA per SM)."""
+    csrc/butterfly_rate.cu at the kernel's occupancy: "one_cta" per SM, the
+    sweeps', or "full", several CTAs an SM)."""
     half_stages = n // 2 * (n.bit_length() - 1)
+    ops = functools.partial(sweep_step_ops, n, npr, l, per_position, accumulate, torus_bits=torus_bits)
     return {
-        **_bound(nbytes, units * sweep_step_ops(n, npr, l, per_position, accumulate, lazy=True)),
-        "bound_ms_canonical_radix2":
-            _bound(nbytes, units * sweep_step_ops(n, npr, l, per_position, accumulate, lazy=False))["bound_ms"],
+        **_bound(nbytes, units * ops(lazy=True)),
+        "bound_ms_canonical_radix2": _bound(nbytes, units * ops(lazy=False))["bound_ms"],
         "butterflies_only_ms": units * npr * half_stages * (
-            2 * l / rate["fwd_one_cta"] + 2 / rate["inv_one_cta"]) * 1e3,
+            2 * l / rate[f"fwd_{occupancy}"] + 2 / rate[f"inv_{occupancy}"]) * 1e3,
     }
 
 
-def bounds_note(res: dict) -> str:
-    return (f"bound {res['bound_ms']:.2f} ms by {res['bound_by']} in the kernel's arithmetic, "
-            f"{res['bound_ms_canonical_radix2']:.2f} ms counted in canonical radix-2 arithmetic; its "
-            f"butterflies alone in registers {res['butterflies_only_ms']:.2f} ms")
+def bounds_note(res: dict, digits: int = 2) -> str:
+    return (f"bound {res['bound_ms']:.{digits}f} ms by {res['bound_by']} in the kernel's arithmetic, "
+            f"{res['bound_ms_canonical_radix2']:.{digits}f} ms counted in canonical radix-2 arithmetic; its "
+            f"butterflies alone in registers {res['butterflies_only_ms']:.{digits}f} ms")
 
 
 def sweep_bound(params, ctx, g: int, rows: int, tildea: torch.Tensor, rate: dict) -> dict:
@@ -574,26 +646,51 @@ def ntt_bm_bound(shape, forward: bool) -> dict:
     return ntt_bound((r * g, npr, n), forward)
 
 
-def step_bound(params, ctx, g: int, steps: int, tildea: torch.Tensor) -> dict:
+def step_bound(params, ctx, g: int, steps: int, tildea: torch.Tensor, rate: dict) -> dict:
     """Least time of `steps` CGGI steps on `g` gates on the card.  Bytes: the
     accumulator read and written, the rotation amounts, the steps' key rows,
     the twiddles, and the monomial images that these amounts select, each
-    once.  Operations: per (gate, step) and prime the digits, 2l forward
-    transforms, the external product and the monomial product, two inverse
-    transforms; then Garner mod 2^32 and the accumulation per coefficient."""
+    once.  Operations: `sweep_step_ops` on the 2^32 torus with, per position,
+    the external product and the monomial product, and one add to accumulate
+    (the kernel runs several CTAs an SM: the butterflies' rate at full
+    occupancy)."""
     n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
-    log_n = n.bit_length() - 1
     nbytes = (2 * g * 2 * n * 4 + g * steps * 4 + steps * npr * 2 * l * 2 * n * 4 + 4 * npr * n * 4
               + int(torch.unique(tildea[:, :steps]).numel()) * npr * n * 4)
-    ntt_ops = n // 2 * log_n * OPS_BUTTERFLY
     product = 2 * (2 * l * OPS_PRODUCT_TERM + OPS_BARRETT) + 2 * (OPS_PRODUCT_TERM + OPS_BARRETT)
-    per_prime = 2 * n * l * OPS_DIGIT + 2 * l * ntt_ops + n * product + 2 * ntt_ops + 2 * n * OPS_SHOUP_MUL
-    garner = npr * (npr - 1) // 2 * (OPS_SHOUP_MUL + 4 + 2) + (npr - 1) * 2 + 2
-    per_step = npr * per_prime + 2 * n * (garner + 1)
-    return _bound(nbytes, g * steps * per_step)
+    return sweep_bounds(nbytes, g * steps, n, npr, l, product, 1, rate, torus_bits=32, occupancy="full")
 
 
-def check_step(gen, params, bm, g: int) -> dict:
+# a small set of no preset's shape, with a 32-bit gadget: it runs the step
+# kernel with run-time shapes
+STEP_RUN_TIME = dataclasses.replace(CGGI_PARAM, n=CHECK_STEPS, big_n=512, l_gsw=2, log_b_gsw=16)
+
+
+def check_step_run_time_shapes(gen, device) -> int:
+    """The step kernel with run-time shapes vs its plain version on uniform
+    residues at STEP_RUN_TIME with 3 primes; returns max |diff|."""
+    params = STEP_RUN_TIME
+    ctx = make_ring_ctx(params.big_n, 32, 3)
+    n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
+    if not fused_step.step_kernel(params, ctx)["run_time_shapes"]:
+        raise SystemExit(f"{params} should run the step kernel with run-time shapes")
+    brk = _residues(gen, (params.n * 2 * l * 2, npr, n), device).reshape(params.n, 2 * l, 2, npr, n)
+    brk = brk.permute(0, 3, 1, 2, 4).contiguous()
+    mono = kms.monomial_table(ctx, device)
+    tildea = torch.randint(0, 2 * n, (5, params.n), generator=gen, device=device, dtype=torch.int32)
+    acc = torch.randint(-(1 << 31), 1 << 31, (5, 2, n), generator=gen, device=device, dtype=torch.int32)
+    got = fused_step.cggi_step(acc, tildea, brk, mono, params, ctx)
+    want = acc
+    for i in range(params.n):
+        want = fused_step.cggi_step_plain(want, brk[i], tildea[:, i], mono, params, ctx)
+    torch.cuda.synchronize()
+    err = _max_abs_diff(got, want)
+    if err > TOLERANCE:
+        raise SystemExit(f"the step kernel with run-time shapes disagrees with its plain version: max |diff| {err}")
+    return err
+
+
+def check_step(gen, params, bm, g: int, rate: dict) -> dict:
     """The CGGI step kernel vs its plain version on the card, on real keys,
     uniform rotation amounts and accumulators over all of 32 bits: a one-step
     launch against the plain step, a range of CHECK_STEPS against as many
@@ -632,8 +729,8 @@ def check_step(gen, params, bm, g: int) -> dict:
         "one_step_ms": _kernel_ms(lambda: fused_step.cggi_step(acc, tildea, *keys, 0, 1), 20, "cggi_step_kernel"),
         "plain_ms": _sync_ms(lambda: plain(acc, 0, params.n), 1),
         "plain_step_ms": _sync_ms(lambda: plain(acc, 0, 1), 5),
-        "one_step_bound_ms": step_bound(params, ctx, g, 1, tildea)["bound_ms"],
-        **step_bound(params, ctx, g, params.n, tildea),
+        "one_step_bound_ms": step_bound(params, ctx, g, 1, tildea, rate)["bound_ms"],
+        **step_bound(params, ctx, g, params.n, tildea, rate),
     }
     if not (torch.equal(whole, one_by_one(acc)) and torch.equal(whole, plain(acc, 0, params.n))):
         raise SystemExit("CGGI step kernel: one launch, one launch per step and the plain steps differ over all steps")
@@ -687,9 +784,11 @@ def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple
     return err, (tildea, brk_mx_p, rows, params, ctx_p)
 
 
-def run_mx2(gen, smi: str, binary: dict, usage: list[str], rate: dict) -> list[dict]:
+def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_rows: list[dict]) -> list[dict]:
     """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
-    KMS batch-minor engine; returns the mx sweep's row of the kernels line."""
+    KMS batch-minor engine; returns the mx sweep's row of the kernels line
+    and adds the natural NTT's launches on `bootstrap_mx2` by shape to its
+    rows (`ntt_rows`)."""
     params = KMS_8PARTY
     lwe_keys, party_keys = binary["lwe_keys"], binary["party_keys"]
     # 15. mx-domain keys
@@ -731,7 +830,7 @@ def run_mx2(gen, smi: str, binary: dict, usage: list[str], rate: dict) -> list[d
     notes = [
         instance_note(
             fused_mx2.mx_kernel(p, make_ring_ctx(p.big_n, p.ring_torus_bits, keys.brk_mx.shape[2])),
-            usage, must_not_spill=p is params,
+            usage["mx_sweep"], must_not_spill=p is params,
         )
         for p, keys in ((params, mx_keys), (WIDE_GADGET, wide_keys), (SIX_DIGITS, six_keys))
     ]
@@ -764,6 +863,7 @@ def run_mx2(gen, smi: str, binary: dict, usage: list[str], rate: dict) -> list[d
     reset_launches()
     boot = bootstrap_chain(bootstrap_mx2, ct, c2, m1, m2, params, decrypt, lean, CHAIN)
     launches = read_launches()
+    shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
     if min(launches[k] for k in ("mx", "fwd", "inv")) == 0 or launches["sweep"] != 0:
         raise SystemExit(f"bootstrap_mx2 did not run on the mx sweep and NTT kernels alone: {launches}")
     same = all(torch.equal(x, y) for x, y in ((boot["first"].b, binary["mx3_out"].b), (boot["first"].a, binary["mx3_out"].a)))
@@ -782,6 +882,11 @@ def run_mx2(gen, smi: str, binary: dict, usage: list[str], rate: dict) -> list[d
         {"mx sweep kernel": "mx_sweep_kernel", "NTT kernels": "ntt_nat_kernel"},
     )
     print(profile_line("17b profile", "bootstrap_mx2", prof, smi))
+    by_shape = ntt_by_shape("bootstrap_mx2", *shapes, 1 + CHAIN, time_ntt_shapes(gen, device, set(shapes[0]) | set(shapes[1])))
+    print(by_shape_line("17c ntt by shape", by_shape, prof["parts"]["NTT kernels"], smi))
+    for row, d in zip(ntt_rows, ("fwd", "inv")):
+        row["launches_by_shape"] += [
+            {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape]
 
     # 18. the KMS batch-minor engine on the same ciphertext: same bits
     t0 = time.time()
@@ -835,17 +940,20 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> di
     }
 
 
-def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[dict], dict]:
+def run_kms(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict], dict]:
     """Phases 3-9: the KMS paths and their kernels; returns their rows of
     the kernels line, and the KMS8party keys, ciphertext and `bootstrap_mx3`
     output that the later phases go on from."""
     # 3. NTT kernel vs plain version
-    ntt = check_ntt(gen, device)
+    ntt = check_ntt(gen, device, usage["ntt"])
     (kf, pf), (ki, pi) = ntt["times"]["fwd"], ntt["times"]["inv"]
+    bounds = {d: ntt_bound(NTT_SHAPES[0], d == "fwd", rate) for d in ("fwd", "inv")}
     print(
-        f"[3 ntt] bit-exact vs plain version at {NTT_SHAPES} (tolerance {TOLERANCE}); "
-        f"at {list(NTT_SHAPES[0])}: fwd kernel {kf:.4f} ms vs plain {pf:.3f} ms, "
-        f"inv kernel {ki:.4f} ms vs plain {pi:.3f} ms ({smi})"
+        f"[3 ntt] bit-exact vs plain version at {NTT_SHAPES} and at 5 rows of every N from 64 to "
+        f"2048 over 2, 3 and 4 primes (tolerance {TOLERANCE}), through "
+        + "; ".join(ntt["notes"]) + f"; at {list(NTT_SHAPES[0])}: fwd kernel {kf:.4f} ms vs plain "
+        f"{pf:.3f} ms ({bounds_note(bounds['fwd'], 4)}), inv kernel {ki:.4f} ms vs plain {pi:.3f} ms "
+        f"({bounds_note(bounds['inv'], 4)}) ({smi})"
     )
 
     # 4. keygen
@@ -874,7 +982,8 @@ def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[d
     sweep_wide = check_sweep(gen, WIDE_GADGET, wide_scheme, 1, 5, WIDE_GADGET.l_lev, timed=False)
     err_run_time = check_run_time_shapes(gen, device)
     notes = [
-        instance_note(fused_mx3.sweep_kernel(p, kms._ctx(p)), usage, must_not_spill=p is not WIDE_GADGET)
+        instance_note(fused_mx3.sweep_kernel(p, kms._ctx(p)), usage["phase1_sweep"],
+                      must_not_spill=p is not WIDE_GADGET)
         for p in (params, KMS_8PARTY, WIDE_GADGET)
     ]
     print(
@@ -903,6 +1012,7 @@ def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[d
     reset_launches()
     boot = bootstrap_chain(fused_mx3.bootstrap_mx3, ct, c2, m1, m2, params, decrypt, scheme, CHAIN)
     launches = read_launches()
+    shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
     if min(launches[k] for k in ("sweep", "fwd", "inv")) == 0:
         raise SystemExit(f"bootstrap_mx3 did not launch every kernel of its path: {launches}")
     dt = boot["batch_s"]
@@ -918,6 +1028,8 @@ def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[d
         {"sweep kernel": "phase1_sweep_kernel", "NTT kernels": "ntt_nat_kernel"},
     )
     print(profile_line("6b profile", "bootstrap_mx3", prof, smi))
+    by_shape = ntt_by_shape("bootstrap_mx3", *shapes, 1 + CHAIN, time_ntt_shapes(gen, device, set(shapes[0]) | set(shapes[1])))
+    print(by_shape_line("6c ntt by shape", by_shape, prof["parts"]["NTT kernels"], smi))
 
     # 7. the earlier path, once, on the same ciphertext: same bits
     reset_launches()
@@ -960,9 +1072,13 @@ def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[d
 
     rows = [
         kernel_row(name, "ntt.cu", "mktfhe_tpu/kernels/ntt_pallas.py:340", launches[d],
-                   ntt["err"][d], *ntt["times"][d], ntt_bound(NTT_SHAPES[0], d == "fwd"))
+                   ntt["err"][d], *ntt["times"][d], bounds[d])
         for d, name in (("fwd", "ntt_fwd_nat"), ("inv", "ntt_inv_nat"))
     ]
+    for row, d in zip(rows, ("fwd", "inv")):
+        row["timed_at"] = list(NTT_SHAPES[0])
+        row["launches_by_shape"] = [
+            {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape]
     rows += [
         kernel_row(name, "phase1_sweep.cu", "mktfhe_tpu/kernels/fused_mx3.py:226", count,
                    max(res["err"], row1["err"], sweep_wide["err"], err_run_time), res["ms"],
@@ -980,7 +1096,7 @@ def run_kms(gen, device, smi: str, usage: list[str], rate: dict) -> tuple[list[d
     return rows, binary
 
 
-def run_cggi(gen, device, smi: str) -> list[dict]:
+def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> list[dict]:
     """Phases 10-14: the single-key CGGI path and its kernels; returns their
     rows of the kernels line."""
     params = CGGI_PARAM
@@ -1012,14 +1128,19 @@ def run_cggi(gen, device, smi: str) -> list[dict]:
     )
 
     # 12. step kernel vs plain version
-    step = check_step(gen, params, bm, CGGI_BATCH)
+    step = check_step(gen, params, bm, CGGI_BATCH, rate)
+    step["err"] = max(step["err"], check_step_run_time_shapes(gen, device))
+    note = instance_note(fused_step.step_kernel(params, cggi._ctx(params)), usage["cggi_step"], must_not_spill=True)
+    run_time = fused_step.step_kernel(STEP_RUN_TIME, make_ring_ctx(STEP_RUN_TIME.big_n, 32, 3))
     print(
         f"[12 cggi step] bit-exact vs plain version (tolerance {TOLERANCE}) on real keys at G="
-        f"{CGGI_BATCH}: one step, the last {CHECK_STEPS} steps, and all {params.n}; one step: kernel "
+        f"{CGGI_BATCH} through {note}: one step, the last {CHECK_STEPS} steps, and all {params.n}; and "
+        f"through {run_time['name']} at N={STEP_RUN_TIME.big_n}, l_gsw={STEP_RUN_TIME.l_gsw}, "
+        f"log_b_gsw={STEP_RUN_TIME.log_b_gsw}, 3 primes, G=5; one step: kernel "
         f"{step['one_step_ms']:.4f} ms on the device vs plain {step['plain_step_ms']:.3f} ms (bound "
         f"{step['one_step_bound_ms']:.4f} ms); all {params.n} steps: one launch {step['ms']:.2f} ms, "
         f"one launch per step {step['stepwise_ms']:.2f} ms, plain steps {step['plain_ms']:.1f} ms "
-        f"(bound {step['bound_ms']:.2f} ms by {step['bound_by']}) ({smi})"
+        f"({bounds_note(step)}) ({smi})"
     )
 
     # 13. this slice's main path: counts reset just before it, read just after
@@ -1110,11 +1231,11 @@ def main() -> int:
     fused_step.load_library()
     fused_mx2.load_library()
     butterfly_rate.load_library()
-    per_kernel = [_build.resource_usage(lib) for lib in libs]
-    usage = "; ".join(f"{src.name}: {' | '.join(said)}" for src, said in zip(sources, per_kernel))
+    usage = {src.stem: _build.resource_usage(lib) for src, lib in zip(sources, libs)}
+    said = "; ".join(f"{stem}.cu: {' | '.join(kernels)}" for stem, kernels in usage.items())
     print(
         f"[2 build] {', '.join(lib.name for lib in libs)} from csrc/ (sm_90a, one nvcc each, "
-        f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {usage}"
+        f"started together) in {time.time() - t0:.2f} s; ptxas, per kernel: {said}"
     )
 
     # the sweeps' own butterflies on registers alone: the rate behind `butterflies_only_ms`
@@ -1130,9 +1251,9 @@ def main() -> int:
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kernels, binary = run_kms(gen, device, smi, per_kernel[1], rate)
-    kernels += run_cggi(gen, device, smi)
-    kernels += run_mx2(gen, smi, binary, per_kernel[3], rate)
+    kernels, binary = run_kms(gen, device, smi, usage, rate)
+    kernels += run_cggi(gen, device, smi, usage, rate)
+    kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2])
 
     # 19. results
     print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")

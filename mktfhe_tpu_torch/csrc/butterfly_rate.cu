@@ -11,7 +11,7 @@
 // (forward) and [0, 2p) to [0, 2p) (inverse), so the loop stays inside their
 // ranges for any number of rounds.  The residues go out canonical at the end,
 // so that the arithmetic can be held against big integers
-// (tests/test_torch_kernels_host.py) and the compiler keeps the loop.
+// (tests/test_torch_host_rate.py) and the compiler keeps the loop.
 //
 // Launched with the sweeps' CTA shape (512 threads of up to 128 registers);
 // `shared_bytes` of dynamic shared memory, never touched, set how many CTAs

@@ -1,29 +1,28 @@
-// Modular arithmetic, NTT butterflies and stage loops, gadget digits and
-// Garner reconstruction over the 30-bit CRT primes, shared by the CUDA kernels
-// of this package (ntt.cu, cggi_step.cu, phase1_sweep.cu, mx_sweep.cu).
+// Modular arithmetic, NTT butterflies and passes, gadget digits and Garner
+// reconstruction over the 30-bit CRT primes, shared by the CUDA kernels of
+// this package (ntt.cu, cggi_step.cu, phase1_sweep.cu, mx_sweep.cu).
 //
 // Residues are canonical u32 values in [0, p) with p < 2^29.42, so 4p fits
 // 32 bits.  The arithmetic mirrors mktfhe_tpu_torch/ring/modring.py,
 // ring/torus.py and ciphertext/decomp.py bit for bit: the kernels and their
 // plain PyTorch versions compute the same integers.
 //
-// Two generations of the transform live here.
-//  - fwd_ntt_shared / inv_ntt_shared (ntt.cu, cggi_step.cu): one radix-2
-//    butterfly per thread and stage, canonical residues, a whole-CTA barrier
-//    and a round trip through shared memory per stage.  On an H100 that is
-//    what bounds them: 11 barriers and 11 round trips per transform at
-//    N = 2048, twiddles loaded from device memory in every stage.
-//  - fwd_ntt_passes / inv_ntt_passes (phase1_sweep.cu, mx_sweep.cu): the
-//    redesign for this card.  A thread holds 8 coefficients of a polynomial
-//    in registers and runs 3 stages on them between two trips to shared
-//    memory, so N = 2048 takes 4 passes (3 + 3 + 3 + 2 stages) and 4 barriers;
-//    a thread keeps a pass's twiddles in registers over all the polynomials
-//    it serves; butterflies are lazy (Harvey): values stay in [0, 4p)
-//    forward and [0, 2p) inverse and are reduced once at the end, which
-//    leaves the same canonical integers; the polynomial is laid out through
-//    an XOR swizzle (`swz`) under which every pass, and both sweeps'
-//    pointwise walks, meet 32 distinct banks at N = 2048; and the shapes
-//    are template arguments, so every loop over stages is unrolled.
+// The transform (ntt.cu's natural kernel, cggi_step.cu and both sweeps): a
+// thread holds 2^R <= 8 coefficients of a polynomial in registers and runs R
+// stages on them between two trips to shared memory (`radix_pass`); a
+// transform of N = 2^log_n is one pass of 3 stages at the top, the middle
+// passes (`middle_passes`: 3 stages each, the rest of log_n - 5 as one pass
+// of 1 or 2 stages ending at half-width 4) and a pass of the 2 narrowest
+// stages on 4 neighbouring words, one 16-byte access (4 passes and 4
+// barriers at N = 1024 and 2048 where a stage-by-stage transform has 10 and
+// 11).  A thread keeps a pass's twiddles in registers over all the
+// polynomials it serves; butterflies are lazy (Harvey): values stay in
+// [0, 4p) forward and [0, 2p) inverse and are reduced once at the end, which
+// leaves the same canonical integers; the polynomial is laid out through an
+// XOR swizzle (`swz`) under which every pass meets 32 distinct banks at
+// N = 1024 and 2048; and the shapes are template arguments, so every loop
+// over stages is unrolled.  The batch-minor kernel of ntt.cu keeps its own
+// stage-by-stage loop over tiles of gates (`ct_pair`, `gs_pair`).
 
 #pragma once
 
@@ -85,66 +84,6 @@ __device__ __forceinline__ void gs_pair(uint32_t& u, uint32_t& v, uint32_t w, ui
     v = shoup_mul(w, w_sh, sub_mod(u0, v0, p), p);
 }
 
-// Forward negacyclic NTT (natural -> bit-reversed order, as ring/ntt.py:fwd_ntt)
-// of `count` polynomials of n = 2^log_n residues that lie one after the other
-// in shared memory at `a`.  Called by all n/2 threads of the CTA (tid = the
-// thread's butterfly), after a barrier behind the last write to `a`; returns
-// behind a barrier.  The polynomials advance together, so they share each
-// stage's twiddle load and barrier.  w, w_sh: this prime's bit-reversed psi
-// table and its Shoup companion.
-__device__ __forceinline__ void fwd_ntt_shared(uint32_t* a, int count, int tid, int log_n,
-                                               const uint32_t* __restrict__ w,
-                                               const uint32_t* __restrict__ w_sh, uint32_t p) {
-    const int n = 1 << log_n;
-    // stage with half-width t = 2^log_t pairs a[u], a[u + t] in m blocks
-    for (int log_t = log_n - 1, m = 1; log_t >= 0; --log_t, m <<= 1) {
-        const int blk = tid >> log_t;
-        const int iu = butterfly_index(tid, log_t);
-        const int iv = iu + (1 << log_t);
-        const uint32_t tw = w[m + blk];
-        const uint32_t tw_sh = w_sh[m + blk];
-        for (int t = 0; t < count; ++t) ct_pair(a[t * n + iu], a[t * n + iv], tw, tw_sh, p);
-        __syncthreads();
-    }
-}
-
-// Inverse of fwd_ntt_shared (bit-reversed -> natural order) WITHOUT the final
-// scaling by 1/N; w, w_sh: the psi^-1 table.  Same calling rules.
-__device__ __forceinline__ void inv_ntt_shared(uint32_t* a, int count, int tid, int log_n,
-                                               const uint32_t* __restrict__ w,
-                                               const uint32_t* __restrict__ w_sh, uint32_t p) {
-    const int n = 1 << log_n;
-    for (int log_t = 0, h = n / 2; log_t < log_n; ++log_t, h >>= 1) {
-        const int blk = tid >> log_t;
-        const int iu = butterfly_index(tid, log_t);
-        const int iv = iu + (1 << log_t);
-        const uint32_t tw = w[h + blk];
-        const uint32_t tw_sh = w_sh[h + blk];
-        for (int t = 0; t < count; ++t) gs_pair(a[t * n + iu], a[t * n + iv], tw, tw_sh, p);
-        __syncthreads();
-    }
-}
-
-// Balanced gadget digits of the torus value a (T = uint32_t or uint64_t),
-// lifted mod p, digit j written to d[j * stride]: digit j belongs to the
-// gadget entry 2^(bits - (j+1) log_b), lies in [-B/2, B/2), and the top carry
-// wraps away (ciphertext/decomp.py:balanced_decomp).  Where l log_b < bits the
-// value is first rounded to l log_b bits.
-template <typename T>
-__device__ __forceinline__ void balanced_digits(T a, int l, int log_b, uint32_t p, uint32_t* d,
-                                                size_t stride) {
-    const int low = static_cast<int>(8 * sizeof(T)) - l * log_b;
-    const uint32_t mask = (1u << log_b) - 1;
-    const uint32_t half_b = 1u << (log_b - 1);
-    T ai = low > 0 ? static_cast<T>((a >> low) + ((a >> (low - 1)) & 1)) : a;
-    for (int lev = l; lev >= 1; --lev) {
-        const uint32_t dgt = static_cast<uint32_t>(ai) & mask;
-        ai = static_cast<T>((ai >> log_b) + (dgt >> (log_b - 1)));
-        // signed digit dgt - B when its top bit is set; lifted: p + it
-        d[static_cast<size_t>(lev - 1) * stride] = (dgt & half_b) ? p + dgt - 2 * half_b : dgt;
-    }
-}
-
 // ---------------------------------------------------------------------------
 // The register-resident transform of the sweep kernels.
 
@@ -188,10 +127,15 @@ __device__ __forceinline__ uint32_t canonical(uint32_t x, uint32_t p) {
 // Where coefficient t of a polynomial lies inside its n words of shared
 // memory.  XOR-linear (swz(a ^ b) = swz(a) ^ swz(b)), keeps groups of four
 // words together (bits 0-1) and everything above bit 4, so it is a bijection
-// on [0, n) for every n >= 32.  Bits 5-7 and 8-10 go into the bank bits 2-4:
-// a pass whose 32 lanes differ in bits 5-7 (stride-4 elements, stages 4-2 of
-// N = 2048) and the mx walk, whose lanes differ in bits 8-10 and 0-1, then
-// fall on 32 banks like the passes whose lanes differ in bits 0-4.
+// on [0, n) for every n >= 32.  Bits 5-7 and 8-10 go into the bank bits 2-4,
+// so that the 32 lanes of a warp meet 32 banks in every pass:
+//  - N = 2048, passes at s = 8, 5, 2 and the tail: lanes differ in bits 0-4
+//    (s = 8, 5), in bits 0-1 and 5-7 (s = 2: bank bits 2-4 ^= bits 5-7), and
+//    the tail's 16-byte accesses in bits 2-6 (8 lanes at a time: bits 2-4);
+//  - N = 1024, passes at s = 7, 4, 2 (2 stages) and the tail: lanes differ
+//    in bits 0-4, in bits 0-3 and 7 (bank bit 4 ^= bit 7), in bits 0-1 and
+//    4-6 (bank bits 2-3 ^= bits 5-6), and the tail as above;
+//  - the mx walk, whose lanes differ in bits 8-10 and 0-1.
 __device__ __forceinline__ int swz(int t) { return t ^ ((((t >> 5) ^ (t >> 8)) & 7) << 2); }
 
 // The 2^R - 1 twiddles of one task of a pass (see radix_pass): stage k
@@ -298,71 +242,93 @@ __device__ __forceinline__ void radix_pass(uint32_t* a, int count, int log_n, in
     }
 }
 
-// Balanced gadget digits without the carry chain.  With off = sum over the l
-// levels of (B/2) B^k, the unsigned digit k of v = round(a) + off, less B/2,
-// is the balanced digit k of a: both are THE representation of round(a) mod
-// B^l with digits in [-B/2, B/2), so they equal balanced_digits' digits.
+// Balanced gadget digits without the carry chain, of a torus value a of T =
+// uint32_t or uint64_t (ciphertext/decomp.py:balanced_decomp): digit j
+// belongs to the gadget entry 2^(bits - (j+1) log_b), lies in [-B/2, B/2),
+// and the top carry wraps away; where l log_b < bits the value is first
+// rounded to l log_b bits.  With off = sum over the l levels of (B/2) B^k,
+// the unsigned digit k of v = round(a) + off, less B/2, is the balanced digit
+// k of a: both are THE representation of round(a) mod B^l with digits in
+// [-B/2, B/2).  v fits T: below 2^(l log_b + 1) where l log_b < bits, and
+// taken mod 2^bits = B^l where l log_b = bits.
+template <typename T>
 struct DigitShape {
-    int l, log_b, low;  // low = 64 - l log_b bits rounded away
+    int l, log_b, low;  // low = bits - l log_b bits rounded away
     uint32_t mask, half_b;
-    uint64_t off;
+    T off;
 };
 
-__device__ __forceinline__ DigitShape digit_shape(int l, int log_b) {
-    DigitShape g{l, log_b, 64 - l * log_b, (1u << log_b) - 1, 1u << (log_b - 1), 0};
-    for (int k = 0; k < l; ++k) g.off += static_cast<uint64_t>(g.half_b) << (k * log_b);
+template <typename T>
+__device__ __forceinline__ DigitShape<T> digit_shape(int l, int log_b) {
+    DigitShape<T> g{l, log_b, static_cast<int>(8 * sizeof(T)) - l * log_b, (1u << log_b) - 1,
+                    1u << (log_b - 1), 0};
+    for (int k = 0; k < l; ++k) g.off += static_cast<T>(g.half_b) << (k * log_b);
     return g;
 }
 
 // v = round(a) + off, from which every digit of the torus value a comes.
-__device__ __forceinline__ uint64_t digit_source(uint64_t a, const DigitShape& g) {
-    const uint64_t ai = g.low > 0 ? (a >> g.low) + ((a >> (g.low - 1)) & 1) : a;
-    return ai + g.off;
+template <typename T>
+__device__ __forceinline__ T digit_source(T a, const DigitShape<T>& g) {
+    const T ai = g.low > 0 ? static_cast<T>((a >> g.low) + ((a >> (g.low - 1)) & 1)) : a;
+    return static_cast<T>(ai + g.off);
 }
 
-// Digit of level lev0 + 1 (gadget entry 2^(64 - (lev0 + 1) log_b)) out of
+// Digit of level lev0 + 1 (gadget entry 2^(bits - (lev0 + 1) log_b)) out of
 // v = digit_source(a), lifted mod p: canonical.
-__device__ __forceinline__ uint32_t lifted_digit(uint64_t v, int lev0, const DigitShape& g,
-                                                 uint32_t p) {
+template <typename T>
+__device__ __forceinline__ uint32_t lifted_digit(T v, int lev0, const DigitShape<T>& g, uint32_t p) {
     const uint32_t u = static_cast<uint32_t>(v >> ((g.l - 1 - lev0) * g.log_b)) & g.mask;
     return u - g.half_b + (u < g.half_b ? p : 0u);
 }
 
+// The 3 widest stages of the forward transforms of the l digit polynomials
+// lev0, lev0 + split, ... of one accumulator component, for one task: v[j] =
+// digit_source of the component's coefficient t0 | (j << (log_n - 3)); the
+// results go to rows[lev * n] (swizzled).  Every task of this pass uses the
+// same 7 twiddles `tw`.
+template <typename T>
+__device__ __forceinline__ void digit_task(uint32_t* rows, const T (&v)[8], int lev0, int split,
+                                           const DigitShape<T>& g, int log_n, int t0,
+                                           const Twiddles<3>& tw, uint32_t p) {
+    const int n = 1 << log_n;
+    const int s = log_n - 3;
+    const int p0 = swz(t0);
+    for (int lev = lev0; lev < g.l; lev += split) {
+        uint32_t* row = rows + static_cast<size_t>(lev) * n;
+        uint32_t e[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e[j] = lifted_digit(v[j], lev, g, p);
+        butterflies<3, true>(e, tw, p, 2 * p);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) row[p0 ^ swz(j << s)] = e[j];
+    }
+}
+
 // First pass of the forward transform of the 2l digit polynomials of the
-// accumulator acc [2, n] u64 (polynomial c * l + j: digit j of component c)
-// into dig [2l, n] (swizzled): the 3 widest stages, on digits taken from
-// the accumulator on the fly.  A thread reads its 8 accumulator words once
-// and runs its share of the l digit polynomials over them; every task of
-// this pass uses the same 7 twiddles.  Called by all threads behind a barrier
-// after the last read of `dig`; the caller puts a barrier behind it.
-__device__ __forceinline__ void digits_first_pass(uint32_t* dig, const uint64_t* acc,
-                                                  const DigitShape& g, int log_n, int tid,
+// accumulator acc [2, n] (T words; polynomial c * l + j: digit j of
+// component c) into dig [2l, n] (swizzled): the 3 widest stages, on digits
+// taken from the accumulator on the fly.  A thread reads its 8 accumulator
+// words once and runs its share of the l digit polynomials over them.
+// Called by all threads behind a barrier after the last read of `dig`; the
+// caller puts a barrier behind it.
+template <typename T>
+__device__ __forceinline__ void digits_first_pass(uint32_t* dig, const T* acc,
+                                                  const DigitShape<T>& g, int log_n, int tid,
                                                   int nthreads, const uint32_t* __restrict__ w,
                                                   const uint32_t* __restrict__ w_sh, uint32_t p) {
-    constexpr int R = 3;
     const int n = 1 << log_n;
-    const int s = log_n - R;
+    const int s = log_n - 3;
     const int items = 2 << s;  // (component, task)
-    const uint32_t two_p = 2 * p;
-    const Twiddles<R> tw = load_twiddles<R>(1, w, w_sh);
+    const Twiddles<3> tw = load_twiddles<3>(1, w, w_sh);
     // where the threads outnumber the items they share an item's digits
     const int split = nthreads > items ? nthreads / items : 1;
     for (int it = tid; it < items * split; it += nthreads) {
         const int item = it & (items - 1);
         const int c = item >> s, t0 = item & ((1 << s) - 1);
-        const int p0 = swz(t0);
-        uint64_t v[1 << R];
+        T v[8];
 #pragma unroll
-        for (int j = 0; j < (1 << R); ++j) v[j] = digit_source(acc[c * n + (t0 | (j << s))], g);
-        for (int lev0 = it / items; lev0 < g.l; lev0 += split) {
-            uint32_t* row = dig + static_cast<size_t>(c * g.l + lev0) * n;
-            uint32_t e[1 << R];
-#pragma unroll
-            for (int j = 0; j < (1 << R); ++j) e[j] = lifted_digit(v[j], lev0, g, p);
-            butterflies<R, true>(e, tw, p, two_p);
-#pragma unroll
-            for (int j = 0; j < (1 << R); ++j) row[p0 ^ swz(j << s)] = e[j];
-        }
+        for (int j = 0; j < 8; ++j) v[j] = digit_source(acc[c * n + (t0 | (j << s))], g);
+        digit_task(dig + static_cast<size_t>(c) * g.l * n, v, it / items, split, g, log_n, t0, tw, p);
     }
 }
 
@@ -387,65 +353,77 @@ __device__ __forceinline__ void stage_twiddles(uint32_t* tws, const uint32_t* __
     }
 }
 
-// The passes of one transform: 3 stages each from the widest down, and what
-// is left of log_n (2 stages, 1 or none) as the last pass on neighbouring
-// words; the inverse runs the same passes backwards.  kLogN = 0 takes log_n
-// at run time (the generic kernels); otherwise the loops below unroll and
-// every `s` is a constant.  log_n in 6..11.
-constexpr int kMaxPasses = 4;
+// The passes of one transform of N = 2^log_n, log_n in 6..11, from the
+// widest stage down: the top pass (3 stages, half-widths 2^(log_n - 1) ..
+// 2^(log_n - 3)), the middle passes (stages 2^(log_n - 4) .. 4: 3 stages each
+// and the rest, 1 or 2, as one pass ending at half-width 4) and the tail (the
+// 2 narrowest stages, on 4 neighbouring words: one 16-byte access).  At
+// N = 2048: 3 + 3 + 3 + 2 stages, at N = 1024: 3 + 3 + 2 + 2, at N = 512:
+// 3 + 3 + 1 + 2.  The inverse runs the same passes backwards.  kLogN = 0
+// takes log_n at run time (the generic kernels); otherwise the loops below
+// unroll and every `s` is a constant.
+constexpr int kMaxMiddle = 2;  // passes of 3 stages between top and tail
+
+// The middle passes over `count` polynomials at `a` (swizzled), each behind
+// a barrier; forward in [0, 4p) out [0, 4p), inverse in [0, 2p) out [0, 2p).
+// Called by all threads behind a barrier.
+template <int kLogN, bool kFwd>
+__device__ __forceinline__ void middle_passes(uint32_t* a, int count, int log_n_rt, int tid,
+                                              int nthreads, const uint32_t* __restrict__ w,
+                                              const uint32_t* __restrict__ w_sh, uint32_t p) {
+    const int log_n = kLogN ? kLogN : log_n_rt;
+    const int m = log_n - 5;  // stages between the top pass and the tail
+    const int full = m / 3, rest = m % 3;
+    if (!kFwd) {
+        if (rest == 2) radix_pass<2, false>(a, count, log_n, 2, tid, nthreads, w, w_sh, p);
+        if (rest == 1) radix_pass<1, false>(a, count, log_n, 2, tid, nthreads, w, w_sh, p);
+        if (rest != 0) __syncthreads();
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxMiddle; ++k) {
+        if (k < full) {
+            // forward from the widest, inverse from the narrowest
+            const int s = 2 + rest + 3 * (kFwd ? full - 1 - k : k);
+            radix_pass<3, kFwd>(a, count, log_n, s, tid, nthreads, w, w_sh, p);
+            __syncthreads();
+        }
+    }
+    if (kFwd) {
+        if (rest == 2) radix_pass<2, true>(a, count, log_n, 2, tid, nthreads, w, w_sh, p);
+        if (rest == 1) radix_pass<1, true>(a, count, log_n, 2, tid, nthreads, w, w_sh, p);
+        if (rest != 0) __syncthreads();
+    }
+}
 
 // The rest of the forward negacyclic NTT (natural -> bit-reversed order, as
-// ring/ntt.py:fwd_ntt) of `count` polynomials at `a` (swizzled) whose 3 widest
-// stages are done (digits_first_pass): out in [0, 4p), see `canonical`.
-// Called by all threads behind a barrier; returns behind a barrier.
+// ring/ntt.py:fwd_ntt) of `count` polynomials at `a` (swizzled) whose top
+// pass is done (digits_first_pass): the middle passes and the tail, out in
+// [0, 4p), see `canonical`.  Called by all threads behind a barrier; returns
+// behind a barrier.
 template <int kLogN>
 __device__ __forceinline__ void fwd_ntt_passes(uint32_t* a, int count, int log_n_rt, int tid,
                                                int nthreads, const uint32_t* __restrict__ w,
                                                const uint32_t* __restrict__ w_sh, uint32_t p) {
     const int log_n = kLogN ? kLogN : log_n_rt;
-    int s = log_n - 3;
-#pragma unroll
-    for (int pass = 1; pass < kMaxPasses; ++pass) {
-        if (s == 0) break;
-        if (s >= 3) {
-            s -= 3;
-            radix_pass<3, true>(a, count, log_n, s, tid, nthreads, w, w_sh, p);
-        } else if (s == 2) {
-            s = 0;
-            radix_pass<2, true>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        } else {
-            s = 0;
-            radix_pass<1, true>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        }
-        __syncthreads();
-    }
+    middle_passes<kLogN, true>(a, count, log_n, tid, nthreads, w, w_sh, p);
+    radix_pass<2, true>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
+    __syncthreads();
 }
 
-// Inverse of fwd_ntt_passes in place (bit-reversed -> natural order), scaled
-// by 1/N = (ninv, ninv_sh): in [0, 2p), out canonical.  w, w_sh: the psi^-1
-// table.  Same calling rules.
+// Inverse of the whole forward transform in place (bit-reversed -> natural
+// order), scaled by 1/N = (ninv, ninv_sh) in the top pass: in [0, 2p), out
+// canonical.  w, w_sh: the psi^-1 table.  Same calling rules.
 template <int kLogN>
 __device__ __forceinline__ void inv_ntt_passes(uint32_t* a, int count, int log_n_rt, int tid,
                                                int nthreads, const uint32_t* __restrict__ w,
                                                const uint32_t* __restrict__ w_sh, uint32_t p,
                                                uint32_t ninv, uint32_t ninv_sh) {
     const int log_n = kLogN ? kLogN : log_n_rt;
-    const int rem = log_n % 3;
-    if (rem == 2) {
-        radix_pass<2, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        __syncthreads();
-    } else if (rem == 1) {
-        radix_pass<1, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
-        __syncthreads();
-    }
-#pragma unroll
-    for (int pass = 0; pass < kMaxPasses; ++pass) {
-        const int s = rem + 3 * pass;
-        if (s >= log_n) break;
-        radix_pass<3, false>(a, count, log_n, s, tid, nthreads, w, w_sh, p, s + 3 == log_n, ninv,
-                             ninv_sh);
-        __syncthreads();
-    }
+    radix_pass<2, false>(a, count, log_n, 0, tid, nthreads, w, w_sh, p);
+    __syncthreads();
+    middle_passes<kLogN, false>(a, count, log_n, tid, nthreads, w, w_sh, p);
+    radix_pass<3, false>(a, count, log_n, log_n - 3, tid, nthreads, w, w_sh, p, true, ninv, ninv_sh);
+    __syncthreads();
 }
 
 constexpr int kMaxPrimes = 4;

@@ -123,7 +123,7 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
     const int tid = threadIdx.x;
     const int terms = 2 * l;
     const int log_nb = log_n - kLogNk;
-    const DigitShape gadget = digit_shape(l, s.log_b);
+    const DigitShape<uint64_t> gadget = digit_shape<uint64_t>(l, s.log_b);
 
     uint64_t* acc = reinterpret_cast<uint64_t*>(smem);  // [2, n]
     uint32_t* dig = reinterpret_cast<uint32_t*>(acc + 2 * n);  // [2l, n], swizzled rows

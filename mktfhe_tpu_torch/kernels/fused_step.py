@@ -7,8 +7,8 @@ Port of mktfhe_tpu/kernels/fused_step.py (`make_cggi_step_kernel`,
     external product with brk_i -> monomial weight (X^a - 1) ->
     inverse NTT -> Garner reconstruction -> acc += delta
 
-as one CUDA kernel (csrc/cggi_step.cu) with every intermediate in shared
-memory.  The TPU kernel did one step per launch inside a scan; this kernel
+as one CUDA kernel (csrc/cggi_step.cu) with the accumulator in registers and
+every other intermediate in shared memory.  The TPU kernel did one step per launch inside a scan; this kernel
 takes a range of steps [i0, i1) with the loop inside it and the accumulator
 resident, so `bootstrap_fused` does the whole rotation in ONE launch (630
 one-step launches cost the launch overhead and the accumulator's round trip
@@ -78,7 +78,27 @@ def load_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.mktfhe_cggi_step.restype = ctypes.c_int
+    lib.mktfhe_cggi_step_describe.argtypes = [i32, i32, i32, ptr]
+    lib.mktfhe_cggi_step_describe.restype = None
     return lib
+
+
+def step_kernel(params: CggiParams, ctx: RingCtx, lib=None) -> dict:
+    """The kernel of csrc/cggi_step.cu that serves this shape and how it is
+    launched, as the source's own dispatcher (`step_plan`) says: its name with
+    its template arguments as ptxas reports them (log2 N, l_gsw, primes,
+    CTAs per SM; zeros: run-time shapes), threads per CTA, dynamic shared
+    memory and whether the twiddles lie there.  `lib`: the library to ask
+    (default: the built one)."""
+    out = (ctypes.c_int * 7)()
+    (lib or load_library()).mktfhe_cggi_step_describe(ctx.nprimes, params.l_gsw, ctx.n.bit_length() - 1, out)
+    return {
+        "name": "cggi_step_kernel<" + ",".join(str(a) for a in out[:4]) + ">",
+        "run_time_shapes": out[0] == 0,
+        "threads": out[4],
+        "shared_bytes": out[5],
+        "twiddles_in_shared": bool(out[6]),
+    }
 
 
 def _check(acc, tildea, brk_bm, mono_hat, params, ctx, i0, i1) -> None:

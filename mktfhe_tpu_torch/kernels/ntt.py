@@ -27,7 +27,7 @@ from ..ring.ntt import NttPlan, fwd_ntt, inv_ntt, make_plan
 from . import _build
 
 SOURCE = _build.CSRC / "ntt.cu"
-MIN_N, MAX_N = 64, 2048  # N/2 threads per CTA, at most 1024
+MIN_N, MAX_N = 64, 2048  # the natural kernel has an instance for each N between
 MIN_NPR, MAX_NPR = 2, 4
 
 
@@ -46,7 +46,26 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ptr,
     ]
     lib.mktfhe_ntt_bm.restype = ctypes.c_int
+    lib.mktfhe_ntt_nat_describe.argtypes = [ctypes.c_int, ctypes.c_int, ptr]
+    lib.mktfhe_ntt_nat_describe.restype = None
     return lib
+
+
+def nat_kernel(n: int, forward: bool, lib=None) -> dict:
+    """The instance of csrc/ntt.cu's natural kernel that serves N, as the
+    source's dispatcher (`nat_plan`) says: its name as ptxas reports it,
+    threads per CTA, polynomials per tile and dynamic shared memory (two
+    tiles).  `lib`: the library to ask (default: the built one)."""
+    out = (ctypes.c_int * 4)()
+    (lib or load_library()).mktfhe_ntt_nat_describe(n.bit_length() - 1, int(forward), out)
+    if out[0] == 0:
+        raise ValueError(f"no natural NTT kernel for N={n}")
+    return {
+        "name": f"ntt_nat_kernel<{out[0]},{int(forward)}>",
+        "threads": out[1],
+        "polys_per_tile": out[2],
+        "shared_bytes": out[3],
+    }
 
 
 def _u32(x: np.ndarray) -> torch.Tensor:
@@ -99,7 +118,10 @@ def _launch(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
             consts.data_ptr(), polys, npr, n.bit_length() - 1, int(forward), stream,
         )
     _build.check_launch(lib, err, "NTT kernel")
-    (fwd_ntt_nat if forward else inv_ntt_nat).launches += 1
+    wrapper = fwd_ntt_nat if forward else inv_ntt_nat
+    wrapper.launches += 1
+    shape = (polys // npr, npr, n)
+    wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
     return out
 
 
@@ -179,9 +201,12 @@ def inv_ntt_bm(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
 
 def reset_launches() -> None:
     """Every wrapper counts its kernel's launches since the last reset (CPU
-    calls run the twin and do not count)."""
+    calls run the twin and do not count); the natural ones also by shape
+    [rows, npr, N] (`shapes`)."""
     for wrapper in (fwd_ntt_nat, inv_ntt_nat, fwd_ntt_bm, inv_ntt_bm):
         wrapper.launches = 0
+    fwd_ntt_nat.shapes = {}
+    inv_ntt_nat.shapes = {}
 
 
 reset_launches()

@@ -1,0 +1,243 @@
+"""The CUDA kernels' own device code, compiled for the CPU.
+
+There is no CUDA compiler or card where the CPU tests run, so the kernels of
+mktfhe_tpu_torch/csrc/ are otherwise only checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py).  `library(source, workdir)`
+compiles the device code of a source -- everything above its `extern "C"`
+entry points -- with g++ against a small stand-in for the CUDA runtime
+header: one std::thread per CUDA thread, a std::barrier for
+`__syncthreads()`, CTAs one after the other, cp.async as a plain copy.  Its
+C entry points (`ENTRIES`) launch the kernel that the source's own
+dispatcher picks, or another instance where a test asks for one, and the
+source's describe calls are the library's own, word for word.  That
+exercises the kernels' arithmetic, indexing and barrier placement at small
+sizes, bit for bit against the plain PyTorch versions
+(tests/test_torch_host_*.py).  It says nothing about what nvcc accepts or
+about speed.
+
+Usage (from a test):
+  lib = host_kernels.library("cggi_step", tmp_path)  # raises Unavailable without g++ / C++20
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
+from ..kernels import _build
+
+SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+struct Dim3 { int x = 0; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
+template <typename T> inline T __ldg(const T* p) { return *p; }
+inline thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline std::barrier<>* g_barrier = nullptr;
+inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
+inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
+    return (uint64_t)(((unsigned __int128)a * b) >> 64);
+}
+inline uint32_t min(uint32_t a, uint32_t b) { return a < b ? a : b; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline uint32_t __brev(uint32_t v) {
+    uint32_t r = 0;
+    for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
+    return r;
+}
+alignas(16) inline unsigned char g_smem[1 << 20];
+// one CTA after the other, `threads` host threads each
+template <typename F>
+void run_grid(long long ctas, int threads, F body) {
+    for (long long c = 0; c < ctas; ++c) {
+        std::barrier<> bar(threads);
+        g_barrier = &bar;
+        std::vector<std::thread> pool;
+        for (int t = 0; t < threads; ++t) pool.emplace_back([=]() {
+            threadIdx.x = t; blockIdx.x = (int)c; blockDim.x = threads; gridDim.x = (int)ctas;
+            body();
+        });
+        for (auto& th : pool) th.join();
+    }
+}
+"""
+
+# each kernel's dynamic shared memory becomes a pointer to the stand-in's buffer
+DYNAMIC_SHARED = {
+    "extern __shared__ __align__(16) unsigned char smem[];": "unsigned char* smem = g_smem;",
+    "extern __shared__ __align__(16) uint32_t a[];": "uint32_t* a = (uint32_t*)g_smem;",
+}
+
+_P, _I, _LL, _U, _ULL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint, ctypes.c_ulonglong
+
+# source stem -> (C entry points appended to its device code, {function:
+# (argtypes, restype)})
+ENTRIES = {
+    # the kernel that the source's dispatcher picks for the shape, or, with
+    # `run_time_shapes` set, the kernel with run-time shapes whatever the shape
+    "phase1_sweep": (r"""
+extern "C" int host_phase1_sweep(void* acc, const void* tildea, const void* brk, const void* mono,
+        const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
+        const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
+        int ell, int npr, int l, int log_b, int log_n, int run_time_shapes) {
+    const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
+    const SweepPlan plan = sweep_plan(mono != nullptr, shape);
+    const SweepKernel kernel = !run_time_shapes ? plan.kernel
+        : mono != nullptr ? &phase1_sweep_kernel<true, 0, 0, 0, 0> : &phase1_sweep_kernel<false, 0, 0, 0, 1>;
+    if (plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    run_grid(ctas, plan.threads, [=]() {
+        kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
+               (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
+               (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
+    });
+    return 0;
+}
+extern "C" void mktfhe_phase1_sweep_describe(int block, int ell, int npr, int l, int log_n,
+                                             int* out) {
+    describe_plan(block, ell, npr, l, log_n, out);
+}
+""", {"host_phase1_sweep": ([_P] * 9 + [_ULL, _LL] + [_I] * 8, _I),
+      "mktfhe_phase1_sweep_describe": ([_I] * 5 + [_P], None)}),
+    # `pow_shared` < 0: the kernel that the source's dispatcher picks for the
+    # shape; 0 / 1: the kernel with run-time shapes with the power table in
+    # device / shared memory, and the twiddles where the table is
+    "mx_sweep": (r"""
+extern "C" int host_mx_sweep(void* acc, const void* tildea, const void* brk, const void* pow,
+        const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
+        const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
+        int npr, int l, int log_b, int log_n, int pow_shared) {
+    const MxPlan plan = mx_plan(log_n, npr, l);
+    const MxKernel kernel = pow_shared < 0 ? plan.kernel
+        : pow_shared ? &mx_sweep_kernel<true, 0, 0, 0> : &mx_sweep_kernel<false, 0, 0, 0>;
+    const MxShape shape{rows, n_steps, npr, l, log_b, log_n,
+                        pow_shared < 0 ? plan.tw_shared : pow_shared != 0};
+    if (2 * plan.shared_bytes > sizeof(g_smem)) return 2;  // room for a table forced into shared memory
+    run_grid(ctas, plan.threads, [=]() {
+        kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)pow,
+               (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
+               (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod64, shape);
+    });
+    return 0;
+}
+extern "C" void mktfhe_mx_sweep_describe(int npr, int l, int log_n, int* out) {
+    describe_plan(npr, l, log_n, out);
+}
+""", {"host_mx_sweep": ([_P] * 9 + [_ULL, _LL] + [_I] * 7, _I),
+      "mktfhe_mx_sweep_describe": ([_I] * 3 + [_P], None)}),
+    # the natural kernel on a grid of `ctas` CTAs (fewer than the tiles: the
+    # CTAs go round the tiles, both buffers in use), and the batch-minor one
+    "ntt": (r"""
+extern "C" int host_ntt_nat(const void* x, void* y, const void* tw, const void* tw_sh,
+        const void* consts, long long polys, int npr, int log_n, int forward, int ctas) {
+    const NatPlan plan = nat_plan(log_n, forward != 0);
+    if (plan.kernel == nullptr || plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    run_grid(ctas, plan.threads, [=]() {
+        plan.kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
+                    (const uint32_t*)consts, (int)(polys / npr), npr);
+    });
+    return 0;
+}
+extern "C" void mktfhe_ntt_nat_describe(int log_n, int forward, int* out) {
+    describe_nat(log_n, forward, out);
+}
+extern "C" void host_ntt_bm(const void* x, void* y, const void* tw, const void* tw_sh,
+        const void* consts, int npr, int rows, int gates, int log_n, int forward) {
+    auto kernel = forward ? &ntt_bm_kernel<true> : &ntt_bm_kernel<false>;
+    const long long tiles = (gates + kGt - 1) / kGt;
+    run_grid(npr * rows * tiles, (1 << log_n) / 2, [=]() {
+        kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
+               (const uint32_t*)consts, rows, gates, log_n);
+    });
+}
+""", {"host_ntt_nat": ([_P] * 5 + [_LL] + [_I] * 4, _I),
+      "mktfhe_ntt_nat_describe": ([_I, _I, _P], None),
+      "host_ntt_bm": ([_P] * 5 + [_I] * 5, None)}),
+    # the kernel that the source's dispatcher picks, or, with
+    # `run_time_shapes` set, the kernel with run-time shapes
+    "cggi_step": (r"""
+extern "C" int host_cggi_step(void* acc, const void* tildea, const void* brk, const void* mono,
+        const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
+        const void* consts, unsigned int prod_mod32, long long gates, int n_total, int i0, int i1,
+        int npr, int l, int log_b, int log_n, int run_time_shapes) {
+    const StepPlan plan = step_plan(log_n, l, npr);
+    const StepKernel kernel = run_time_shapes ? &cggi_step_kernel<0, 0, 0, 1> : plan.kernel;
+    const int threads = run_time_shapes ? (1 << log_n) / 4 : plan.threads;
+    const StepShape shape{n_total, i0, i1, npr, l, log_b, log_n, plan.tw_shared};
+    if (plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    run_grid(gates, threads, [=]() {
+        kernel((uint32_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
+               (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
+               (const uint32_t*)tw_i_sh, (const uint64_t*)consts, prod_mod32, shape);
+    });
+    return 0;
+}
+extern "C" void mktfhe_cggi_step_describe(int npr, int l, int log_n, int* out) {
+    describe_plan(npr, l, log_n, out);
+}
+""", {"host_cggi_step": ([_P] * 9 + [_U, _LL] + [_I] * 8, _I),
+      "mktfhe_cggi_step_describe": ([_I] * 3 + [_P], None)}),
+    "butterfly_rate": (r"""
+extern "C" void host_butterfly_rate(void* out, const void* tw, const void* tw_sh, unsigned int p,
+        unsigned int seed, int rounds, int forward, int ctas, int threads) {
+    auto kernel = forward ? &butterfly_rate_kernel<true> : &butterfly_rate_kernel<false>;
+    run_grid(ctas, threads, [=]() {
+        kernel((uint32_t*)out, (const uint32_t*)tw, (const uint32_t*)tw_sh, p, seed, rounds);
+    });
+}
+""", {"host_butterfly_rate": ([_P] * 3 + [_U] * 2 + [_I] * 4, None)}),
+}
+
+
+class Unavailable(RuntimeError):
+    """No g++ with C++20 (std::barrier) to compile the device code with."""
+
+
+def library(stem: str, workdir: Path) -> ctypes.CDLL:
+    """The device code of csrc/<stem>.cu plus its entry points of `ENTRIES`,
+    compiled for the host in `workdir`, loaded, its functions declared."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise Unavailable("needs g++ to compile the kernel source for the host")
+    entry, functions = ENTRIES[stem]
+    source = _build.CSRC / f"{stem}.cu"
+    text = source.read_text()
+    device_code = text[: text.index('extern "C"')]
+    for dynamic, pointer in DYNAMIC_SHARED.items():
+        device_code = device_code.replace(dynamic, pointer)
+    if "extern __shared__" in device_code:
+        raise ValueError(f"{source.name} declares dynamic shared memory the stand-in does not know")
+    workdir = Path(workdir)
+    (workdir / "cuda_runtime.h").write_text(SHIM)
+    for header in _build.CSRC.glob("*.cuh"):
+        (workdir / header.name).write_text(header.read_text())
+    cpp = workdir / f"{stem}_host.cpp"
+    cpp.write_text(device_code + entry)
+    lib_path = workdir / f"lib{stem}_host.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-I", str(workdir), "-shared", "-fPIC", "-pthread",
+         "-o", str(lib_path), str(cpp)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0 and "c++20" in proc.stderr:
+        raise Unavailable("needs a g++ with C++20 (std::barrier)")
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {source.name}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in functions.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

@@ -1,21 +1,26 @@
-"""Time the two phase-1 sweep kernels on the card, at the widths of KMS presets.
+"""Time the hand kernels on the card at the widths of the main paths.
 
-For each preset named, one party's sweep at batch 128 with l_lev rows and
-with 1 row, all steps: `phase1_sweep` on the preset's keys (block or binary) and,
-for a binary preset, `mx_sweep` on its mx keys.  Each is first held bit-exact
-against its plain version over a few steps.  Keys are uniform residues: the
-kernels' time does not depend on the key values.
+Sweeps (B2, B5): for each KMS preset named, one party's sweep at batch 128
+with l_lev rows and with 1 row, all steps: `phase1_sweep` on the preset's
+keys (block or binary) and, for a binary preset, `mx_sweep` on its mx keys.
+`--cggi`: the CGGI step kernel (B3) at preset CGGI, 256 gates, all 630 steps
+as one launch and one step.  `--ntt`: the natural NTT kernel (B1), forward
+and inverse, at the shapes `bootstrap_mx3`, `bootstrap_mx2` and
+`cggi.bootstrap` launch (NTT_SHAPES), and the batch-minor one (B4) at the
+CGGI engine's.  Each is first held bit-exact against its plain version.  Keys
+and inputs are uniform residues: the kernels' time does not depend on them.
 
-`--tree DIR` times another checkout of the repository beside this one (its
-package is imported from DIR, its kernels built there), in turns: this tree,
-the other, the other, this tree, each in a process of its own, so that two
-commits can be compared within one call on one card.  Only the wrappers'
-signatures, which are the same in every commit, are used.
+`--tree DIR` (repeatable) times other checkouts of the repository beside this
+one (each package imported from its DIR, its kernels built there), in turns:
+this tree, the others, the others backwards, this tree, each in a process of
+its own, so that commits can be compared within one call on one card.  Only
+the wrappers' signatures, which are the same in every commit, are used.
 
 Usage (one CUDA card):
   python -m mktfhe_tpu_torch.tools.time_sweeps
   python -m mktfhe_tpu_torch.tools.time_sweeps --preset KMS32party --preset KMS16partyblock \
       --tree _probe/parent
+  python -m mktfhe_tpu_torch.tools.time_sweeps --cggi --ntt --tree _probe/parent
 Prints one JSON object per tree and turn, each with the card's name and
 power limit.
 """
@@ -36,6 +41,16 @@ CHECK_STEPS = 2
 BATCH = 128
 REPS = 3
 DEFAULT_PRESETS = ("KMS8partyblock", "KMS8party")
+CGGI_BATCH = 256
+# [rows, npr, N] of the natural NTT: shapes that bootstrap_mx3 (KMS8partyblock)
+# launches at batch 128 (chip_smoke.py phase 6c: the largest, the most
+# frequent, the smallest) and that cggi.bootstrap launches at 256 gates
+NTT_SHAPES = (
+    (8192, 4, 2048), (3072, 4, 2048), (1024, 4, 2048), (768, 4, 2048), (128, 4, 2048),
+    (1536, 2, 1024), (512, 2, 1024),
+)
+# [npr, R, N, G] of the batch-minor NTT: the CGGI engine's digits and outputs
+NTT_BM_SHAPES = ((2, 6, 1024, 256), (2, 2, 1024, 256))
 
 
 def _ms(fn, reps: int) -> float:
@@ -50,6 +65,26 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time in ms of the kernels whose name contains `kernel`
+    over `reps` calls of fn(), from torch.profiler (the NTT kernels are
+    shorter than a launch from Python takes); by CUDA events where the
+    profiler recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in rows)
+    if us == 0:
+        return _ms(fn, reps)
+    return us / sum(e.count for e in rows) / 1e3
+
+
 def _residues(gen, shape, prime_axis: int, npr: int, device) -> torch.Tensor:
     """Uniform residues, the primes along `prime_axis`."""
     from mktfhe_tpu_torch.ring.modring import PRIMES
@@ -61,7 +96,61 @@ def _residues(gen, shape, prime_axis: int, npr: int, device) -> torch.Tensor:
     return torch.remainder(x, p).to(torch.int32)
 
 
-def worker(names) -> dict:
+def time_cggi(device, gen) -> dict:
+    """B3 at preset CGGI: all steps as one launch, one step."""
+    from mktfhe_tpu_torch.kernels import fused_step
+    from mktfhe_tpu_torch.schemes import cggi, kms
+    from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM
+
+    params = CGGI_PARAM
+    ctx = cggi._ctx(params)
+    n, npr, l = ctx.n, ctx.nprimes, params.l_gsw
+    brk = _residues(gen, (params.n, npr, 2 * l, 2, n), 1, npr, device)
+    mono = kms.monomial_table(ctx, device)
+    ta = torch.randint(0, 2 * n, (CGGI_BATCH, params.n), generator=gen, device=device, dtype=torch.int32)
+    acc = torch.randint(-(1 << 31), 1 << 31, (CGGI_BATCH, 2, n), generator=gen, device=device, dtype=torch.int32)
+    want = acc
+    for i in range(CHECK_STEPS):
+        want = fused_step.cggi_step_plain(want, brk[i], ta[:, i], mono, params, ctx)
+    exact = torch.equal(fused_step.cggi_step(acc, ta, brk, mono, params, ctx, 0, CHECK_STEPS), want)
+    return {
+        "exact": exact,
+        "steps_ms": _ms(lambda: fused_step.cggi_step(acc, ta, brk, mono, params, ctx), REPS),
+        "one_step_ms": _device_ms(lambda: fused_step.cggi_step(acc, ta, brk, mono, params, ctx, 0, 1), 20,
+                                  "cggi_step_kernel"),
+    }
+
+
+def time_ntt(device, gen) -> dict:
+    """B1 at NTT_SHAPES and B4 at NTT_BM_SHAPES, forward and inverse."""
+    from mktfhe_tpu_torch.kernels import ntt as kntt
+    from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
+
+    out = {}
+    for shape in NTT_SHAPES:
+        plan = make_plan(shape[2], shape[1])
+        x = _residues(gen, shape, 1, shape[1], device)
+        exact = torch.equal(kntt.fwd_ntt_nat(x, plan), fwd_ntt(x, plan))
+        exact &= torch.equal(kntt.inv_ntt_nat(x, plan), inv_ntt(x, plan))
+        out[f"nat {list(shape)}"] = {
+            "exact": exact,
+            "fwd_ms": _device_ms(lambda: kntt.fwd_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
+            "inv_ms": _device_ms(lambda: kntt.inv_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
+        }
+    for shape in NTT_BM_SHAPES:
+        plan = make_plan(shape[2], shape[0])
+        x = _residues(gen, shape, 0, shape[0], device)
+        exact = torch.equal(kntt.fwd_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, True))
+        exact &= torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
+        out[f"bm {list(shape)}"] = {
+            "exact": exact,
+            "fwd_ms": _device_ms(lambda: kntt.fwd_ntt_bm(x, plan), 50, "ntt_bm_kernel"),
+            "inv_ms": _device_ms(lambda: kntt.inv_ntt_bm(x, plan), 50, "ntt_bm_kernel"),
+        }
+    return out
+
+
+def worker(names, cggi: bool = False, ntt: bool = False) -> dict:
     """Times of the package that this process imports (the first
     `mktfhe_tpu_torch` on its path)."""
     from mktfhe_tpu_torch.kernels import _build, fused_mx2, fused_mx3
@@ -108,8 +197,17 @@ def worker(names) -> dict:
             "row1_ms": _ms(lambda: fused_mx2.mx_sweep(ta, brk_mx, 1, params, ctx_p), REPS),
         }
         del brk_mx
+    if cggi:
+        out["cggi_step"] = time_cggi(device, gen)
+    if ntt:
+        out.update(time_ntt(device, gen))
     if hasattr(_build, "resource_usage"):  # registers and spills of the kernels just run, as ptxas said
-        out["ptxas"] = {src.stem: _build.resource_usage(_build.build(src)) for src in (fused_mx3.SOURCE, fused_mx2.SOURCE)}
+        from mktfhe_tpu_torch.kernels import fused_step, ntt as kntt
+
+        sources = [fused_mx3.SOURCE, fused_mx2.SOURCE] if names else []
+        sources += [fused_step.SOURCE] if cggi else []
+        sources += [kntt.SOURCE] if ntt else []
+        out["ptxas"] = {src.stem: _build.resource_usage(_build.build(src)) for src in sources}
     return out
 
 
@@ -117,26 +215,31 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", action="append", metavar="NAME",
                     help=f"a KMS preset of schemes/presets.py:ALL_PRESETS (default: {', '.join(DEFAULT_PRESETS)})")
-    ap.add_argument("--tree", metavar="DIR", help="another checkout to time beside this one")
+    ap.add_argument("--cggi", action="store_true", help="time the CGGI step kernel")
+    ap.add_argument("--ntt", action="store_true", help="time the NTT kernels")
+    ap.add_argument("--tree", metavar="DIR", action="append", default=[],
+                    help="another checkout to time beside this one (repeatable)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_sweeps: needs a CUDA card", file=sys.stderr)
         return 1
-    names = ns.preset or list(DEFAULT_PRESETS)
+    names = ns.preset or ([] if ns.cggi or ns.ntt else list(DEFAULT_PRESETS))
     if ns.worker:
-        print(json.dumps(worker(names)))
+        print(json.dumps(worker(names, ns.cggi, ns.ntt)))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     here = Path(__file__).resolve().parents[2]
-    trees = [here] if ns.tree is None else [here, Path(ns.tree).resolve()]
+    trees = [here, *(Path(t).resolve() for t in ns.tree)]
     failed = False
     # the worker is this file, whichever tree's package it then imports
-    command = [sys.executable, str(Path(__file__).resolve()), "--worker", *(a for n in names for a in ("--preset", n))]
-    for tree in trees + trees[::-1][: 2 * (len(trees) - 1)]:
+    command = [sys.executable, str(Path(__file__).resolve()), "--worker",
+               *(a for n in names for a in ("--preset", n)), *(["--cggi"] if ns.cggi else []),
+               *(["--ntt"] if ns.ntt else [])]
+    for tree in trees + trees[::-1] if len(trees) > 1 else trees:
         proc = subprocess.run(command, cwd=tree, env={**os.environ, "PYTHONPATH": str(tree)},
                               capture_output=True, text=True)
         if proc.returncode != 0:

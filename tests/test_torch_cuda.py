@@ -8,7 +8,8 @@ ring sizes (nb = 1 to 16), the key's prime counts, row counts, gadgets and
 both homes of its power table; the fused CGGI step kernel
 over ring sizes, prime counts, gadgets (the 32-bit rounding carry live and
 not), step ranges and batch sizes; bit-exact (tolerance 0), plus the
-wrappers' contracts on CUDA tensors.  Skips where there is no
+wrappers' contracts on CUDA tensors and each dispatcher's instance as ptxas
+built it.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -56,6 +57,30 @@ def test_kernel_matches_twin(device, n, npr):
     assert torch.equal(back, inv_ntt(x, plan))
     assert torch.equal(kntt.inv_ntt_nat(hat, plan), x)
     assert (kntt.fwd_ntt_nat.launches, kntt.inv_ntt_nat.launches) == (1, 2)
+
+
+@pytest.mark.parametrize("rows,npr,n", [(3072, 4, 2048), (700, 3, 1024), (3001, 2, 64)])
+def test_kernel_goes_round_the_tiles(device, rows, npr, n):
+    """More tiles than the card holds CTAs at once: each CTA takes tile after
+    tile with the next one arriving in its second buffer (the last tile of a
+    prime ragged at N = 64)."""
+    plan = make_plan(n, npr)
+    x = _residues((rows,), npr, n, device, seed=rows)
+    assert torch.equal(kntt.fwd_ntt_nat(x, plan), fwd_ntt(x, plan))
+    assert torch.equal(kntt.inv_ntt_nat(x, plan), inv_ntt(x, plan))
+
+
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048])
+def test_kernel_is_built_as_described(device, n):
+    """The dispatcher's instance for N, both directions, is a kernel that
+    ptxas built, without spills."""
+    from mktfhe_tpu_torch.kernels import _build
+
+    usage = _build.resource_usage(_build.build(kntt.SOURCE))
+    for forward in (True, False):
+        kernel = kntt.nat_kernel(n, forward)
+        said = [u for u in usage if u.startswith(kernel["name"] + ":")]
+        assert len(said) == 1 and ", 0 spill bytes" in said[0], said
 
 
 def test_wrapper_contract_on_cuda(device):
@@ -412,6 +437,23 @@ def test_step_kernel_matches_plain(device, shape):
         by_step = fused_step.cggi_step(by_step, ta, brk, mono, params, ctx, i, i + 1)
     assert torch.equal(by_step, got)
     assert fused_step.cggi_step.launches == 1 + (i1 - i0)
+
+
+@pytest.mark.parametrize("shape", [(1024, 2, 3, 9), (512, 3, 2, 16)], ids=lambda c: "-".join(map(str, c)))
+def test_step_kernel_is_built_as_described(device, shape):
+    """What the dispatcher says of a shape names a kernel that ptxas built,
+    and its launch fits the card; the instance of preset CGGI does not spill."""
+    from mktfhe_tpu_torch.kernels import _build
+
+    n, npr, l, log_b = shape
+    params, ctx, *_ = _step_inputs(n, npr, l, log_b, 2, 1, device)
+    kernel = fused_step.step_kernel(params, ctx)
+    said = [u for u in _build.resource_usage(_build.build(fused_step.SOURCE)) if u.startswith(kernel["name"] + ":")]
+    assert len(said) == 1
+    assert kernel["run_time_shapes"] == (n == 512)
+    assert kernel["run_time_shapes"] or ", 0 spill bytes" in said[0]
+    assert kernel["threads"] == n // 4
+    assert kernel["shared_bytes"] <= torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def test_step_wrapper_contract_on_cuda(device):

@@ -5,8 +5,8 @@ for the shapes of the main paths and once more with run-time shapes for every
 other shape their wrappers admit.  The choice is made in one place, the
 sources' own dispatchers (`sweep_plan`, `mx_plan`), which the wrappers ask
 through `fused_mx3.sweep_kernel` / `fused_mx2.mx_kernel`; here the dispatchers
-are compiled for the host (tests/test_torch_kernels_host.py has the stand-in
-for the CUDA header) and held against the table that PERF.md prints, for
+are compiled for the host (mktfhe_tpu_torch/tools/host_kernels.py has the
+stand-in for the CUDA header) and held against the table that PERF.md prints, for
 every KMS preset, without a card.  The refusals need no compiler: their
 tensors live on the meta device.
 """
@@ -15,12 +15,12 @@ import dataclasses
 
 import pytest
 import torch
-from test_torch_kernels_host import MX_ENTRY, SWEEP_ENTRY, _host_library
 
 from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.schemes import kms, presets
 from mktfhe_tpu_torch.schemes.params import CggiParams, KmsBlockParams, KmsParams
+from mktfhe_tpu_torch.tools import host_kernels
 
 META = torch.device("meta")
 MAX_SHARED = 232448  # bytes a CTA may ask for on sm_90
@@ -57,14 +57,21 @@ MX_KERNEL = {
 }
 
 
+def _host(tmp_path_factory, stem):
+    try:
+        return host_kernels.library(stem, tmp_path_factory.mktemp(stem))
+    except host_kernels.Unavailable as err:
+        pytest.skip(str(err))
+
+
 @pytest.fixture(scope="module")
 def sweep_lib(tmp_path_factory):
-    return _host_library(fused_mx3.SOURCE, SWEEP_ENTRY, tmp_path_factory.mktemp("sweep_shapes"))
+    return _host(tmp_path_factory, "phase1_sweep")
 
 
 @pytest.fixture(scope="module")
 def mx_lib(tmp_path_factory):
-    return _host_library(fused_mx2.SOURCE, MX_ENTRY, tmp_path_factory.mktemp("mx_shapes"))
+    return _host(tmp_path_factory, "mx_sweep")
 
 
 def test_tables_cover_every_preset():
