@@ -34,8 +34,11 @@ Phases, each printing one line; any failure exits non-zero:
   9. hold the key switch on the card against the same code on the CPU for
      4 gates, bit-exact;
  10. hold the batch-minor NTT kernel against its plain version, bit-exact,
-     forward and inverse, at the shapes of the batch-minor CGGI engine and at
-     a small ragged batch, and time both;
+     forward and inverse, at the shapes of the batch-minor CGGI engine, at
+     a small ragged batch and at the shapes `kms.bootstrap_bm` launches at
+     KMS8party (each through its instance, named with its registers and
+     spills), and time both directions at the CGGI and KMS shapes against
+     their bounds;
  11. CGGI keygen on the card (preset CGGI) and the batch-minor key layout;
  12. hold the fused CGGI step kernel against its plain version on real keys
      at 256 gates, bit-exact, through the instance of preset CGGI (named with
@@ -48,7 +51,9 @@ Phases, each printing one line; any failure exits non-zero:
      step kernel must have been launched; then one more under torch.profiler;
  14. the other two CGGI engines on the same ciphertext, `bootstrap_bm` (the
      batch-minor NTT kernel must have been launched) and `cggi.bootstrap`
-     (the natural NTT kernel): all three outputs equal bit for bit;
+     (the natural NTT kernel): all three outputs equal bit for bit; then one
+     more `bootstrap_bm` under torch.profiler, and the batch-minor NTT's
+     launches by shape with the time at each (14b);
  15. mx-domain keys: `build_mx_kms_keys` on the KMS8party party keys of
      phase 4 (and on the wide-gadget set's);
  16. hold the mx sweep kernel against its plain version on those keys,
@@ -64,7 +69,8 @@ Phases, each printing one line; any failure exits non-zero:
      the natural NTT's launches by shape (17c);
  18. the KMS batch-minor engine on the same ciphertext: `kms.bootstrap_bm`
      (the batch-minor NTT kernel must have been launched), decrypt-checked,
-     bit-identical to `bootstrap_mx2`;
+     bit-identical to `bootstrap_mx2`; then one more under torch.profiler,
+     and the batch-minor NTT's launches by shape (18b);
  19. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
@@ -100,6 +106,7 @@ from mktfhe_tpu_torch.schemes.gates import (
 from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
 from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM, KMS_8PARTY, KMS_8PARTY_BLOCK, KMS_32PARTY
 from mktfhe_tpu_torch.tools import butterfly_rate
+from mktfhe_tpu_torch.tools.time_sweeps import device_ms
 
 BATCH = 128
 CHAIN = 2
@@ -121,6 +128,8 @@ NTT_BM_SHAPES = [
     (2, 6, 1024, 256), (2, 2, 1024, 256), (2, 3, 64, 5),
     (3, 24, 2048, 128), (3, 6, 2048, 128), (3, 8, 2048, 128), (3, 2, 2048, 128),
 ]
+# the shapes that bootstrap_bm and kms.bootstrap_bm launch: timed both ways
+NTT_BM_TIMED = [shape for shape in NTT_BM_SHAPES if shape[3] >= 128]
 # a small parameter set with the wide gadget of KMS2party (log_b_gsw = 12)
 WIDE_GADGET = KmsParams(
     n=CHECK_STEPS, alpha=16.0, f=8, log_d=2, big_n=256, beta=4.0,
@@ -152,17 +161,16 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 # 32-bit integer operations of the arithmetic as csrc/modarith.cuh writes it
 # (a multiply and an add count one each; a 64-bit add counts two).  The
-# stage-by-stage transforms (ntt.cu, cggi_step.cu) run canonical butterflies
-# and a carry-chain decomposition (the count of every kernel before its
-# redesign; the batch-minor NTT kernel still runs it):
+# stage-by-stage transforms that every kernel ran before its redesign ran
+# canonical butterflies and a carry-chain decomposition (the count kept
+# beside each bound):
 OPS_SHOUP_MUL = 6  # mulhi, two mullo, subtract, compare, subtract
 OPS_BUTTERFLY = OPS_SHOUP_MUL + 3 + 4  # + add_mod + sub_mod
 OPS_PRODUCT_TERM = 4  # 32x32 -> 64 multiply (lo, hi) and a 64-bit add
 OPS_BARRETT = 12  # 64x64 high product as eight 32-bit mul/adds, then as Shoup's tail
 OPS_DIGIT = 5  # mask, shift, carry add, sign test, lift
-# the redesigned kernels (both sweeps, the CGGI step, the natural NTT) run
-# lazy butterflies and take each digit from the accumulator word plus an
-# offset:
+# the redesigned kernels (all five) run lazy butterflies and take each digit
+# from the accumulator word plus an offset:
 OPS_CT_LAZY = 10  # csub (subtract, min), mulhi, two multiply-adds, 2 u0 + 2p, subtract
 OPS_GS_LAZY = 9  # subtract, add, add, csub (subtract, min), mulhi, multiply, multiply-subtract
 OPS_CANONICAL = 4  # two csub: [0, 4p) -> [0, p), once per transformed digit
@@ -191,25 +199,6 @@ def _device_us(event) -> float:
     """A profiler row's own device time in microseconds (the attribute's name
     differs between PyTorch versions)."""
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
-
-
-def _kernel_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time in ms of the kernel whose name contains `kernel`, over
-    `reps` calls of fn(), from torch.profiler.  For a kernel so short that the
-    host cannot enqueue launches as fast as the card runs them, where CUDA
-    events around the calls would time the host.  Falls back to the events
-    if the profiler shows no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key and _device_us(e) > 0]
-    count = sum(e.count for e in rows)
-    if count == 0:
-        return _sync_ms(fn, reps)
-    return sum(_device_us(e) for e in rows) / count / 1e3
 
 
 def _max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -270,21 +259,17 @@ def check_run_time_shapes(gen, device) -> int:
     return err
 
 
-def ntt_bound(shape, forward: bool, rate: dict | None = None) -> dict:
+def ntt_bound(shape, forward: bool, rate: dict) -> dict:
     """Least time of one transform of [rows, npr, N] u32 on the card: every
     residue read and written once plus the twiddles, against N/2 log2 N
-    butterflies per polynomial (and N scalings by 1/N in the inverse).  With
-    `rate` (the natural kernel): counted in the lazy arithmetic it runs, one
-    canonical reduction a forward output, with the canonical radix-2 count and
-    the butterflies alone at the register rate of full occupancy beside it;
-    without (the batch-minor kernel): in the canonical radix-2 arithmetic it
-    runs."""
+    butterflies per polynomial (and N scalings by 1/N in the inverse),
+    counted in the lazy arithmetic the kernels run, one canonical reduction a
+    forward output; beside it the canonical radix-2 count and the butterflies
+    alone at the register rate of full occupancy (`rate`)."""
     rows, npr, n = shape
     nbytes = 2 * rows * npr * n * 4 + 2 * npr * n * 4
     butterflies = rows * npr * n // 2 * (n.bit_length() - 1)
     canonical = _bound(nbytes, butterflies * OPS_BUTTERFLY + (0 if forward else rows * npr * n * OPS_SHOUP_MUL))
-    if rate is None:
-        return canonical
     lazy = butterflies * (OPS_CT_LAZY if forward else OPS_GS_LAZY) + rows * npr * n * (
         OPS_CANONICAL if forward else OPS_SHOUP_MUL)
     return {
@@ -353,15 +338,32 @@ def time_ntt_shapes(gen, device, shapes) -> dict:
             kntt.fwd_ntt_nat(x, plan)
             kntt.inv_ntt_nat(x, plan)
         out[shape] = (
-            _kernel_ms(lambda: kntt.fwd_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
-            _kernel_ms(lambda: kntt.inv_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
+            device_ms(lambda: kntt.fwd_ntt_nat(x, plan), 20, kntt.nat_kernel(shape[2], True)["name"]),
+            device_ms(lambda: kntt.inv_ntt_nat(x, plan), 20, kntt.nat_kernel(shape[2], False)["name"]),
+        )
+    return out
+
+
+def time_bm_shapes(gen, device, shapes) -> dict:
+    """Device time in ms of the batch-minor kernel, forward and inverse, at
+    each [npr, R, N, G] of `shapes`, each through the instance that serves
+    it (torch.profiler)."""
+    out = {}
+    for shape in shapes:
+        npr, rows, n, gates = shape
+        plan = make_plan(n, npr)
+        x = _bm_residues(gen, shape, device)
+        out[shape] = tuple(
+            device_ms(lambda: wrapper(x, plan), 50, kntt.bm_kernel(n, npr, rows, gates, forward)["name"])
+            for wrapper, forward in ((kntt.fwd_ntt_bm, True), (kntt.inv_ntt_bm, False))
         )
     return out
 
 
 def ntt_by_shape(path: str, fwd: dict, inv: dict, bootstraps: int, times: dict) -> list[dict]:
-    """The natural kernel's launches on a path by shape, per bootstrap, with
-    the time at each (`times`: time_ntt_shapes)."""
+    """An NTT kernel's launches on a path by shape (the wrappers' `shapes`),
+    per bootstrap, with the time at each (`times`: time_ntt_shapes or
+    time_bm_shapes)."""
     rows = []
     for shape in sorted(set(fwd) | set(inv), reverse=True):
         f, i = fwd.get(shape, 0) / bootstraps, inv.get(shape, 0) / bootstraps
@@ -371,11 +373,12 @@ def ntt_by_shape(path: str, fwd: dict, inv: dict, bootstraps: int, times: dict) 
     return rows
 
 
-def by_shape_line(tag: str, rows: list[dict], profiled_ms: float, smi: str) -> str:
-    parts = "; ".join(f"{r['shape']} fwd {r['fwd']:g} x {r['fwd_ms']:.4f} ms, inv {r['inv']:g} x "
-                      f"{r['inv_ms']:.4f} ms" for r in rows)
+def by_shape_line(tag: str, rows: list[dict], profiled_ms: float, smi: str,
+                  kernel: str = "natural NTT kernel", axes: str = "[rows, npr, N]") -> str:
+    parts = "; ".join(f"{r['shape']} " + ", ".join(
+        f"{d} {r[d]:g} x {r[d + '_ms']:.4f} ms" for d in ("fwd", "inv") if r[d]) for r in rows)
     total = sum(r["ms_per_bootstrap"] for r in rows)
-    return (f"[{tag}] natural NTT kernel per {rows[0]['path']}, by shape [rows, npr, N]: {parts}; "
+    return (f"[{tag}] {kernel} per {rows[0]['path']}, by shape {axes}: {parts}; "
             f"launches x time = {total:.3f} ms against {profiled_ms:.3f} ms in the profile ({smi})")
 
 
@@ -601,18 +604,25 @@ def check_keyswitch(gen, params, scheme, gates: int = 4) -> None:
         raise SystemExit("key switch on the card differs from the CPU")
 
 
-def check_ntt_bm(gen, device) -> dict:
-    """Batch-minor kernel vs plain version on the card at NTT_BM_SHAPES; the
-    forward timed at the first shape, the inverse at the second: the kernel's
-    device time, the plain version, and the wrapper's call as the host
-    enqueues it (the kernel is shorter than a launch from Python)."""
+def _bm_residues(gen, shape, device) -> torch.Tensor:
+    """Uniform residues < p_i, int32 [npr, R, N, G]."""
+    npr = shape[0]
+    x = torch.randint(0, 1 << 31, shape, generator=gen, device=device)
+    return torch.remainder(x, prime_column(npr, device)[:, :, None, None]).to(torch.int32)
+
+
+def check_ntt_bm(gen, device, usage: list[str], rate: dict) -> dict:
+    """Batch-minor kernel vs plain version on the card at NTT_BM_SHAPES, each
+    shape through the instances that serve it (named with what ptxas said of
+    them; none may spill); both directions timed on the device at
+    NTT_BM_TIMED with their bounds, the plain version and the wrapper's call
+    as the host enqueues it at the CGGI pair."""
     err = {"fwd": 0, "inv": 0}
-    times = {}
+    notes = {}
     for shape in NTT_BM_SHAPES:
-        npr, _, n, _ = shape
+        npr, rows, n, gates = shape
         plan = make_plan(n, npr)
-        x = torch.randint(0, 1 << 31, shape, generator=gen, device=device)
-        x = torch.remainder(x, prime_column(npr, device)[:, :, None, None]).to(torch.int32)
+        x = _bm_residues(gen, shape, device)
         fk = kntt.fwd_ntt_bm(x, plan)
         ik = kntt.inv_ntt_bm(fk, plan)
         torch.cuda.synchronize()
@@ -620,30 +630,45 @@ def check_ntt_bm(gen, device) -> dict:
         err["inv"] = max(err["inv"], _max_abs_diff(ik, kntt.ntt_bm_plain(fk, plan, False)))
         if not torch.equal(ik, x):
             raise SystemExit(f"batch-minor NTT round trip failed at {shape}")
-        for d, timed_at, forward, wrapper, kernel in (
-            ("fwd", NTT_BM_SHAPES[0], True, kntt.fwd_ntt_bm, "ntt_bm_kernel<true>"),
-            ("inv", NTT_BM_SHAPES[1], False, kntt.inv_ntt_bm, "ntt_bm_kernel<false>"),
-        ):
-            if shape == timed_at:
-                for _ in range(3):  # warm-up
-                    wrapper(x, plan)
-                    kntt.ntt_bm_plain(x, plan, forward)
-                times[d] = (
-                    _kernel_ms(lambda: wrapper(x, plan), 50, kernel),
-                    _sync_ms(lambda: kntt.ntt_bm_plain(x, plan, forward), 5),
-                    _sync_ms(lambda: wrapper(x, plan), 50),
-                )
+        for forward in (True, False):
+            kernel = kntt.bm_kernel(n, npr, rows, gates, forward)
+            notes.setdefault(kernel["name"], instance_note(kernel, usage, must_not_spill=True))
     for d in ("fwd", "inv"):
         if err[d] > TOLERANCE:
             raise SystemExit(f"batch-minor NTT {d} kernel disagrees with its plain version: max |diff| {err[d]}")
-    return {"err": err, "times": times}
+    times = time_bm_shapes(gen, device, NTT_BM_TIMED)
+    rows = {shape: {
+        d: {"ms": times[shape][k], **ntt_bm_bound(shape, d == "fwd", rate)} for k, d in enumerate(("fwd", "inv"))
+    } for shape in NTT_BM_TIMED}
+    plain, enqueued = {}, {}
+    for d, shape, wrapper, forward in (("fwd", NTT_BM_SHAPES[0], kntt.fwd_ntt_bm, True),
+                                       ("inv", NTT_BM_SHAPES[1], kntt.inv_ntt_bm, False)):
+        plan = make_plan(shape[2], shape[0])
+        x = _bm_residues(gen, shape, device)
+        kntt.ntt_bm_plain(x, plan, forward)  # warm-up
+        plain[d] = _sync_ms(lambda: kntt.ntt_bm_plain(x, plan, forward), 5)
+        enqueued[d] = _sync_ms(lambda: wrapper(x, plan), 50)
+    return {"err": err, "times": times, "rows": rows, "plain": plain, "enqueued": enqueued,
+            "notes": list(notes.values())}
 
 
-def ntt_bm_bound(shape, forward: bool) -> dict:
+def ntt_bm_bound(shape, forward: bool, rate: dict) -> dict:
     """As ntt_bound: a batch-minor tensor [npr, R, N, G] holds R * G
     polynomials per prime."""
     npr, r, n, g = shape
-    return ntt_bound((r * g, npr, n), forward)
+    return ntt_bound((r * g, npr, n), forward, rate)
+
+
+def bm_times_line(res: dict) -> str:
+    """Phase 10's times: each shape and direction, device ms against its
+    bounds and the share of the bound reached."""
+    out = []
+    for shape, by_d in res["rows"].items():
+        for d, r in by_d.items():
+            out.append(f"{d} {list(shape)} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                       f"{r['bound_ms'] / r['ms']:.0%} reached; canonical count "
+                       f"{r['bound_ms_canonical_radix2']:.4f}, butterflies alone {r['butterflies_only_ms']:.4f})")
+    return "; ".join(out)
 
 
 def step_bound(params, ctx, g: int, steps: int, tildea: torch.Tensor, rate: dict) -> dict:
@@ -726,7 +751,8 @@ def check_step(gen, params, bm, g: int, rate: dict) -> dict:
         "err": err,
         "ms": _sync_ms(lambda: fused_step.cggi_step(acc, tildea, *keys), 5),
         "stepwise_ms": _sync_ms(lambda: one_by_one(acc), 2),
-        "one_step_ms": _kernel_ms(lambda: fused_step.cggi_step(acc, tildea, *keys, 0, 1), 20, "cggi_step_kernel"),
+        "one_step_ms": device_ms(lambda: fused_step.cggi_step(acc, tildea, *keys, 0, 1), 20,
+                                 fused_step.step_kernel(params, ctx)["name"]),
         "plain_ms": _sync_ms(lambda: plain(acc, 0, params.n), 1),
         "plain_step_ms": _sync_ms(lambda: plain(acc, 0, 1), 5),
         "one_step_bound_ms": step_bound(params, ctx, g, 1, tildea, rate)["bound_ms"],
@@ -784,11 +810,13 @@ def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple
     return err, (tildea, brk_mx_p, rows, params, ctx_p)
 
 
-def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_rows: list[dict]) -> list[dict]:
+def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_rows: list[dict],
+            bm_rows: list[dict], bm_times: dict) -> list[dict]:
     """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
     KMS batch-minor engine; returns the mx sweep's row of the kernels line
     and adds the natural NTT's launches on `bootstrap_mx2` by shape to its
-    rows (`ntt_rows`)."""
+    rows (`ntt_rows`), the batch-minor NTT's on `kms.bootstrap_bm` to its
+    (`bm_rows`, with phase 10's times `bm_times`)."""
     params = KMS_8PARTY
     lwe_keys, party_keys = binary["lwe_keys"], binary["party_keys"]
     # 15. mx-domain keys
@@ -902,6 +930,7 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     out = checked_bootstrap(bootstrap_bm, ct, ~(m1 & m2), lean, params, decrypt, "kms.bootstrap_bm")
     bm_s = time.time() - t0
     bm_launches = read_launches()
+    bm_shapes = (dict(kntt.fwd_ntt_bm.shapes), dict(kntt.inv_ntt_bm.shapes))
     if bm_launches["fwd_bm"] == 0 or bm_launches["inv_bm"] == 0:
         raise SystemExit(f"kms.bootstrap_bm did not launch the batch-minor NTT kernels: {bm_launches}")
     if not (torch.equal(out.b, boot["first"].b) and torch.equal(out.a, boot["first"].a)):
@@ -913,6 +942,7 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
         f"bits, no warm-up); batch-minor NTT launches fwd {bm_launches['fwd_bm']} inv "
         f"{bm_launches['inv_bm']}, natural NTT fwd {bm_launches['fwd']} inv {bm_launches['inv']} ({smi})"
     )
+    profile_bm(gen, device, "18b", "kms.bootstrap_bm", bootstrap_bm, ct, lean, params, bm_shapes, bm_times, bm_rows, smi)
 
     return [kernel_row(
         "mx_sweep_binary", "mx_sweep.cu", "mktfhe_tpu/kernels/fused_mx2.py:217", launches["mx"],
@@ -1096,22 +1126,37 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict],
     return rows, binary
 
 
-def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> list[dict]:
+def profile_bm(gen, device, tag: str, what: str, bootstrap, ct, keys, params, shapes: tuple, times: dict,
+               bm_rows: list[dict], smi: str) -> None:
+    """One warm `bootstrap` (named `what`) under torch.profiler: the batch-minor NTT
+    kernel's device time and the idle share; its launches by shape (`shapes`:
+    the wrappers' counts over one bootstrap) with the time at each (`times`,
+    timed here where a shape is missing), added to the kernel's rows of the
+    kernels line."""
+    prof = profile_bootstrap(bootstrap, ct, keys, params, {"batch-minor NTT kernel": "ntt_bm_kernel"})
+    print(profile_line(f"{tag} profile", what, prof, smi))
+    times.update(time_bm_shapes(gen, device, (set(shapes[0]) | set(shapes[1])) - set(times)))
+    by_shape = ntt_by_shape(what, *shapes, 1, times)
+    print(by_shape_line(f"{tag} ntt batch-minor by shape", by_shape, prof["parts"]["batch-minor NTT kernel"],
+                        smi, "batch-minor NTT kernel", "[npr, R, N, G]"))
+    for row, d in zip(bm_rows, ("fwd", "inv")):
+        row["launches_by_shape"] += [
+            {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
+
+
+def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict], dict]:
     """Phases 10-14: the single-key CGGI path and its kernels; returns their
-    rows of the kernels line."""
+    rows of the kernels line and the batch-minor NTT's times by shape."""
     params = CGGI_PARAM
 
     # 10. batch-minor NTT kernel vs plain version
-    ntt = check_ntt_bm(gen, device)
-    (kf, pf, cf), (ki, pi, ci) = ntt["times"]["fwd"], ntt["times"]["inv"]
-    bounds = {"fwd": ntt_bm_bound(NTT_BM_SHAPES[0], True), "inv": ntt_bm_bound(NTT_BM_SHAPES[1], False)}
+    ntt = check_ntt_bm(gen, device, usage["ntt"], rate)
     print(
         f"[10 ntt batch-minor] bit-exact vs plain version at {NTT_BM_SHAPES} [npr, R, N, G] "
-        f"(tolerance {TOLERANCE}); fwd at {list(NTT_BM_SHAPES[0])}: kernel {kf:.4f} ms on the device "
-        f"({cf:.4f} ms per call as the host enqueues them) vs plain {pf:.3f} ms (bound "
-        f"{bounds['fwd']['bound_ms']:.4f} ms by {bounds['fwd']['bound_by']}); inv at "
-        f"{list(NTT_BM_SHAPES[1])}: kernel {ki:.4f} ms ({ci:.4f} ms per call) vs plain {pi:.3f} ms "
-        f"(bound {bounds['inv']['bound_ms']:.4f} ms by {bounds['inv']['bound_by']}) ({smi})"
+        f"(tolerance {TOLERANCE}), through " + "; ".join(ntt["notes"]) + "; on the device: "
+        + bm_times_line(ntt) + f"; plain version fwd {ntt['plain']['fwd']:.3f} ms at "
+        f"{list(NTT_BM_SHAPES[0])}, inv {ntt['plain']['inv']:.3f} ms at {list(NTT_BM_SHAPES[1])}; per "
+        f"call as the host enqueues them {ntt['enqueued']['fwd']:.4f} / {ntt['enqueued']['inv']:.4f} ms ({smi})"
     )
 
     # 11. keygen
@@ -1165,7 +1210,7 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> list[dict]:
 
     # 14. the other two engines on the same ciphertext: same bits
     want = ~(m1 & m2)
-    seconds, counts = {}, {}
+    seconds, counts, shapes = {}, {}, {}
     for name, bootstrap, keys in (
         ("bootstrap_bm", batchminor.bootstrap_bm, bm),
         ("cggi.bootstrap", cggi.bootstrap, scheme),
@@ -1177,6 +1222,7 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> list[dict]:
         out = checked_bootstrap(bootstrap, ct, want, keys, params, decrypt, name)
         seconds[name] = time.time() - t0
         counts[name] = read_launches()
+        shapes[name] = (dict(kntt.fwd_ntt_bm.shapes), dict(kntt.inv_ntt_bm.shapes))
         if not (torch.equal(out.b, boot["first"].b) and torch.equal(out.a, boot["first"].a)):
             raise SystemExit(f"{name} and bootstrap_fused differ on the same ciphertext")
     bm_launches, ref_launches = counts["bootstrap_bm"], counts["cggi.bootstrap"]
@@ -1192,17 +1238,21 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> list[dict]:
         f"launches fwd {ref_launches['fwd']} inv {ref_launches['inv']}); one warm bootstrap each, host "
         f"clock to the decrypted bits ({smi})"
     )
-
     rows = [
         kernel_row(name, "ntt.cu", "mktfhe_tpu/kernels/ntt_pallas.py:240", bm_launches[f"{d}_bm"],
-                   ntt["err"][d], *ntt["times"][d][:2], bounds[d])
-        for d, name in (("fwd", "ntt_fwd_bm"), ("inv", "ntt_inv_bm"))
+                   ntt["err"][d], ntt["rows"][shape][d]["ms"], ntt["plain"][d], ntt["rows"][shape][d])
+        for d, name, shape in (("fwd", "ntt_fwd_bm", NTT_BM_SHAPES[0]), ("inv", "ntt_inv_bm", NTT_BM_SHAPES[1]))
     ]
+    for row, shape in zip(rows, NTT_BM_SHAPES):
+        row["timed_at"] = list(shape)
+        row["launches_by_shape"] = []
+    profile_bm(gen, device, "14b", "bootstrap_bm", batchminor.bootstrap_bm, ct, bm, params, shapes["bootstrap_bm"],
+               ntt["times"], rows, smi)
     rows.append(kernel_row(
         "cggi_step", "cggi_step.cu", "mktfhe_tpu/kernels/fused_step.py:86", launches["step"],
         step["err"], step["ms"], step["plain_ms"], step,
     ))
-    return rows
+    return rows, ntt["times"]
 
 
 def main() -> int:
@@ -1252,8 +1302,9 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     kernels, binary = run_kms(gen, device, smi, usage, rate)
-    kernels += run_cggi(gen, device, smi, usage, rate)
-    kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2])
+    cggi_rows, bm_times = run_cggi(gen, device, smi, usage, rate)
+    kernels += cggi_rows
+    kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2], cggi_rows[:2], bm_times)
 
     # 19. results
     print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")

@@ -21,8 +21,9 @@
 // leaves the same canonical integers; the polynomial is laid out through an
 // XOR swizzle (`swz`) under which every pass meets 32 distinct banks at
 // N = 1024 and 2048; and the shapes are template arguments, so every loop
-// over stages is unrolled.  The batch-minor kernel of ntt.cu keeps its own
-// stage-by-stage loop over tiles of gates (`ct_pair`, `gs_pair`).
+// over stages is unrolled.  The batch-minor kernel of ntt.cu runs the same
+// plan and `butterflies` on 16-byte quads of 4 gates (its own pass,
+// `tile_pass`, for the gate-minor tile and its swizzle `bm_swz`).
 
 #pragma once
 
@@ -39,11 +40,6 @@ __device__ __forceinline__ uint32_t shoup_mul(uint32_t w, uint32_t w_sh, uint32_
     return r >= p ? r - p : r;
 }
 
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b, uint32_t p) {
-    const uint32_t s = a + b;
-    return s >= p ? s - p : s;
-}
-
 __device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t p) {
     const uint32_t d = a + (p - b);
     return d >= p ? d - p : d;
@@ -58,34 +54,8 @@ __device__ __forceinline__ uint32_t barrett_reduce(uint64_t x, uint64_t mu, uint
     return r >= p ? r - p : r;
 }
 
-// Index of the upper element of butterfly j in [0, n/2) at half-width 2^log_t;
-// its partner is 2^log_t further on.
-__device__ __forceinline__ int butterfly_index(int j, int log_t) {
-    return ((j >> log_t) << (log_t + 1)) + (j & ((1 << log_t) - 1));
-}
-
-// Cooley-Tukey butterfly of the forward transform: (u, v) -> (u + w v, u - w v).
-// u and v are read once into registers before either is written: they are
-// references into shared memory, which the compiler must take to alias.
-__device__ __forceinline__ void ct_pair(uint32_t& u, uint32_t& v, uint32_t w, uint32_t w_sh,
-                                        uint32_t p) {
-    const uint32_t u0 = u;
-    const uint32_t t = shoup_mul(w, w_sh, v, p);
-    u = add_mod(u0, t, p);
-    v = sub_mod(u0, t, p);
-}
-
-// Gentleman-Sande butterfly of the inverse transform: (u, v) -> (u + v, w (u - v)).
-__device__ __forceinline__ void gs_pair(uint32_t& u, uint32_t& v, uint32_t w, uint32_t w_sh,
-                                        uint32_t p) {
-    const uint32_t u0 = u;
-    const uint32_t v0 = v;
-    u = add_mod(u0, v0, p);
-    v = shoup_mul(w, w_sh, sub_mod(u0, v0, p), p);
-}
-
 // ---------------------------------------------------------------------------
-// The register-resident transform of the sweep kernels.
+// The register-resident transform of every kernel.
 
 // x in [0, 2m) -> x mod m (unsigned wrap makes x - m huge when x < m).
 __device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t m) { return min(x, x - m); }

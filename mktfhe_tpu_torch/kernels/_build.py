@@ -81,20 +81,20 @@ def _kernel_name(mangled: str) -> str:
 
 def resource_usage(lib: Path) -> list[str]:
     """What ptxas reported when `lib` was built, one entry per kernel: its
-    name with its template arguments, registers, spill bytes (stores + loads)
-    and static shared memory."""
-    out, spill, name = [], 0, "?"
+    name with its template arguments, registers, spill bytes (stores + loads),
+    stack frame (local memory, spills included) and static shared memory."""
+    out, spill, stack, name = [], 0, 0, "?"
     for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
-        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        spills = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         used = re.search(r"Used (\d+) registers", line)
         if entry:
             name = _kernel_name(entry.group(1))
         if spills:  # comes on the line before the kernel's "Used ... registers"
-            spill = int(spills.group(1)) + int(spills.group(2))
+            stack, spill = int(spills.group(1)), int(spills.group(2)) + int(spills.group(3))
         if used:
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"{name}: {used.group(1)} registers, {spill} spill bytes, "
+            out.append(f"{name}: {used.group(1)} registers, {spill} spill bytes, {stack} bytes stack frame, "
                        f"{smem.group(1) if smem else 0} bytes static smem")
     return out
 

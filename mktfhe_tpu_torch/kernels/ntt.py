@@ -10,6 +10,16 @@ its kernel on the current stream or raises; on a CPU tensor it runs the
 plain twin (ring/ntt.py; for batch-minor data over the permuted axes),
 bit-identical.
 
+Both kernels go round tiles with a persistent grid and a cp.async double
+buffer and run the register-resident passes of csrc/modarith.cuh, with an
+instance for each N from 64 to 2048: the natural one on tiles of 2048 words,
+the batch-minor one on tiles of 4 or 8 consecutive gates of one (prime,
+row), whichever the source's dispatcher picks for the shape, in clusters of
+CTAs that together hold 32 gates and store whole 128-byte lines.  Which
+instance serves a shape is decided in the source (`nat_plan`, `bm_plan`);
+`nat_kernel` / `bm_kernel` ask it.  Every wrapper counts its launches, in
+all and by shape (`launches`, `shapes`; `reset_launches`).
+
 The kernels are compiled with nvcc at first use into mktfhe_tpu_torch/_build/
 (kernels/_build.py: a shared library with a plain C interface, loaded with
 ctypes).
@@ -27,7 +37,7 @@ from ..ring.ntt import NttPlan, fwd_ntt, inv_ntt, make_plan
 from . import _build
 
 SOURCE = _build.CSRC / "ntt.cu"
-MIN_N, MAX_N = 64, 2048  # the natural kernel has an instance for each N between
+MIN_N, MAX_N = 64, 2048  # both kernels have an instance for each N between
 MIN_NPR, MAX_NPR = 2, 4
 
 
@@ -48,6 +58,8 @@ def load_library() -> ctypes.CDLL:
     lib.mktfhe_ntt_bm.restype = ctypes.c_int
     lib.mktfhe_ntt_nat_describe.argtypes = [ctypes.c_int, ctypes.c_int, ptr]
     lib.mktfhe_ntt_nat_describe.restype = None
+    lib.mktfhe_ntt_bm_describe.argtypes = [ctypes.c_int] * 5 + [ptr]
+    lib.mktfhe_ntt_bm_describe.restype = None
     return lib
 
 
@@ -66,6 +78,33 @@ def nat_kernel(n: int, forward: bool, lib=None) -> dict:
         "polys_per_tile": out[2],
         "shared_bytes": out[3],
     }
+
+
+def bm_kernel(n: int, npr: int, rows: int, gates: int, forward: bool, lib=None) -> dict:
+    """The instance of csrc/ntt.cu's batch-minor kernel that serves a
+    transform of [npr, rows, N, gates], as the source's dispatcher (`bm_plan`)
+    says: its name as ptxas reports it, threads per CTA, gates per tile,
+    dynamic shared memory (its tile buffers), the tiles its clusters walk
+    (cluster x gates-per-tile gates of one polynomial each: a 128-byte line
+    of every row for a full cluster) and the CTAs of a cluster.  `lib`: the
+    library to ask (default: the built one)."""
+    out = (ctypes.c_int * 6)()
+    (lib or load_library()).mktfhe_ntt_bm_describe(n.bit_length() - 1, npr, rows, gates, int(forward), out)
+    if out[0] == 0:
+        raise ValueError(f"no batch-minor NTT kernel for N={n}")
+    return {
+        "name": f"ntt_bm_kernel<{out[0]},{out[2]},{int(out[5] > 1)},{int(forward)}>",
+        "threads": out[1],
+        "gates_per_tile": out[2],
+        "shared_bytes": out[3],
+        "tiles": out[4],
+        "cluster": out[5],
+    }
+
+
+def _count(wrapper, shape: tuple) -> None:
+    wrapper.launches += 1
+    wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
 
 
 def _u32(x: np.ndarray) -> torch.Tensor:
@@ -118,10 +157,7 @@ def _launch(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
             consts.data_ptr(), polys, npr, n.bit_length() - 1, int(forward), stream,
         )
     _build.check_launch(lib, err, "NTT kernel")
-    wrapper = fwd_ntt_nat if forward else inv_ntt_nat
-    wrapper.launches += 1
-    shape = (polys // npr, npr, n)
-    wrapper.shapes[shape] = wrapper.shapes.get(shape, 0) + 1
+    _count(fwd_ntt_nat if forward else inv_ntt_nat, (polys // npr, npr, n))
     return out
 
 
@@ -181,7 +217,7 @@ def _ntt_bm(a: torch.Tensor, plan: NttPlan, forward: bool) -> torch.Tensor:
             npr, rows, gates, n.bit_length() - 1, int(forward), stream,
         )
     _build.check_launch(lib, err, "batch-minor NTT kernel")
-    (fwd_ntt_bm if forward else inv_ntt_bm).launches += 1
+    _count(fwd_ntt_bm if forward else inv_ntt_bm, tuple(a.shape))
     return out
 
 
@@ -201,12 +237,11 @@ def inv_ntt_bm(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
 
 def reset_launches() -> None:
     """Every wrapper counts its kernel's launches since the last reset (CPU
-    calls run the twin and do not count); the natural ones also by shape
-    [rows, npr, N] (`shapes`)."""
+    calls run the twin and do not count), also by shape (`shapes`): [rows,
+    npr, N] for the natural ones, [npr, R, N, G] for the batch-minor ones."""
     for wrapper in (fwd_ntt_nat, inv_ntt_nat, fwd_ntt_bm, inv_ntt_bm):
         wrapper.launches = 0
-    fwd_ntt_nat.shapes = {}
-    inv_ntt_nat.shapes = {}
+        wrapper.shapes = {}
 
 
 reset_launches()

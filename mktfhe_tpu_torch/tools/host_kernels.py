@@ -6,7 +6,9 @@ mktfhe_tpu_torch/csrc/ are otherwise only checked on the card
 compiles the device code of a source -- everything above its `extern "C"`
 entry points -- with g++ against a small stand-in for the CUDA runtime
 header: one std::thread per CUDA thread, a std::barrier for
-`__syncthreads()`, CTAs one after the other, cp.async as a plain copy.  Its
+`__syncthreads()`, CTAs one after the other (the CTAs of a thread-block
+cluster at once, with a barrier of their own and each other's shared memory
+in reach), cp.async as a plain copy.  Its
 C entry points (`ENTRIES`) launch the kernel that the source's own
 dispatcher picks, or another instance where a test asks for one, and the
 source's describe calls are the library's own, word for word.  That
@@ -33,8 +35,10 @@ SHIM = r"""
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <memory>
 #include <thread>
 #include <vector>
+#define MKTFHE_HOST_BUILD 1
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -45,8 +49,20 @@ struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
 template <typename T> inline T __ldg(const T* p) { return *p; }
 inline thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
-inline std::barrier<>* g_barrier = nullptr;
+constexpr int kMaxCluster = 8;
+constexpr size_t kSmemBytes = 1 << 20;  // a CTA's dynamic shared memory
+alignas(16) inline unsigned char g_smem_of[kMaxCluster][kSmemBytes];  // a cluster's CTAs'
+inline thread_local unsigned char* g_smem = g_smem_of[0];  // this thread's CTA's
+inline thread_local std::barrier<>* g_barrier = nullptr;  // this thread's CTA's
+inline thread_local std::barrier<>* g_cluster_barrier = nullptr;
+inline thread_local int g_cluster_rank = 0;
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
+inline void cluster_sync() { g_cluster_barrier->arrive_and_wait(); }
+inline int cluster_rank() { return g_cluster_rank; }
+template <typename T>
+inline T ld_shared_cluster(const T* p, int rank) {
+    return *reinterpret_cast<const T*>(g_smem_of[rank] + (reinterpret_cast<const unsigned char*>(p) - g_smem));
+}
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return (uint32_t)(((uint64_t)a * b) >> 32); }
 inline uint64_t __umul64hi(uint64_t a, uint64_t b) {
     return (uint64_t)(((unsigned __int128)a * b) >> 64);
@@ -58,18 +74,22 @@ inline uint32_t __brev(uint32_t v) {
     for (int i = 0; i < 32; ++i) r |= ((v >> i) & 1u) << (31 - i);
     return r;
 }
-alignas(16) inline unsigned char g_smem[1 << 20];
-// one CTA after the other, `threads` host threads each
+// one cluster of `cluster` CTAs after the other, `threads` host threads each
 template <typename F>
-void run_grid(long long ctas, int threads, F body) {
-    for (long long c = 0; c < ctas; ++c) {
-        std::barrier<> bar(threads);
-        g_barrier = &bar;
+void run_grid(long long ctas, int threads, F body, int cluster = 1) {
+    for (long long c0 = 0; c0 < ctas; c0 += cluster) {
+        std::barrier<> cluster_bar(cluster * threads);
+        std::vector<std::unique_ptr<std::barrier<>>> bars;
+        for (int r = 0; r < cluster; ++r) bars.push_back(std::make_unique<std::barrier<>>(threads));
         std::vector<std::thread> pool;
-        for (int t = 0; t < threads; ++t) pool.emplace_back([=]() {
-            threadIdx.x = t; blockIdx.x = (int)c; blockDim.x = threads; gridDim.x = (int)ctas;
-            body();
-        });
+        for (int r = 0; r < cluster; ++r) {
+            for (int t = 0; t < threads; ++t) pool.emplace_back([=, &cluster_bar, &bars]() {
+                threadIdx.x = t; blockIdx.x = (int)(c0 + r); blockDim.x = threads; gridDim.x = (int)ctas;
+                g_smem = g_smem_of[r]; g_barrier = bars[r].get(); g_cluster_barrier = &cluster_bar;
+                g_cluster_rank = r;
+                body();
+            });
+        }
         for (auto& th : pool) th.join();
     }
 }
@@ -97,7 +117,7 @@ extern "C" int host_phase1_sweep(void* acc, const void* tildea, const void* brk,
     const SweepPlan plan = sweep_plan(mono != nullptr, shape);
     const SweepKernel kernel = !run_time_shapes ? plan.kernel
         : mono != nullptr ? &phase1_sweep_kernel<true, 0, 0, 0, 0> : &phase1_sweep_kernel<false, 0, 0, 0, 1>;
-    if (plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    if (plan.shared_bytes > (int)kSmemBytes) return 2;
     run_grid(ctas, plan.threads, [=]() {
         kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
@@ -124,7 +144,7 @@ extern "C" int host_mx_sweep(void* acc, const void* tildea, const void* brk, con
         : pow_shared ? &mx_sweep_kernel<true, 0, 0, 0> : &mx_sweep_kernel<false, 0, 0, 0>;
     const MxShape shape{rows, n_steps, npr, l, log_b, log_n,
                         pow_shared < 0 ? plan.tw_shared : pow_shared != 0};
-    if (2 * plan.shared_bytes > sizeof(g_smem)) return 2;  // room for a table forced into shared memory
+    if (2 * plan.shared_bytes > kSmemBytes) return 2;  // room for a table forced into shared memory
     run_grid(ctas, plan.threads, [=]() {
         kernel((uint64_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)pow,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,
@@ -137,13 +157,14 @@ extern "C" void mktfhe_mx_sweep_describe(int npr, int l, int log_n, int* out) {
 }
 """, {"host_mx_sweep": ([_P] * 9 + [_ULL, _LL] + [_I] * 7, _I),
       "mktfhe_mx_sweep_describe": ([_I] * 3 + [_P], None)}),
-    # the natural kernel on a grid of `ctas` CTAs (fewer than the tiles: the
-    # CTAs go round the tiles, both buffers in use), and the batch-minor one
+    # the natural and the batch-minor kernel that the source's dispatchers
+    # pick, on a grid of `ctas` CTAs / `clusters` clusters (fewer than the
+    # tiles: they go round the tiles, both buffers in use)
     "ntt": (r"""
 extern "C" int host_ntt_nat(const void* x, void* y, const void* tw, const void* tw_sh,
         const void* consts, long long polys, int npr, int log_n, int forward, int ctas) {
     const NatPlan plan = nat_plan(log_n, forward != 0);
-    if (plan.kernel == nullptr || plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    if (plan.kernel == nullptr || plan.shared_bytes > (int)kSmemBytes) return 2;
     run_grid(ctas, plan.threads, [=]() {
         plan.kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
                     (const uint32_t*)consts, (int)(polys / npr), npr);
@@ -153,18 +174,23 @@ extern "C" int host_ntt_nat(const void* x, void* y, const void* tw, const void* 
 extern "C" void mktfhe_ntt_nat_describe(int log_n, int forward, int* out) {
     describe_nat(log_n, forward, out);
 }
-extern "C" void host_ntt_bm(const void* x, void* y, const void* tw, const void* tw_sh,
-        const void* consts, int npr, int rows, int gates, int log_n, int forward) {
-    auto kernel = forward ? &ntt_bm_kernel<true> : &ntt_bm_kernel<false>;
-    const long long tiles = (gates + kGt - 1) / kGt;
-    run_grid(npr * rows * tiles, (1 << log_n) / 2, [=]() {
-        kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
-               (const uint32_t*)consts, rows, gates, log_n);
-    });
+extern "C" int host_ntt_bm(const void* x, void* y, const void* tw, const void* tw_sh,
+        const void* consts, int npr, int rows, int gates, int log_n, int forward, int clusters) {
+    const BmPlan plan = bm_plan(log_n, (long long)npr * rows, gates, forward != 0);
+    if (plan.kernel == nullptr || plan.shared_bytes > (int)kSmemBytes || plan.cluster > kMaxCluster) return 2;
+    run_grid((long long)clusters * plan.cluster, plan.threads, [=]() {
+        plan.kernel((const uint32_t*)x, (uint32_t*)y, (const uint32_t*)tw, (const uint32_t*)tw_sh,
+                    (const uint32_t*)consts, npr, rows, gates);
+    }, plan.cluster);
+    return 0;
+}
+extern "C" void mktfhe_ntt_bm_describe(int log_n, int npr, int rows, int gates, int forward, int* out) {
+    describe_bm(log_n, npr, rows, gates, forward, out);
 }
 """, {"host_ntt_nat": ([_P] * 5 + [_LL] + [_I] * 4, _I),
       "mktfhe_ntt_nat_describe": ([_I, _I, _P], None),
-      "host_ntt_bm": ([_P] * 5 + [_I] * 5, None)}),
+      "host_ntt_bm": ([_P] * 5 + [_I] * 6, _I),
+      "mktfhe_ntt_bm_describe": ([_I] * 5 + [_P], None)}),
     # the kernel that the source's dispatcher picks, or, with
     # `run_time_shapes` set, the kernel with run-time shapes
     "cggi_step": (r"""
@@ -176,7 +202,7 @@ extern "C" int host_cggi_step(void* acc, const void* tildea, const void* brk, co
     const StepKernel kernel = run_time_shapes ? &cggi_step_kernel<0, 0, 0, 1> : plan.kernel;
     const int threads = run_time_shapes ? (1 << log_n) / 4 : plan.threads;
     const StepShape shape{n_total, i0, i1, npr, l, log_b, log_n, plan.tw_shared};
-    if (plan.shared_bytes > (int)sizeof(g_smem)) return 2;
+    if (plan.shared_bytes > (int)kSmemBytes) return 2;
     run_grid(gates, threads, [=]() {
         kernel((uint32_t*)acc, (const int32_t*)tildea, (const uint32_t*)brk, (const uint32_t*)mono,
                (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh, (const uint32_t*)tw_i,

@@ -7,8 +7,11 @@ keys (block or binary) and, for a binary preset, `mx_sweep` on its mx keys.
 as one launch and one step.  `--ntt`: the natural NTT kernel (B1), forward
 and inverse, at the shapes `bootstrap_mx3`, `bootstrap_mx2` and
 `cggi.bootstrap` launch (NTT_SHAPES), and the batch-minor one (B4) at the
-CGGI engine's.  Each is first held bit-exact against its plain version.  Keys
-and inputs are uniform residues: the kernels' time does not depend on them.
+shapes the CGGI and KMS batch-minor engines launch (NTT_BM_SHAPES).  Each is
+first held bit-exact against its plain version.  Keys and inputs are uniform
+residues: the kernels' time does not depend on them.  The short kernels are
+timed by their device time in torch.profiler, found by the instance name the
+source's dispatcher reports (`device_ms`).
 
 `--tree DIR` (repeatable) times other checkouts of the repository beside this
 one (each package imported from its DIR, its kernels built there), in turns:
@@ -31,8 +34,10 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -40,6 +45,7 @@ import torch
 CHECK_STEPS = 2
 BATCH = 128
 REPS = 3
+PROFILE_TRIES = 4
 DEFAULT_PRESETS = ("KMS8partyblock", "KMS8party")
 CGGI_BATCH = 256
 # [rows, npr, N] of the natural NTT: shapes that bootstrap_mx3 (KMS8partyblock)
@@ -50,7 +56,12 @@ NTT_SHAPES = (
     (1536, 2, 1024), (512, 2, 1024),
 )
 # [npr, R, N, G] of the batch-minor NTT: the CGGI engine's digits and outputs
-NTT_BM_SHAPES = ((2, 6, 1024, 256), (2, 2, 1024, 256))
+# (bootstrap_bm, 256 gates), and those of kms.bootstrap_bm at KMS8party,
+# batch 128, for a party with 3 RLEV rows and for the party with one
+NTT_BM_SHAPES = (
+    (2, 6, 1024, 256), (2, 2, 1024, 256),
+    (3, 24, 2048, 128), (3, 6, 2048, 128), (3, 8, 2048, 128), (3, 2, 2048, 128),
+)
 
 
 def _ms(fn, reps: int) -> float:
@@ -65,24 +76,43 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time in ms of the kernels whose name contains `kernel`
-    over `reps` calls of fn(), from torch.profiler (the NTT kernels are
-    shorter than a launch from Python takes); by CUDA events where the
-    profiler recorded none."""
+def _profiler_name(key: str) -> str:
+    """A kernel's name as torch.profiler shows it, in the form the
+    dispatchers report instances: no spaces, bool template arguments as
+    0 / 1 (`ntt_bm_kernel<11, 4, true, false>(...)` -> `ntt_bm_kernel<11,4,1,0>(...)`)."""
+    key = re.sub(r"\s+", "", key)
+    return re.sub(r"\bfalse\b", "0", re.sub(r"\btrue\b", "1", key))
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Mean device time in ms of the kernel `kernel` (an instance name as the
+    dispatchers report it, e.g. `ntt_bm_kernel<11,4,1,0>`, or a prefix of one)
+    over `reps` calls of fn(), from torch.profiler: the NTT kernels are
+    shorter than a launch from Python takes, so CUDA events around the calls
+    would time the host.  A profile that recorded no kernel at all (it
+    happens now and then: the launches are there, the device activity is
+    not, sometimes twice in a row) is taken again, up to PROFILE_TRIES times
+    in all; raises if the profiler then shows no such kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in rows)
-    if us == 0:
-        return _ms(fn, reps)
-    return us / sum(e.count for e in rows) / 1e3
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(0.5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        rows = [e for e in events if kernel in _profiler_name(e.key)]
+        us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in rows)
+        count = sum(e.count for e in rows)
+        if us > 0 and count > 0:
+            return us / count / 1e3
+        if any(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0) for e in events):
+            break  # kernels were recorded, not this one
+    raise RuntimeError(f"torch.profiler shows no kernel {kernel}: {[e.key[:80] for e in events]}")
 
 
 def _residues(gen, shape, prime_axis: int, npr: int, device) -> torch.Tensor:
@@ -116,9 +146,18 @@ def time_cggi(device, gen) -> dict:
     return {
         "exact": exact,
         "steps_ms": _ms(lambda: fused_step.cggi_step(acc, ta, brk, mono, params, ctx), REPS),
-        "one_step_ms": _device_ms(lambda: fused_step.cggi_step(acc, ta, brk, mono, params, ctx, 0, 1), 20,
+        "one_step_ms": device_ms(lambda: fused_step.cggi_step(acc, ta, brk, mono, params, ctx, 0, 1), 20,
                                   "cggi_step_kernel"),
     }
+
+
+def _bm_name(kntt, shape, forward: bool) -> str:
+    """The batch-minor instance that serves `shape` ([npr, R, N, G]); a tree
+    from before the dispatcher had one kernel a direction."""
+    npr, rows, n, gates = shape
+    if hasattr(kntt, "bm_kernel"):
+        return kntt.bm_kernel(n, npr, rows, gates, forward)["name"]
+    return f"ntt_bm_kernel<{int(forward)}>"
 
 
 def time_ntt(device, gen) -> dict:
@@ -134,8 +173,8 @@ def time_ntt(device, gen) -> dict:
         exact &= torch.equal(kntt.inv_ntt_nat(x, plan), inv_ntt(x, plan))
         out[f"nat {list(shape)}"] = {
             "exact": exact,
-            "fwd_ms": _device_ms(lambda: kntt.fwd_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
-            "inv_ms": _device_ms(lambda: kntt.inv_ntt_nat(x, plan), 20, "ntt_nat_kernel"),
+            "fwd_ms": device_ms(lambda: kntt.fwd_ntt_nat(x, plan), 20, kntt.nat_kernel(shape[2], True)["name"]),
+            "inv_ms": device_ms(lambda: kntt.inv_ntt_nat(x, plan), 20, kntt.nat_kernel(shape[2], False)["name"]),
         }
     for shape in NTT_BM_SHAPES:
         plan = make_plan(shape[2], shape[0])
@@ -144,8 +183,9 @@ def time_ntt(device, gen) -> dict:
         exact &= torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
         out[f"bm {list(shape)}"] = {
             "exact": exact,
-            "fwd_ms": _device_ms(lambda: kntt.fwd_ntt_bm(x, plan), 50, "ntt_bm_kernel"),
-            "inv_ms": _device_ms(lambda: kntt.inv_ntt_bm(x, plan), 50, "ntt_bm_kernel"),
+            "fwd_ms": device_ms(lambda: kntt.fwd_ntt_bm(x, plan), 50, _bm_name(kntt, shape, True)),
+            "inv_ms": device_ms(lambda: kntt.inv_ntt_bm(x, plan), 50, _bm_name(kntt, shape, False)),
+            "instances": [_bm_name(kntt, shape, f) for f in (True, False)],
         }
     return out
 

@@ -344,7 +344,8 @@ def _bm_residues(npr, rows, n, gates, device, seed):
 @pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048])
 @pytest.mark.parametrize("npr", [2, 3, 4])
 def test_bm_kernel_matches_plain(device, n, npr):
-    """19 gates: two whole tiles of 8 and a ragged one of 3."""
+    """19 gates: four whole tiles of 4 and a ragged one of 3, rows not 16-byte
+    aligned (word-by-word copies); launches counted by shape."""
     plan = make_plan(n, npr)
     x = _bm_residues(npr, 3, n, 19, device, seed=n + npr)
     kntt.reset_launches()
@@ -353,6 +354,7 @@ def test_bm_kernel_matches_plain(device, n, npr):
     assert torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
     assert torch.equal(kntt.inv_ntt_bm(hat, plan), x)
     assert (kntt.fwd_ntt_bm.launches, kntt.inv_ntt_bm.launches) == (1, 2)
+    assert (kntt.fwd_ntt_bm.shapes, kntt.inv_ntt_bm.shapes) == ({(npr, 3, n, 19): 1}, {(npr, 3, n, 19): 2})
     # the same data through the natural-layout kernel
     nat = kntt.fwd_ntt_nat(x.permute(1, 3, 0, 2).contiguous(), plan)
     assert torch.equal(hat, nat.permute(2, 0, 3, 1))
@@ -364,6 +366,34 @@ def test_bm_kernel_any_batch(device, gates):
     x = _bm_residues(2, 6, 1024, gates, device, seed=gates)
     assert torch.equal(kntt.fwd_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, True))
     assert torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
+
+
+@pytest.mark.parametrize("shape", [(3, 24, 2048, 128), (3, 6, 2048, 128), (3, 2, 2048, 128), (2, 6, 1024, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bm_kernel_engine_shapes(device, shape):
+    """The shapes the engines launch: more line tiles than the card holds
+    clusters at once (both buffers take turns), and a CTA a tile without a
+    cluster at [3, 2, 2048, 128]."""
+    npr, _, n, _ = shape
+    plan = make_plan(n, npr)
+    x = _bm_residues(*shape, device, seed=sum(shape))
+    hat = kntt.fwd_ntt_bm(x, plan)
+    assert torch.equal(hat, kntt.ntt_bm_plain(x, plan, True))
+    assert torch.equal(kntt.inv_ntt_bm(hat, plan), x)
+
+
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048])
+def test_bm_kernel_is_built_as_described(device, n):
+    """The dispatcher's instances for N, in a cluster and without, both
+    directions, are kernels that ptxas built, without spills."""
+    from mktfhe_tpu_torch.kernels import _build
+
+    usage = _build.resource_usage(_build.build(kntt.SOURCE))
+    for rows, gates in ((24, 128), (1, 8)):  # many line tiles, few
+        for forward in (True, False):
+            kernel = kntt.bm_kernel(n, 3, rows, gates, forward)
+            said = [u for u in usage if u.startswith(kernel["name"] + ":")]
+            assert len(said) == 1 and ", 0 spill bytes" in said[0], said
 
 
 def test_bm_wrapper_contract_on_cuda(device):

@@ -3,7 +3,9 @@
 The natural kernel's instance for every N the wrapper admits (64 .. 2048),
 forward and inverse, on more tiles than CTAs (the CTAs go round the tiles and
 the two buffers take turns) with a ragged last tile, against ring/ntt.py;
-the batch-minor kernel on whole and ragged gate tiles.
+the batch-minor kernel's instances the same way (the CTAs of a cluster at
+once), on whole and ragged gate tiles, at N = 64 .. 512 and at the full
+N = 2048, with each tile width its dispatcher picks, against `ntt_bm_plain`.
 The device code is compiled for the host with g++
 (mktfhe_tpu_torch/tools/host_kernels.py: one std::thread per CUDA thread, a
 std::barrier for `__syncthreads()`) and held bit for bit against the plain
@@ -56,21 +58,59 @@ def test_ntt_kernel_source_matches_plain(ntt_lib, n, npr):
         assert torch.equal(out, plain(x, plan)), f"{'fwd' if forward else 'inv'}: {int((out != plain(x, plan)).sum())} differ"
 
 
+def _bm_case(ntt_lib, n, npr, rows, gates, clusters=CTAS):
+    """The batch-minor kernel that the source's dispatcher picks for [npr,
+    rows, N, gates], run on `clusters` clusters of CTAs both ways against the
+    plain version; returns the two instances."""
+    plan = make_plan(n, npr)
+    rng = np.random.default_rng(n + npr + rows + gates)
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None, None, None]
+    x = (rng.integers(0, 1 << 62, size=(npr, rows, n, gates)) % p).astype(np.int32)
+    x[:, 0, :4, -1] = (p[:, 0, 0] - 1).astype(np.int32)  # the largest residues, in the last column
+    x = torch.from_numpy(x)
+    kernels = []
+    for forward in (True, False):
+        kernel = kntt.bm_kernel(n, npr, rows, gates, forward, ntt_lib)
+        assert kernel["tiles"] > clusters  # the clusters go round the tiles, both buffers take turns
+        tw, tw_sh, consts = kntt._kernel_tables(n, npr, forward, CPU)
+        out = torch.full_like(x, -1)
+        err = ntt_lib.host_ntt_bm(
+            x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), consts.data_ptr(),
+            npr, rows, gates, n.bit_length() - 1, int(forward), clusters,
+        )
+        assert err == 0
+        want = kntt.ntt_bm_plain(x, plan, forward)
+        assert torch.equal(out, want), f"{kernel['name']}: {int((out != want).sum())} differ"
+        kernels.append(kernel)
+    return kernels
+
+
 @pytest.mark.parametrize("gates", [5, 8, 19], ids=lambda g: f"G{g}")
 @pytest.mark.parametrize("n,npr", [(64, 2), (128, 3), (256, 4)])
 def test_ntt_bm_kernel_source_matches_plain(ntt_lib, n, npr, gates):
-    """The batch-minor load/store path: whole tiles of 8 gates and a ragged
-    last one (5 = one short tile, 19 = two whole and one of 3)."""
-    plan = make_plan(n, npr)
-    rows = 3
-    rng = np.random.default_rng(n + npr + gates)
-    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None, None, None]
-    x = torch.from_numpy((rng.integers(0, 1 << 62, size=(npr, rows, n, gates)) % p).astype(np.int32))
-    for forward in (True, False):
-        tw, tw_sh, consts = kntt._kernel_tables(n, npr, forward, CPU)
-        out = torch.full_like(x, -1)
-        ntt_lib.host_ntt_bm(
-            x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(), consts.data_ptr(),
-            npr, rows, gates, n.bit_length() - 1, int(forward),
-        )
-        assert torch.equal(out, kntt.ntt_bm_plain(x, plan, forward))
+    """The batch-minor load/store path: whole tiles and a ragged last one
+    (5 = one whole tile of 4 and one of 1, 19 = four whole and one of 3),
+    rows not 16-byte aligned (5, 19: word-by-word copies) and aligned (8)."""
+    fwd, inv = _bm_case(ntt_lib, n, npr, 3, gates)
+    assert fwd["name"] == f"ntt_bm_kernel<{n.bit_length() - 1},4,0,1>" and inv["name"].endswith(",4,0,0>")
+    assert fwd["cluster"] == 1  # too few tiles for clusters: each CTA stores its own
+
+
+def test_ntt_bm_kernel_source_full_n(ntt_lib):
+    """N = 2048 (the KMS engine's), 3 primes, a ragged batch of 13 gates
+    (rows not 16-byte aligned, CTAs of the cluster with no gate or one):
+    tiles of 4 gates, two clusters of 8 CTAs going round 36 line tiles."""
+    fwd, _ = _bm_case(ntt_lib, 2048, 3, 12, 13)
+    assert fwd["name"] == "ntt_bm_kernel<11,4,1,1>" and (fwd["tiles"], fwd["cluster"]) == (3 * 12, 8)
+
+
+# N <= 512, one shape for each tile width and cluster the dispatcher picks:
+# 8 gates a tile (clusters of 4) where a shape has enough line tiles of 32
+# gates for 4 CTAs each to fill the card twice over, else 4 (clusters of 8),
+# and no cluster where 8 CTAs a line tile would not fill it twice over
+@pytest.mark.parametrize("n,npr,rows,gates,gt,cluster", [
+    (64, 2, 132, 8, 8, 4), (256, 3, 44, 13, 8, 4), (128, 2, 20, 32, 4, 8), (512, 2, 3, 24, 4, 1),
+], ids=["N64_gt8", "N256_gt8_ragged", "N128_gt4", "N512_gt4_no_cluster"])
+def test_ntt_bm_kernel_source_tile_widths(ntt_lib, n, npr, rows, gates, gt, cluster):
+    fwd, inv = _bm_case(ntt_lib, n, npr, rows, gates)
+    assert fwd["gates_per_tile"] == inv["gates_per_tile"] == gt and fwd["cluster"] == inv["cluster"] == cluster

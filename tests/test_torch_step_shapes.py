@@ -1,13 +1,14 @@
-"""Which kernel serves which shape: the CGGI step (B3) and the natural NTT (B1).
+"""Which kernel serves which shape: the CGGI step (B3) and the NTTs (B1, B4).
 
 The step kernel (csrc/cggi_step.cu) is compiled for preset CGGI and once more
 with run-time shapes for every other shape its wrapper admits; the natural
-NTT kernel (csrc/ntt.cu) has an instance for every N its wrapper admits.  The
-choice is made in one place, the sources' own dispatchers (`step_plan`,
-`nat_plan`), which the wrappers ask through `fused_step.step_kernel` /
-`kntt.nat_kernel`; here the dispatchers are compiled for the host
-(mktfhe_tpu_torch/tools/host_kernels.py) and held against the table that
-PERF.md prints, without a card.
+and the batch-minor NTT kernels (csrc/ntt.cu) have an instance for every N
+their wrappers admit, the batch-minor one in two tile widths.  The choice is
+made in one place, the sources' own dispatchers (`step_plan`, `nat_plan`,
+`bm_plan`), which the wrappers ask through `fused_step.step_kernel` /
+`kntt.nat_kernel` / `kntt.bm_kernel`; here the dispatchers are compiled for
+the host (mktfhe_tpu_torch/tools/host_kernels.py) and held against the table
+that PERF.md prints, without a card.
 """
 
 import pytest
@@ -103,3 +104,58 @@ def test_nat_kernel_of_size(ntt_lib, n, forward):
 def test_nat_kernel_refuses_other_sizes(ntt_lib, n):
     with pytest.raises(ValueError):
         kntt.nat_kernel(n, True, ntt_lib)
+
+
+# [npr, R, N, G] -> (gates per tile, CTAs a cluster) of the batch-minor
+# kernel, both directions (PERF.md, section 6): the shapes bootstrap_bm (CGGI,
+# 256 gates) and kms.bootstrap_bm (KMS8party, batch 128) launch
+BM_TILE = {
+    (2, 6, 1024, 256): (8, 4), (2, 2, 1024, 256): (4, 1),
+    (3, 24, 2048, 128): (4, 8), (3, 6, 2048, 128): (4, 8), (3, 8, 2048, 128): (4, 8), (3, 2, 2048, 128): (4, 1),
+}
+# (npr, rows, gates) -> (gates per tile, CTAs a cluster) at N <= 1024 and at
+# N = 2048: tiles of 8 (clusters of 4) at N <= 1024 where a line tile of 32
+# gates for each 4 CTAs fill 132 SMs twice over (264 CTAs), else tiles of 4
+# in clusters of 8, or in none where 8 CTAs a line tile are no more than 264
+BM_RULE = {
+    (3, 24, 128): ((8, 4), (4, 8)), (2, 2, 256): ((4, 1), (4, 1)), (2, 3, 5): ((4, 1), (4, 1)),
+    (4, 33, 33): ((8, 4), (4, 8)), (2, 33, 32): ((8, 4), (4, 8)), (4, 16, 32): ((4, 8), (4, 8)),
+    (3, 11, 32): ((4, 1), (4, 1)),
+}
+
+
+def _bm_expected(n, gt, cluster, forward):
+    full = n == 2048  # two (task, quad) items of a 3-stage pass a thread, one tile in shared memory
+    return {
+        "name": f"ntt_bm_kernel<{n.bit_length() - 1},{gt},{int(cluster > 1)},{int(forward)}>",
+        "threads": min(512, max(32, n * gt // (64 if full else 32))),  # else one item a thread
+        "gates_per_tile": gt,
+        "shared_bytes": (1 if full else 2) * n * gt * 4,  # else the tile transformed and the one arriving
+        "cluster": cluster,
+    }
+
+
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+@pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048])
+def test_bm_kernel_of_size(ntt_lib, n, forward):
+    """An instance for every N; a cluster of C CTAs with tiles gt gates wide
+    walks tiles of C gt gates, ceil(G / (C gt)) per (prime, row)."""
+    for (npr, rows, gates), by_n in BM_RULE.items():
+        gt, cluster = by_n[n == 2048]
+        kernel = kntt.bm_kernel(n, npr, rows, gates, forward, ntt_lib)
+        assert kernel == {**_bm_expected(n, gt, cluster, forward), "tiles": npr * rows * -(-gates // (cluster * gt))}
+        assert kernel["shared_bytes"] <= MAX_SHARED
+
+
+@pytest.mark.parametrize("shape", sorted(BM_TILE), ids=lambda s: "x".join(map(str, s)))
+def test_bm_kernel_of_engine_shape(ntt_lib, shape):
+    npr, rows, n, gates = shape
+    for forward in (True, False):
+        kernel = kntt.bm_kernel(n, npr, rows, gates, forward, ntt_lib)
+        assert kernel == {**_bm_expected(n, *BM_TILE[shape], forward), "tiles": kernel["tiles"]}
+
+
+@pytest.mark.parametrize("n", [32, 4096])
+def test_bm_kernel_refuses_other_sizes(ntt_lib, n):
+    with pytest.raises(ValueError):
+        kntt.bm_kernel(n, 2, 1, 8, True, ntt_lib)
