@@ -71,7 +71,18 @@ Phases, each printing one line; any failure exits non-zero:
      (the batch-minor NTT kernel must have been launched), decrypt-checked,
      bit-identical to `bootstrap_mx2`; then one more under torch.profiler,
      and the batch-minor NTT's launches by shape (18b);
- 19. print the kernels' JSON line, then the contract line last.
+ 19. the LMSS path: keygen on the card for preset Block, then
+     `lmss.bootstrap` of 256 NAND gates, decrypt-checked, and a timed
+     data-dependent chain of three more; the natural NTT kernel must have been
+     launched 229 + 229 times a bootstrap and no other kernel; the first 4
+     gates through the CPU path, bit for bit; one more under torch.profiler,
+     and the natural NTT's launches by shape (19c);
+ 20. the CCS path, the same at CCS2partyTight and CCS4partyTight, 128 gates
+     (2 k n + 2 k n launches a bootstrap; the multi-key decrypt), and one
+     decrypt-checked `ccs.bootstrap` of 128 gates on CCS8partyTight;
+ 21. the port's CLI, `python -m mktfhe_tpu_torch.cli`, as a subprocess with
+     ChaCha seeding at Block and CCS2partyTight: both must exit 0 and print OK;
+ 22. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
 """
@@ -84,17 +95,19 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.ring.sampler import uniform_torus
-from mktfhe_tpu_torch.schemes import cggi, kms
+from mktfhe_tpu_torch.schemes import ccs, cggi, kms, lmss
 from mktfhe_tpu_torch.schemes.gates import (
     GATE_IDS,
     gate_affine,
@@ -104,7 +117,16 @@ from mktfhe_tpu_torch.schemes.gates import (
     lwe_ith_encrypt_bit,
 )
 from mktfhe_tpu_torch.schemes.params import KmsBlockParams, KmsParams
-from mktfhe_tpu_torch.schemes.presets import CGGI_PARAM, KMS_8PARTY, KMS_8PARTY_BLOCK, KMS_32PARTY
+from mktfhe_tpu_torch.schemes.presets import (
+    BLOCK_PARAM,
+    CCS_2PARTY_TIGHT,
+    CCS_4PARTY_TIGHT,
+    CCS_8PARTY_TIGHT,
+    CGGI_PARAM,
+    KMS_8PARTY,
+    KMS_8PARTY_BLOCK,
+    KMS_32PARTY,
+)
 from mktfhe_tpu_torch.tools import butterfly_rate
 from mktfhe_tpu_torch.tools.time_sweeps import device_ms
 
@@ -118,6 +140,12 @@ NTT_SHAPES = [(3072, 4, 2048), (768, 4, 2048), (5, 2, 64)]
 TOLERANCE = 0  # exact integer arithmetic: bit-identical or wrong
 CHECK_STEPS = 4  # steps of the sweep / the CGGI step range in the kernel-vs-plain comparisons
 CGGI_BATCH = 256
+# the LMSS and CCS paths: LMSS at the CGGI batch, CCS at the KMS batch, each
+# timed over a dependent chain of GATE_CHAIN bootstraps after the first
+LMSS_BATCH = CGGI_BATCH
+CCS_BATCH = BATCH
+GATE_CHAIN = 3
+CPU_GATES = 4  # gates of each path also run through the CPU path, bit for bit
 # (npr, R, N, G), gate batch minor: the digit transforms of one batch-minor
 # CGGI step at G=256 (2 components x 3 digits), its inverse (2 components),
 # a small ragged batch (one short gate tile) at the kernel's lower limits, and
@@ -193,12 +221,6 @@ def _sync_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def _device_us(event) -> float:
-    """A profiler row's own device time in microseconds (the attribute's name
-    differs between PyTorch versions)."""
-    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0)
 
 
 def _max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -546,13 +568,18 @@ def profile_bootstrap(bootstrap, ct, scheme, params, parts: dict, top: int = 6) 
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
 
-    # kernel rows only: the operator rows carry their kernels' time a second time
+    # the device's own records, straight from the profiler's results: its
+    # operator tree (`key_averages`) takes minutes to build at the 10^5-10^6
+    # events of a plain-PyTorch bootstrap, and the operator rows would carry
+    # their kernels' time a second time
     on_device = torch.autograd.DeviceType.CUDA
-    rows = sorted(
-        ((_device_us(e) / 1e3, e.count, e.key) for e in prof.key_averages()
-         if e.device_type == on_device and _device_us(e) > 0),
-        reverse=True,
-    )
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == on_device and e.duration_ns() > 0:
+            row = by_name.setdefault(e.name(), [0.0, 0])
+            row[0] += e.duration_ns() / 1e6
+            row[1] += 1
+    rows = sorted(((ms, count, key) for key, (ms, count) in by_name.items()), reverse=True)
     return {
         "wall_ms": wall_ms,
         "device_ms": sum(ms for ms, _, _ in rows),
@@ -1255,6 +1282,175 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict]
     return rows, ntt["times"]
 
 
+def scheme_bytes(obj) -> int:
+    """Bytes of every tensor field of a scheme dataclass or key tuple."""
+    fields = obj._asdict().values() if hasattr(obj, "_asdict") else (
+        getattr(obj, f.name) for f in dataclasses.fields(obj))
+    return sum(t.numel() * t.element_size() for t in fields)
+
+
+def check_cpu_path(bootstrap, ct, out, scheme, params, what: str) -> None:
+    """The first CPU_GATES gates of `ct` bootstrapped on the CPU (every kernel
+    wrapper runs its plain version there) give the card's bits."""
+    cpu_scheme = dataclasses.replace(scheme, **{f.name: getattr(scheme, f.name).cpu()
+                                                for f in dataclasses.fields(scheme)})
+    want = bootstrap(Lwe(b=ct.b[:CPU_GATES].cpu(), a=ct.a[:CPU_GATES].cpu()), cpu_scheme, params)
+    if not (torch.equal(out.b[:CPU_GATES].cpu(), want.b) and torch.equal(out.a[:CPU_GATES].cpu(), want.a)):
+        raise SystemExit(f"{what}: the card's first {CPU_GATES} gates differ from the CPU path's")
+
+
+def gate_path_ntt_shapes() -> set[tuple]:
+    """[rows, npr, N] of every natural NTT launch of phases 19 and 20: per
+    LMSS block the accumulator's digits forward and the block's sum back;
+    per CCS step of party p1 the digits of components 0..p1 forward, v and
+    e back, and the digit sum of G^-1(v) forward."""
+    p = BLOCK_PARAM
+    out = {(LMSS_BATCH * (p.k + 1) * rows, p.nprimes, p.big_n) for rows in (p.l_gsw, 1)}
+    for p in (CCS_2PARTY_TIGHT, CCS_4PARTY_TIGHT):
+        out.add((CCS_BATCH * p.l_uni, p.nprimes, p.big_n))
+        out |= {(CCS_BATCH * (p1 + 1) * rows, p.nprimes, p.big_n)
+                for p1 in range(1, p.k + 1) for rows in (p.l_uni, 1)}
+    return out
+
+
+def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, decrypt,
+             batch: int, per_bootstrap: int, times: dict, rate: dict, ntt_rows: list[dict], smi: str) -> None:
+    """A path whose every NTT goes through the natural NTT kernel: a
+    decrypt-checked bootstrap and a chain of GATE_CHAIN more (counts reset
+    just before, read just after: `per_bootstrap` forward and as many inverse
+    launches a bootstrap, and no other kernel), its first CPU_GATES gates
+    against the CPU path, one warm bootstrap under torch.profiler, and the
+    kernel's launches by shape x the time at each (`times`, taken
+    beforehand) against the profile, and each shape's time against its bound
+    (`ntt_bound`), added to its rows of the kernels line (`ntt_rows`)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    boot = bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, GATE_CHAIN)
+    launches = read_launches()
+    shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
+    peak = torch.cuda.max_memory_allocated()
+    runs = 1 + GATE_CHAIN
+    others = {k: v for k, v in launches.items() if k not in ("fwd", "inv") and v}
+    if launches["fwd"] != runs * per_bootstrap or launches["inv"] != runs * per_bootstrap or others:
+        raise SystemExit(f"{path}: expected {per_bootstrap} + {per_bootstrap} natural NTT launches a bootstrap and no "
+                         f"other kernel, got {launches} in {runs} bootstraps")
+    t0 = time.time()
+    check_cpu_path(bootstrap, ct, boot["first"], scheme, params, path)
+    cpu_s = time.time() - t0
+    dt = boot["batch_s"]
+    print(
+        f"[{tag}] {path} NAND batch {batch}: decrypt OK x{runs}; first {boot['first_s'] * 1e3:.1f} ms; "
+        f"chain {dt * 1e3:.1f} ms/batch = {batch / dt:.2f} boots/s; peak allocated {peak / 1e9:.3f} GB; "
+        f"natural NTT launches in {runs} bootstraps fwd {launches['fwd']} inv {launches['inv']}; first "
+        f"{CPU_GATES} gates == the CPU path's, bit for bit ({cpu_s:.1f} s on the CPU) ({smi})"
+    )
+    missing = (set(shapes[0]) | set(shapes[1])) - set(times)
+    if missing:
+        raise SystemExit(f"{path} launched the natural NTT at shapes not timed beforehand: {sorted(missing)}")
+    prof = profile_bootstrap(bootstrap, ct, scheme, params, {"NTT kernels": "ntt_nat_kernel"})
+    print(profile_line(f"{tag}b profile", path, prof, smi))
+    print(f"[{tag}b idle] unprofiled, the device is busy {prof['device_ms']:.1f} ms of the chain's "
+          f"{dt * 1e3:.1f} ms a batch: idle share {max(0.0, 1 - prof['device_ms'] / (dt * 1e3)):.3f} ({smi})")
+    by_shape = ntt_by_shape(path, *shapes, runs, times)
+    print(by_shape_line(f"{tag}c ntt by shape", by_shape, prof["parts"]["NTT kernels"], smi))
+    bounds = []
+    for r in by_shape:
+        for d in ("fwd", "inv"):
+            if r[d]:
+                b = ntt_bound(tuple(r["shape"]), d == "fwd", rate)
+                bounds.append(f"{d} {r['shape']} {r[d + '_ms']:.4f} ms, bound {b['bound_ms']:.4f} by "
+                              f"{b['bound_by']} ({b['bound_ms'] / r[d + '_ms']:.0%} reached)")
+    print(f"[{tag}d ntt bounds] " + "; ".join(bounds) + f" ({smi})")
+    for row, d in zip(ntt_rows, ("fwd", "inv")):
+        row["launches_by_shape"] += [
+            {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
+
+
+def run_lmss(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict]) -> None:
+    """Phase 19: the LMSS gate bootstrap on preset Block (d = 229 blocks of
+    ell = 3), keygen on the card, then `ntt_path`: 229 forward and 229
+    inverse launches a bootstrap, one of each a block."""
+    params = BLOCK_PARAM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    lwe_key, _, scheme = lmss.setup(gen, params)
+    torch.cuda.synchronize()
+    print(
+        f"[19 lmss keygen] Block (d={params.d}, ell={params.ell}, n={params.n}, N={params.big_n}, "
+        f"l_gsw={params.l_gsw}, log_b_gsw={params.log_b_gsw}, npr={params.nprimes}): setup in "
+        f"{time.time() - t0:.2f} s; scheme {scheme_bytes(scheme) / 1e6:.1f} MB; peak allocated above what "
+        f"was held before {(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB ({smi})"
+    )
+    ct, c2, m1, m2 = cggi_gate_inputs(gen, params, lwe_key, LMSS_BATCH)
+    ntt_path("19", "lmss.bootstrap", lmss.bootstrap, ct, c2, m1, m2, scheme, params,
+             lambda out: lwe_decrypt_bit(out, lwe_key), LMSS_BATCH, params.d, times, rate, ntt_rows, smi)
+
+
+def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict]) -> None:
+    """Phase 20: the CCS gate bootstrap on CCS2partyTight and CCS4partyTight
+    (keygen on the card, then `ntt_path`: 2 * k * n forward and as many
+    inverse launches a bootstrap, two of each a step), then once on
+    CCS8partyTight, decrypt-checked (its relinearisation contracts 9 * 10 =
+    90 digit products through the components' digit sum); all at CCS_BATCH."""
+    batch = CCS_BATCH
+    for name, params in (("CCS2partyTight", CCS_2PARTY_TIGHT), ("CCS4partyTight", CCS_4PARTY_TIGHT),
+                         ("CCS8partyTight", CCS_8PARTY_TIGHT)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.time()
+        a = ccs.crs(gen, params)
+        parties = [ccs.party_keygen(gen, a, params) for _ in range(params.k)]
+        lwe_keys = [p[0] for p in parties]
+        scheme = ccs.setup(a, [p[2] for p in parties], params)
+        del parties
+        torch.cuda.synchronize()
+        print(
+            f"[20 ccs keygen] {name} (k={params.k}, n={params.n}, N={params.big_n}, l_uni={params.l_uni}, "
+            f"log_b_uni={params.log_b_uni}, npr={params.nprimes}): crs, {params.k} party keygens and setup "
+            f"in {time.time() - t0:.2f} s; scheme {scheme_bytes(scheme) / 1e6:.1f} MB; peak allocated above "
+            f"what was held before {(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB ({smi})"
+        )
+        ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, batch)
+
+        def decrypt(out):
+            return lwe_decrypt_bit_mk(out, lwe_keys)
+
+        if params is not CCS_8PARTY_TIGHT:
+            ntt_path("20", f"ccs.bootstrap {name}", ccs.bootstrap, ct, c2, m1, m2, scheme,
+                     params, decrypt, batch, 2 * params.k * params.n, times, rate, ntt_rows, smi)
+            continue
+        reset_launches()
+        t0 = time.time()
+        checked_bootstrap(ccs.bootstrap, ct, ~(m1 & m2), scheme, params, decrypt, f"ccs.bootstrap {name}")
+        launches = read_launches()
+        if launches["fwd"] != 2 * params.k * params.n or launches["inv"] != launches["fwd"]:
+            raise SystemExit(f"ccs.bootstrap {name}: unexpected natural NTT launches {launches}")
+        print(
+            f"[20 ccs.bootstrap {name}] NAND batch {batch}: decrypt OK; one "
+            f"bootstrap {time.time() - t0:.2f} s (host clock to the decrypted bits, no warm-up); natural NTT "
+            f"launches fwd {launches['fwd']} inv {launches['inv']} ({smi})"
+        )
+
+
+def run_cli(smi: str) -> None:
+    """Phase 21: the port's CLI as a user runs it, ChaCha-seeded (no --seed),
+    on the card, at Block and CCS2partyTight; each must exit 0 and print OK."""
+    root = Path(__file__).resolve().parent
+    for preset in ("Block", "CCS2partyTight"):
+        cmd = [sys.executable, "-m", "mktfhe_tpu_torch.cli", "--preset", preset, "--trials", "1", "--batch", "8"]
+        t0 = time.time()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or not lines[-1].endswith("OK") or "ChaCha20" not in proc.stdout:
+            raise SystemExit(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        print(f"[21 cli] {' '.join(cmd[1:])}: exit 0 in {time.time() - t0:.1f} s; "
+              + " | ".join(lines[-3:]) + f" ({smi})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
@@ -1306,8 +1502,17 @@ def main() -> int:
     kernels += cggi_rows
     kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2], cggi_rows[:2], bm_times)
 
-    # 19. results
-    print(f"[19 done] {time.time() - t_start:.1f} s in all; {NO_LIBRARY_CALL}")
+    # B1 at every shape of phases 19 and 20, timed before their profiles of
+    # 10^5-10^6 events: after those, short profiles have come back empty
+    t_gates = time.time()
+    gate_times = time_ntt_shapes(gen, device, gate_path_ntt_shapes())
+    run_lmss(gen, smi, gate_times, rate, kernels[:2])
+    run_ccs(gen, smi, gate_times, rate, kernels[:2])
+    run_cli(smi)
+
+    # 22. results
+    print(f"[22 done] {time.time() - t_start:.1f} s in all, phases 19-21 {time.time() - t_gates:.1f} s; "
+          f"{NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

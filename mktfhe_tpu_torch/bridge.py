@@ -21,8 +21,10 @@ from .ciphertext.lwe import Lwe
 from .kernels.batchminor import BmKmsPhase1
 from .kernels.fused_mx2 import MxKmsKeys
 from .schemes import params as _params
+from .schemes.ccs import CcsPartyKey
 from .schemes.cggi import CggiScheme
 from .schemes.kms import KmsPartyKey
+from .schemes.lmss import LmssScheme
 
 _VIEWS = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
 _UNSIGNED = {torch.int64: np.uint64, torch.int32: np.uint32}
@@ -67,6 +69,20 @@ def cggi_scheme(scheme, device) -> CggiScheme:
         ksk_b=from_numpy(scheme.ksk_b, device),
         ksk_a=from_numpy(scheme.ksk_a, device),
     )
+
+
+def lmss_scheme(scheme, device) -> LmssScheme:
+    """A reference LmssScheme on `device`: `brk_hat` and `mono_hat` u32 as
+    int32 residues, the int8 key-switch tables as they are.  The reference's
+    Shoup companions `brk_shoup` and `mono_shoup` are dropped."""
+    return LmssScheme(**{f.name: from_numpy(getattr(scheme, f.name), device)
+                         for f in dataclasses.fields(LmssScheme)})
+
+
+def ccs_party_key(pk, device) -> CcsPartyKey:
+    """A reference CcsPartyKey (same field names) on `device`; the port's
+    `ccs.setup` builds the NTT-domain scheme from it."""
+    return CcsPartyKey(*(from_numpy(getattr(pk, f), device) for f in CcsPartyKey._fields))
 
 
 def mx_kms_keys(keys, device) -> MxKmsKeys:

@@ -33,6 +33,16 @@ def rgsw_encrypt(gen: torch.Generator, msg: torch.Tensor, key: RingKey, sigma: f
     return sample + onehot[:, None, :, None] * msgpoly[..., None, :, None, :]
 
 
+def rgsw_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Homomorphic RGSW add: the stacks add, wrapping (reference gsw.py:47)."""
+    return x + y
+
+
+def rgsw_sub(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Homomorphic RGSW subtract (reference gsw.py:53)."""
+    return x - y
+
+
 def rgsw_to_hat(stack: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
     """NTT-domain image of an RGSW stack (balanced lift)."""
     return fwd_ntt(lift(stack, ctx.crt), ctx.plan)

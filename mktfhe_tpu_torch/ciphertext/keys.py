@@ -18,9 +18,9 @@ from ..ring.torus import lift
 
 
 class LweKey(NamedTuple):
-    """Binary / block-binary LWE secret."""
+    """Binary / ternary / block-binary LWE secret."""
 
-    key: torch.Tensor  # [n] torus carrier, entries 0/1
+    key: torch.Tensor  # [n] torus carrier, entries 0/1 (or -1/0/1)
 
     @property
     def n(self) -> int:
@@ -44,6 +44,10 @@ def _mk_ringkey(coeffs: torch.Tensor, ctx: RingCtx) -> RingKey:
 
 def binary_lwe_key(gen: torch.Generator, n: int, dtype: torch.dtype) -> LweKey:
     return LweKey(key=uniform_binary(gen, (n,), dtype))
+
+
+def ternary_lwe_key(gen: torch.Generator, n: int, dtype: torch.dtype) -> LweKey:
+    return LweKey(key=uniform_ternary(gen, (n,), dtype))
 
 
 def block_binary_lwe_key(gen: torch.Generator, d: int, ell: int, dtype: torch.dtype) -> LweKey:

@@ -29,6 +29,28 @@ def rlwe_sample(gen: torch.Generator, key: RingKey, sigma: float, ctx: RingCtx, 
     return torch.cat([(e - s_dot_a)[..., None, :], a], dim=-2)
 
 
+def rlwe_encrypt_msg(gen: torch.Generator, msg: torch.Tensor, comp: int, key: RingKey, sigma: float, ctx: RingCtx, shape=()) -> torch.Tensor:
+    """Encrypt by adding `msg` to component `comp` of fresh samples
+    [*shape, k+1, N]: a polynomial msg [..., N] to the whole component, a
+    scalar (or a tensor whose last axis is not N) to its coefficient 0.
+    comp = 0 adds to b, comp = i to the mask a_i."""
+    ct = rlwe_sample(gen, key, sigma, ctx, shape)
+    msg = torch.as_tensor(msg, dtype=ctx.dtype, device=ct.device)
+    if msg.dim() == 0 or msg.shape[-1] != ctx.n:
+        ct[..., comp, 0] += msg
+    else:
+        ct[..., comp, :] += msg
+    return ct
+
+
+def rlwe_phase(ct: torch.Tensor, key: RingKey, ctx: RingCtx) -> torch.Tensor:
+    """b + sum_i s_i a_i, exact through the CRT-NTT; ct [..., k+1, N] ->
+    [..., N]."""
+    ahat = fwd_ntt(lift(ct[..., 1:, :], ctx.crt), ctx.plan)
+    acc = mulsum_mod(key.hat, ahat, -3, prime_column(ctx.nprimes, ct.device))
+    return ct[..., 0, :] + from_crt(inv_ntt(acc.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
+
+
 def gadget_gvec(l: int, log_b: int, dtype: torch.dtype, device) -> torch.Tensor:
     """g_j = 2^(T - (j+1) logB), j = 0..l-1, in the torus carrier."""
     t = bits_of(dtype)
@@ -39,9 +61,9 @@ def gadget_gvec(l: int, log_b: int, dtype: torch.dtype, device) -> torch.Tensor:
 def rlev_encrypt(gen: torch.Generator, msg: torch.Tensor, comp: int, key: RingKey, sigma: float, l: int, log_b: int, ctx: RingCtx) -> torch.Tensor:
     """RLEV: l RLWE rows encrypting g_j * msg on component `comp`.
 
-    msg: poly [N].  Returns [l, k+1, N].
+    msg: polys [..., N].  Returns [..., l, k+1, N].
     """
     gvec = gadget_gvec(l, log_b, ctx.dtype, msg.device)
-    ct = rlwe_sample(gen, key, sigma, ctx, shape=(l,))
-    ct[:, comp, :] += gvec[:, None] * msg[None, :]
+    ct = rlwe_sample(gen, key, sigma, ctx, shape=(*msg.shape[:-1], l))
+    ct[..., comp, :] += gvec[:, None] * msg[..., None, :]
     return ct

@@ -14,6 +14,22 @@ import torch
 from .torus import bits_of
 
 
+def rng_streams(gen, n: int) -> list[torch.Generator]:
+    """The n top-level sampling streams of a keygen.
+
+    `gen` is one `torch.Generator`, returned n times (its stream consumed in
+    the order the keygen draws, the deterministic path), or a sequence of n
+    generators, each seeded on its own (native/chacha.py:secure_generators:
+    64 fresh bits of CSPRNG output each, so a keygen draws >= 256 bits).
+    """
+    if isinstance(gen, torch.Generator):
+        return [gen] * n
+    gens = list(gen)
+    if len(gens) != n:
+        raise ValueError(f"expected {n} generators, got {len(gens)}")
+    return gens
+
+
 def uniform_torus(gen: torch.Generator, shape, dtype: torch.dtype) -> torch.Tensor:
     """Uniform torus elements; a 64-bit value is composed of two 32-bit draws."""
     dev = gen.device

@@ -1,5 +1,5 @@
-"""Scheme layer: parameters, presets, the CGGI single-key and KMS multi-key
-schemes, gates.
+"""Scheme layer: parameters, presets, the single-key CGGI and LMSS and the
+multi-key CCS and KMS (with its block variant) schemes, gates.
 
-Port of mktfhe_tpu/schemes/ (so far: CGGI, KMS and its block variant).
+Port of mktfhe_tpu/schemes/.
 """

@@ -22,11 +22,15 @@ import torch
 from ..ciphertext.gsw import external_product_hat, rgsw_encrypt, rgsw_to_hat, rlwe_decomp_hat
 from ..ciphertext.keys import LweKey, RingKey, binary_lwe_key, binary_ring_key
 from ..ciphertext.lwe import Lwe
-from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
+from ..kernels.ntt import fwd_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
-from ..ring.torus import from_crt, negacyclic_roll
-from .common import build_ksk, initial_acc, keyswitch_table, mod_switch_2n
+from ..ring.sampler import rng_streams
+from ..ring.torus import negacyclic_roll
+from .common import build_ksk, initial_acc, inv_to_torus, keyswitch_table, mod_switch_2n
 from .params import CggiParams
+
+# top-level sampling streams consumed by keygen (ring/sampler.rng_streams)
+KEYGEN_STREAMS = 4
 
 
 @dataclass(frozen=True)
@@ -43,20 +47,22 @@ def _ctx(params: CggiParams) -> RingCtx:
     return make_ring_ctx(params.big_n, params.torus_bits, params.nprimes)
 
 
-def setup(gen: torch.Generator, params: CggiParams) -> tuple[LweKey, RingKey, CggiScheme]:
-    """Keygen on the generator's device: (lwe_key, ring_key, scheme).
+def setup(gen, params: CggiParams) -> tuple[LweKey, RingKey, CggiScheme]:
+    """Keygen on the generators' device: (lwe_key, ring_key, scheme).
 
+    gen: one torch.Generator or KEYGEN_STREAMS of them (rng_streams).
     brk[i] = NTT(RGSW(s_i)); the ksk rows encrypt the ring-key coefficients
     in extraction order (common.build_ksk).
     """
     ctx = _ctx(params)
-    lwe_key = binary_lwe_key(gen, params.n, torch.int32)
-    ring_key = binary_ring_key(gen, params.k, ctx)
+    g_lwe, g_ring, g_brk, g_ksk = rng_streams(gen, KEYGEN_STREAMS)
+    lwe_key = binary_lwe_key(g_lwe, params.n, torch.int32)
+    ring_key = binary_ring_key(g_ring, params.k, ctx)
     brk = rgsw_encrypt(
-        gen, lwe_key.key.to(ctx.dtype), ring_key, params.beta, params.l_gsw, params.log_b_gsw, ctx
+        g_brk, lwe_key.key.to(ctx.dtype), ring_key, params.beta, params.l_gsw, params.log_b_gsw, ctx
     )
     coeffs = ring_key.key.reshape(-1).to(torch.int32)
-    ksk_b, ksk_a = build_ksk(gen, coeffs, lwe_key, params.f, params.log_d, params.alpha)
+    ksk_b, ksk_a = build_ksk(g_ksk, coeffs, lwe_key, params.f, params.log_d, params.alpha)
     return lwe_key, ring_key, CggiScheme(brk_hat=rgsw_to_hat(brk, ctx), ksk_b=ksk_b, ksk_a=ksk_a)
 
 
@@ -67,7 +73,7 @@ def blind_rotate(acc: torch.Tensor, tildea: torch.Tensor, scheme: CggiScheme, pa
     for i in range(params.n):
         dhat = rlwe_decomp_hat(acc, params.l_gsw, params.log_b_gsw, ctx, fwd_ntt_nat)
         ehat = external_product_hat(dhat, scheme.brk_hat[i], ctx)
-        e = from_crt(inv_ntt_nat(ehat.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
+        e = inv_to_torus(ehat, ctx)
         acc = acc + negacyclic_roll(e, tildea[:, i, None]) - e
     return acc
 

@@ -1,17 +1,19 @@
 """Scheme-agnostic bootstrapping machinery (port of schemes/common.py).
 
-Modulus switch, test-vector prologue and the key-switch epilogue.  The key
-switch keeps the reference's design: a signed one-hot of the balanced
-gadget digits contracted against int8 limb tables of fresh LWE
-encryptions, the four limbs recombined with wrapping shifts (exact mod
-2^32, one fresh noise unit per nonzero digit).
+Modulus switch, test-vector prologue and the key-switch epilogues (single
+key, per party, and LMSS's partial one).  The key switch keeps the
+reference's design: a signed one-hot of the balanced gadget digits
+contracted against int8 limb tables of fresh LWE encryptions, the four
+limbs recombined with wrapping shifts (exact mod 2^32, one fresh noise unit
+per nonzero digit).
 
 The reference ran that contraction as an int8 XLA dot outside any Pallas
 kernel.  Here it is a float64 library matmul (CUDA has no integer
 `torch.matmul`): every operand is an integer of at most 8 bits, so every
 partial sum is an integer bounded by R * 128, with R the contraction length
 (R = (N - n) * f * D/2 = 23,024 at KMS8partyblock, N * f * D/2 = 32,768 at
-the non-block KMS presets, k * N * f * D/2 = 16,384 at CGGI: |sum| <= 2^22).  That is far below 2^53, so the
+the non-block KMS presets, k * N * f * D/2 = 16,384 at CGGI and at CCS,
+(k * N - n) * f * D/2 = 5,392 at LMSS Block: |sum| <= 2^22).  That is far below 2^53, so the
 float64 product is exact in any summation order and under any math mode
 (TF32 never applies to float64).
 """
@@ -24,8 +26,10 @@ from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.keys import LweKey
 from ..ciphertext.lwe import Lwe, lwe_encrypt
 from ..ciphertext.rlwe import gadget_gvec
+from ..kernels.ntt import inv_ntt_nat
+from ..ring.context import RingCtx
 from ..ring.modring import MASK32
-from ..ring.torus import bits_of, divbits, negacyclic_roll, wrap_i32
+from ..ring.torus import bits_of, divbits, from_crt, negacyclic_roll, wrap_i32
 
 NLIMB = 4  # 8-bit limbs per u32 key-switch coefficient
 
@@ -46,6 +50,12 @@ def initial_acc(tildeb: torch.Tensor, big_n: int, k: int, ring_dtype: torch.dtyp
     acc = torch.zeros((*tildeb.shape, k + 1, big_n), dtype=ring_dtype, device=tildeb.device)
     acc[..., 0, :] = negacyclic_roll(base, tildeb)
     return acc
+
+
+def inv_to_torus(r: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
+    """Residues [..., npr, N] (int32 or int64, in [0, p)) -> torus polys
+    [..., N]: the NTT kernel's inverse transform, then Garner."""
+    return from_crt(inv_ntt_nat(r.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
 
 
 def to_signed_limbs(v: torch.Tensor) -> torch.Tensor:
@@ -147,3 +157,20 @@ def keyswitch_per_party(acc: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Ten
     db, da = limb_dot(flat, ksk_b, ksk_a)
     b = wrap_i32(b0.long() + db.sum(-1))
     return Lwe(b=b, a=wrap_i32(da).reshape(*flat.shape[:-2], -1))
+
+
+def keyswitch_partial(acc: torch.Tensor, n_free: int, ksk_b: torch.Tensor, ksk_a: torch.Tensor, f: int, log_d: int) -> Lwe:
+    """LMSS partial key switch (reference common.py:211-231).
+
+    The ring key's first n_free coefficients are the LWE key, so those
+    extracted coefficients of the flattened [k*N] mask pass through; the
+    tail goes through the balanced decomposition's signed one-hot against
+    the value table (ksk rows cover only the tail: R = (k*N - n_free) * f *
+    D/2).  acc: [..., k+1, N] u32 (int32 carrier); returns an Lwe of
+    dimension n_free.
+    """
+    arr = sample_extract_coeffs(acc[..., 1:, :])  # [..., k, N]
+    flat = arr.reshape(*arr.shape[:-2], -1)  # [..., k*N]
+    oh = signed_onehot(balanced_decomp(flat[..., n_free:], f, log_d), log_d)  # [..., tail, f*D/2]
+    db, da = limb_dot(oh.reshape(*oh.shape[:-2], -1), ksk_b, ksk_a)
+    return Lwe(b=wrap_i32(acc[..., 0, 0].long() + db), a=wrap_i32(flat[..., :n_free].long() + da))

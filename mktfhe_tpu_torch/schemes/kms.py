@@ -52,11 +52,13 @@ from ..kernels.fused_mx3 import phase1_sweep_plain
 from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
 from ..ring.modring import addmod, mulsum_mod, negmod, prime_column
+from ..ring.sampler import rng_streams
 from ..ring.ntt import fwd_ntt
-from ..ring.torus import from_crt, lift, wrap_i32
+from ..ring.torus import lift, wrap_i32
 from .common import (
     build_ksk,
     initial_acc,
+    inv_to_torus,
     keyswitch_per_party,
     limb_dot,
     mod_switch_2n,
@@ -92,6 +94,8 @@ class KmsScheme:
 
 
 AnyKmsParams = KmsParams | KmsBlockParams
+# top-level sampling streams consumed by keygen (ring/sampler.rng_streams)
+KEYGEN_STREAMS = 7
 # this engine's phase 1 is the sweep's loop in plain PyTorch with the NTT
 # kernel under its transforms
 _NTT_KERNEL = (fwd_ntt_nat, inv_ntt_nat)
@@ -106,28 +110,30 @@ def crs(gen: torch.Generator, params: AnyKmsParams) -> torch.Tensor:
     return sample_crs(gen, params.l_uni, _ctx(params))
 
 
-def party_keygen(gen: torch.Generator, crs_polys: torch.Tensor, params: AnyKmsParams):
-    """Independent per-party keygen; `gen` lives on the device of crs_polys.
+def party_keygen(gen, crs_polys: torch.Tensor, params: AnyKmsParams):
+    """Independent per-party keygen on the device of crs_polys.
 
+    gen: one torch.Generator or KEYGEN_STREAMS of them (rng_streams).
     Returns (lwe_key [int32], gsw_key, uni_key, KmsPartyKey).
     """
     ctx = _ctx(params)
     is_block = isinstance(params, KmsBlockParams)
+    g_lwe, g_gsw, g_uni, g_b, g_rlk, g_brk, g_ksk = rng_streams(gen, KEYGEN_STREAMS)
     if is_block:
-        lwe_key = block_binary_lwe_key(gen, params.d, params.ell, torch.int32)
-        uni_key = partial_ring_key(gen, 1, lwe_key, ctx)
+        lwe_key = block_binary_lwe_key(g_lwe, params.d, params.ell, torch.int32)
+        uni_key = partial_ring_key(g_uni, 1, lwe_key, ctx)
     else:
-        lwe_key = binary_lwe_key(gen, params.n, torch.int32)
-        uni_key = binary_ring_key(gen, 1, ctx)
-    gsw_key = binary_ring_key(gen, 1, ctx)
+        lwe_key = binary_lwe_key(g_lwe, params.n, torch.int32)
+        uni_key = binary_ring_key(g_uni, 1, ctx)
+    gsw_key = binary_ring_key(g_gsw, 1, ctx)
 
-    pub_b = gen_b(gen, crs_polys, uni_key, params.beta, ctx)
+    pub_b = gen_b(g_b, crs_polys, uni_key, params.beta, ctx)
     rlk = unienc_encrypt(
-        gen, gsw_key.key[0], crs_polys, uni_key, params.beta,
+        g_rlk, gsw_key.key[0], crs_polys, uni_key, params.beta,
         params.l_uni, params.log_b_uni, ctx,
     )
     brk = rgsw_encrypt(
-        gen, lwe_key.key.to(ctx.dtype), gsw_key, params.beta,
+        g_brk, lwe_key.key.to(ctx.dtype), gsw_key, params.beta,
         params.l_gsw, params.log_b_gsw, ctx,
     )
     # ksk encrypts the (binary) uni-key coefficients on the 2^32 torus under
@@ -135,7 +141,7 @@ def party_keygen(gen: torch.Generator, crs_polys: torch.Tensor, params: AnyKmsPa
     coeffs = uni_key.key[0].to(torch.int32)
     if is_block:
         coeffs = coeffs[params.n :]
-    ksk_b, ksk_a = build_ksk(gen, coeffs, lwe_key, params.f, params.log_d, params.alpha)
+    ksk_b, ksk_a = build_ksk(g_ksk, coeffs, lwe_key, params.f, params.log_d, params.alpha)
     return lwe_key, gsw_key, uni_key, KmsPartyKey(
         pub_b=pub_b, brk=brk, rlk_d=rlk.d, rlk_f=rlk.f, ksk_b=ksk_b, ksk_a=ksk_a
     )
@@ -213,12 +219,6 @@ def require_brk(scheme: KmsScheme, engine: str) -> None:
         )
 
 
-def _inv_to_torus(r: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
-    """int64 residues [..., npr, N] -> torus polys [..., N] (inverse NTT +
-    Garner)."""
-    return from_crt(inv_ntt_nat(r.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
-
-
 def phase1(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, params: KmsParams, ctx: RingCtx) -> torch.Tensor:
     """Single-key blind rotation over an RLEV accumulator.
 
@@ -252,7 +252,7 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     dhat = rlwe_decomp_hat(acc[:, :p1], params.l_lev, params.log_b_lev, ctx, fwd_ntt_nat)[:, :, :iter_rows]
     x = mulsum_mod(dhat, levkey[:, None, :, 0], -3, p)  # [G, p1, npr, N]
     y = mulsum_mod(dhat, levkey[:, None, :, 1], -3, p)
-    y_t = _inv_to_torus(y, ctx)  # [G, p1, N]
+    y_t = inv_to_torus(y, ctx)  # [G, p1, N]
 
     # hybrid product of y with this party's rlk
     yhat = rlwe_decomp_hat(y_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, p1, l, npr, N]
@@ -261,7 +261,7 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     if p1 > 1:
         vi = mulsum_mod(pub_h, yhat[:, 1:], -3, p)  # [G, p1-1, npr, N]
         v = torch.remainder(v + vi.sum(1), p)
-    v_t = _inv_to_torus(v, ctx)  # [G, N]
+    v_t = inv_to_torus(v, ctx)  # [G, N]
 
     vhat = rlwe_decomp_hat(v_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, l, npr, N]
     w_b = mulsum_mod(rf[:, 0], vhat, -3, p)
@@ -269,7 +269,7 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
 
     tx = addmod(x, u, p)
     tx[:, 0] = addmod(tx[:, 0], w_b, p)
-    new = _inv_to_torus(torch.cat([tx, w_a[:, None]], dim=1), ctx)  # [G, p1+1, N]
+    new = inv_to_torus(torch.cat([tx, w_a[:, None]], dim=1), ctx)  # [G, p1+1, N]
     out = torch.zeros_like(acc)
     out[:, : p1 + 1] = new
     return out

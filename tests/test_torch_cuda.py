@@ -21,13 +21,14 @@ import dataclasses
 import pytest
 import torch
 
+from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
-from mktfhe_tpu_torch.schemes import kms
-from mktfhe_tpu_torch.schemes.params import CggiParams, KmsBlockParams, KmsParams
+from mktfhe_tpu_torch.schemes import ccs, gates, kms, lmss
+from mktfhe_tpu_torch.schemes.params import BlockParams, CcsParams, CggiParams, KmsBlockParams, KmsParams
 
 pytestmark = pytest.mark.cuda
 
@@ -524,3 +525,58 @@ def test_butterfly_rate_kernel_on_cuda(device):
         assert int(one.min()) >= 0  # canonical residues below a 30-bit prime
     rate = butterfly_rate.measure(device, rounds=200)
     assert all(rate[k] > 0 for k in ("fwd_one_cta", "fwd_full", "inv_one_cta", "inv_full"))
+
+
+# the tiny sets of tests/test_lmss.py and tests/test_ccs.py (this file imports no jax), and
+# TINY with a gadget whose w contraction has 3 * 6 = 18 > 16 terms
+LMSS_TINY = BlockParams(d=8, ell=2, alpha=16.0, f=8, log_d=2, big_n=64, k=1, beta=16.0, l_gsw=3, log_b_gsw=8)
+CCS_TINY = CcsParams(n=8, alpha=16.0, f=8, log_d=2, big_n=64, beta=4.0, l_uni=3, log_b_uni=8, k=2)
+
+
+def _on(obj, device):
+    """A scheme dataclass with every tensor on `device`."""
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)})
+
+
+def _same_on_card(device, bootstrap, scheme, ct):
+    """The bootstrap of `ct` on the card equals the CPU's bit for bit and
+    launched the natural NTT kernel; returns the CPU's output."""
+    want = bootstrap(ct, scheme)
+    kntt.reset_launches()
+    got = bootstrap(Lwe(b=ct.b.to(device), a=ct.a.to(device)), _on(scheme, device))
+    assert kntt.fwd_ntt_nat.launches > 0 and kntt.inv_ntt_nat.launches > 0
+    assert torch.equal(got.b.cpu(), want.b) and torch.equal(got.a.cpu(), want.a)
+    return want
+
+
+def test_lmss_bootstrap_card_equals_cpu(device):
+    gen = torch.Generator().manual_seed(11)
+    lwe_key, _, scheme = lmss.setup(gen, LMSS_TINY)
+    ops = list(gates.GATE_IDS)
+    m1, m2 = (torch.randint(0, 2, (len(ops),), generator=gen) for _ in range(2))
+    ct1, ct2 = (gates.lwe_encrypt_bit(gen, m, lwe_key, LMSS_TINY.alpha, (len(ops),)) for m in (m1, m2))
+    op_ids = torch.tensor([gates.GATE_IDS[o] for o in ops])
+    out = _same_on_card(device, lambda ct, s: lmss.bootstrap(ct, s, LMSS_TINY), scheme,
+                        gates.gate_affine(op_ids, ct1, ct2))
+    want = [gates.CLEAR_OPS[o](bool(a), bool(b)) for o, a, b in zip(ops, m1, m2)]
+    assert gates.lwe_decrypt_bit(out, lwe_key).tolist() == want
+    assert kntt.fwd_ntt_nat.launches == kntt.inv_ntt_nat.launches == LMSS_TINY.d
+
+
+@pytest.mark.parametrize("params", [CCS_TINY, dataclasses.replace(CCS_TINY, k=4),
+                                    dataclasses.replace(CCS_TINY, l_uni=6, log_b_uni=4)],
+                         ids=["k2", "k4", "wide"])
+def test_ccs_bootstrap_card_equals_cpu(device, params):
+    gen = torch.Generator().manual_seed(31)
+    a = ccs.crs(gen, params)
+    parties = [ccs.party_keygen(gen, a, params) for _ in range(params.k)]
+    lwe_keys = [p[0] for p in parties]
+    scheme = ccs.setup(a, [p[2] for p in parties], params)
+    m1, m2 = (torch.randint(0, 2, (4,), generator=gen) for _ in range(2))
+    ct1 = gates.lwe_ith_encrypt_bit(gen, m1, 0, lwe_keys[0], params.alpha, params.k, (4,))
+    ct2 = gates.lwe_ith_encrypt_bit(gen, m2, 1, lwe_keys[1], params.alpha, params.k, (4,))
+    out = _same_on_card(device, lambda ct, s: ccs.bootstrap(ct, s, params), scheme,
+                        gates.gate_affine(gates.GATE_IDS["NAND"], ct1, ct2))
+    assert gates.lwe_decrypt_bit_mk(out, lwe_keys).tolist() == [not (x and y) for x, y in zip(m1.tolist(), m2.tolist())]
+    steps = params.k * params.n
+    assert kntt.fwd_ntt_nat.launches == kntt.inv_ntt_nat.launches == 2 * steps
