@@ -82,6 +82,23 @@ Phases, each printing one line; any failure exits non-zero:
      decrypt-checked `ccs.bootstrap` of 128 gates on CCS8partyTight;
  21. the port's CLI, `python -m mktfhe_tpu_torch.cli`, as a subprocess with
      ChaCha seeding at Block and CCS2partyTight: both must exit 0 and print OK;
+ 23. serialization on the card: the KMS8party scheme without `brk_hat`, its
+     mx keys and the CGGI scheme saved (`utils.save`) and loaded back onto
+     the card; `bootstrap_mx2` and `bootstrap_fused` on the loaded keys give
+     phases 17's and 13's outputs bit for bit; the files phase 26 loads;
+ 24. noise: `utils.noise.noise_report` on the outputs of phases 6, 13, 17,
+     19 and 20 beside MARGINS.md's rows (margins.json); fails where an
+     error reaches the margin;
+ 25. named ranges: one `bootstrap_mx3` (KMS8partyblock) and one
+     `bootstrap_mx2` (KMS8party) under `utils.profiling.trace`, the device ms
+     of each named phase range, which must hold 95% of the device busy time,
+     and the cost model's summary against the H100's peaks;
+ 26. the party-sharded bootstrap (`parallel/`) in ranks spawned after the
+     build, loading phase 23's files: NCCL, one rank, the mx2 engine; gloo,
+     two ranks sharing the card: mx2 with phase 2 replicated and with
+     shard_phase2, the batch-minor engine, `kms_bootstrap_sharded` and the
+     reference engine at KMS8partyblock; every output equal to the
+     single-process one and decrypt-checked, every rank's launches counted;
  22. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
@@ -92,17 +109,22 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from mktfhe_tpu_torch import bridge
 from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
+from mktfhe_tpu_torch.parallel.launch import Job, bootstrap_jobs, run_ranks
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
@@ -129,6 +151,7 @@ from mktfhe_tpu_torch.schemes.presets import (
 )
 from mktfhe_tpu_torch.tools import butterfly_rate
 from mktfhe_tpu_torch.tools.time_sweeps import device_ms
+from mktfhe_tpu_torch.utils import load, noise, profiling, save
 
 BATCH = 128
 CHAIN = 2
@@ -575,7 +598,9 @@ def profile_bootstrap(bootstrap, ct, scheme, params, parts: dict, top: int = 6) 
     on_device = torch.autograd.DeviceType.CUDA
     by_name: dict[str, list] = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == on_device and e.duration_ns() > 0:
+        # the device rows of the named phase ranges (utils/profiling.py) span
+        # kernels, they are none
+        if e.device_type() == on_device and e.duration_ns() > 0 and not e.is_user_annotation():
             row = by_name.setdefault(e.name(), [0.0, 0])
             row[0] += e.duration_ns() / 1e6
             row[1] += 1
@@ -838,12 +863,13 @@ def check_mx_sweep(gen, params, brk_mx_p, g: int, rows: int) -> tuple[int, tuple
 
 
 def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_rows: list[dict],
-            bm_rows: list[dict], bm_times: dict) -> list[dict]:
+            bm_rows: list[dict], bm_times: dict, state: dict) -> list[dict]:
     """Phases 15-18: the KMS path on mx-domain keys with its kernel, and the
     KMS batch-minor engine; returns the mx sweep's row of the kernels line
     and adds the natural NTT's launches on `bootstrap_mx2` by shape to its
     rows (`ntt_rows`), the batch-minor NTT's on `kms.bootstrap_bm` to its
-    (`bm_rows`, with phase 10's times `bm_times`)."""
+    (`bm_rows`, with phase 10's times `bm_times`); the keys and the output of
+    `bootstrap_mx2` go into `state`."""
     params = KMS_8PARTY
     lwe_keys, party_keys = binary["lwe_keys"], binary["party_keys"]
     # 15. mx-domain keys
@@ -970,6 +996,8 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
         f"{bm_launches['inv_bm']}, natural NTT fwd {bm_launches['fwd']} inv {bm_launches['inv']} ({smi})"
     )
     profile_bm(gen, device, "18b", "kms.bootstrap_bm", bootstrap_bm, ct, lean, params, bm_shapes, bm_times, bm_rows, smi)
+    state["mx2"] = {"lean": lean, "mx_keys": mx_keys, "bm_keys": bm_keys, "out": boot["first"], "chain_s": dt}
+    state["noise"].append(("bootstrap_mx2 [17]", "KMS8party", boot["first"], lwe_keys, ~(m1 & m2)))
 
     return [kernel_row(
         "mx_sweep_binary", "mx_sweep.cu", "mktfhe_tpu/kernels/fused_mx2.py:217", launches["mx"],
@@ -997,10 +1025,11 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, bound) -> di
     }
 
 
-def run_kms(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict], dict]:
+def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tuple[list[dict], dict]:
     """Phases 3-9: the KMS paths and their kernels; returns their rows of
     the kernels line, and the KMS8party keys, ciphertext and `bootstrap_mx3`
-    output that the later phases go on from."""
+    output that the later phases go on from; the KMS8partyblock keys,
+    ciphertext and output go into `state` for phases 24-26."""
     # 3. NTT kernel vs plain version
     ntt = check_ntt(gen, device, usage["ntt"])
     (kf, pf), (ki, pi) = ntt["times"]["fwd"], ntt["times"]["inv"]
@@ -1123,6 +1152,10 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict],
         f"{bin_launches['sweep']}, NTT fwd {bin_launches['fwd']} inv {bin_launches['inv']} ({smi})"
     )
 
+    state["block"] = {"scheme": scheme, "lwe_keys": lwe_keys, "ct": ct, "out": boot["first"],
+                      "want": ~(m1 & m2), "chain_s": dt}
+    state["noise"].append(("bootstrap_mx3 [6]", "KMS8partyblock", boot["first"], lwe_keys, ~(m1 & m2)))
+
     # 9. key switch on the card vs the CPU
     check_keyswitch(gen, params, scheme)
     print("[9 keyswitch] 4 gates: card == CPU, bit-exact (float64 limb matmul)")
@@ -1171,9 +1204,10 @@ def profile_bm(gen, device, tag: str, what: str, bootstrap, ct, keys, params, sh
             {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
 
 
-def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict], dict]:
+def run_cggi(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tuple[list[dict], dict]:
     """Phases 10-14: the single-key CGGI path and its kernels; returns their
-    rows of the kernels line and the batch-minor NTT's times by shape."""
+    rows of the kernels line and the batch-minor NTT's times by shape; the
+    scheme, ciphertext and `bootstrap_fused` output go into `state`."""
     params = CGGI_PARAM
 
     # 10. batch-minor NTT kernel vs plain version
@@ -1234,6 +1268,8 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict) -> tuple[list[dict]
     )
     prof = profile_bootstrap(fused_step.bootstrap_fused, ct, bm, params, {"step kernel": "cggi_step_kernel"})
     print(profile_line("13b profile", "bootstrap_fused", prof, smi))
+    state["cggi"] = {"scheme": scheme, "ct": ct, "out": boot["first"]}
+    state["noise"].append(("bootstrap_fused [13]", "CGGI", boot["first"], [lwe_key], ~(m1 & m2)))
 
     # 14. the other two engines on the same ciphertext: same bits
     want = ~(m1 & m2)
@@ -1314,7 +1350,7 @@ def gate_path_ntt_shapes() -> set[tuple]:
 
 
 def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, decrypt,
-             batch: int, per_bootstrap: int, times: dict, rate: dict, ntt_rows: list[dict], smi: str) -> None:
+             batch: int, per_bootstrap: int, times: dict, rate: dict, ntt_rows: list[dict], smi: str) -> Lwe:
     """A path whose every NTT goes through the natural NTT kernel: a
     decrypt-checked bootstrap and a chain of GATE_CHAIN more (counts reset
     just before, read just after: `per_bootstrap` forward and as many inverse
@@ -1322,7 +1358,8 @@ def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, dec
     against the CPU path, one warm bootstrap under torch.profiler, and the
     kernel's launches by shape x the time at each (`times`, taken
     beforehand) against the profile, and each shape's time against its bound
-    (`ntt_bound`), added to its rows of the kernels line (`ntt_rows`)."""
+    (`ntt_bound`), added to its rows of the kernels line (`ntt_rows`).
+    Returns the first bootstrap's output."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1365,9 +1402,10 @@ def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, dec
     for row, d in zip(ntt_rows, ("fwd", "inv")):
         row["launches_by_shape"] += [
             {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
+    return boot["first"]
 
 
-def run_lmss(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict]) -> None:
+def run_lmss(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state: dict) -> None:
     """Phase 19: the LMSS gate bootstrap on preset Block (d = 229 blocks of
     ell = 3), keygen on the card, then `ntt_path`: 229 forward and 229
     inverse launches a bootstrap, one of each a block."""
@@ -1385,11 +1423,12 @@ def run_lmss(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict]) -> No
         f"was held before {(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB ({smi})"
     )
     ct, c2, m1, m2 = cggi_gate_inputs(gen, params, lwe_key, LMSS_BATCH)
-    ntt_path("19", "lmss.bootstrap", lmss.bootstrap, ct, c2, m1, m2, scheme, params,
-             lambda out: lwe_decrypt_bit(out, lwe_key), LMSS_BATCH, params.d, times, rate, ntt_rows, smi)
+    out = ntt_path("19", "lmss.bootstrap", lmss.bootstrap, ct, c2, m1, m2, scheme, params,
+                   lambda out: lwe_decrypt_bit(out, lwe_key), LMSS_BATCH, params.d, times, rate, ntt_rows, smi)
+    state["noise"].append(("lmss.bootstrap [19]", "Block", out, [lwe_key], ~(m1 & m2)))
 
 
-def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict]) -> None:
+def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state: dict) -> None:
     """Phase 20: the CCS gate bootstrap on CCS2partyTight and CCS4partyTight
     (keygen on the card, then `ntt_path`: 2 * k * n forward and as many
     inverse launches a bootstrap, two of each a step), then once on
@@ -1420,8 +1459,9 @@ def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict]) -> Non
             return lwe_decrypt_bit_mk(out, lwe_keys)
 
         if params is not CCS_8PARTY_TIGHT:
-            ntt_path("20", f"ccs.bootstrap {name}", ccs.bootstrap, ct, c2, m1, m2, scheme,
-                     params, decrypt, batch, 2 * params.k * params.n, times, rate, ntt_rows, smi)
+            out = ntt_path("20", f"ccs.bootstrap {name}", ccs.bootstrap, ct, c2, m1, m2, scheme,
+                           params, decrypt, batch, 2 * params.k * params.n, times, rate, ntt_rows, smi)
+            state["noise"].append(("ccs.bootstrap [20]", name, out, lwe_keys, ~(m1 & m2)))
             continue
         reset_launches()
         t0 = time.time()
@@ -1449,6 +1489,239 @@ def run_cli(smi: str) -> None:
             raise SystemExit(f"{' '.join(cmd[1:])} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
         print(f"[21 cli] {' '.join(cmd[1:])}: exit 0 in {time.time() - t0:.1f} s; "
               + " | ".join(lines[-3:]) + f" ({smi})")
+
+
+# The card's peaks for the cost model's summary (utils/profiling.py): its
+# integer operations at INT32_OPS_PER_S, its matmul work (the key switch's
+# float64 gemm) at the FP64 tensor-core rate, 67 TFLOP/s on the H100 SXM data
+# sheet, a multiply-add counted as two, and device memory at HBM_BYTES_PER_S.
+FP64_TENSOR_MACS_PER_S = 33.5e12
+H100_PEAKS = {"peak_vpu": INT32_OPS_PER_S, "peak_mxu": FP64_TENSOR_MACS_PER_S, "peak_hbm": HBM_BYTES_PER_S}
+PROFILE_TRIES = 3
+RANGE_COVERAGE = 0.95  # the share of device busy time the named ranges must hold
+SHARD_REPS = 2  # bootstraps of each mx2 job in the ranks: the first warms, the last is timed
+
+
+def fields_equal(got, want) -> bool:
+    return all(torch.equal(getattr(got, f.name), getattr(want, f.name)) for f in dataclasses.fields(want))
+
+
+def run_serialization(state: dict, binary: dict, tmp: str, device, smi: str) -> dict:
+    """Phase 23: the KMS8party scheme without `brk_hat`, its MxKmsKeys and the
+    CGGI scheme saved (`utils.save`) and loaded back onto the card
+    (`utils.load`); `bootstrap_mx2` and `bootstrap_fused` on the loaded keys
+    must give phases 17's and 13's outputs bit for bit.  Then the files that
+    phase 26's ranks load: the KMS8party ciphertext, the batch-minor phase-1
+    keys, the KMS8partyblock scheme and its ciphertext.  Returns the paths."""
+    objs = {"kms8party_scheme": state["mx2"]["lean"], "kms8party_mx_keys": state["mx2"]["mx_keys"],
+            "cggi_scheme": state["cggi"]["scheme"]}
+    paths = {name: os.path.join(tmp, f"{name}.npz") for name in objs}
+    sizes, save_s, load_s, loaded = {}, {}, {}, {}
+    for name, obj in objs.items():
+        t0 = time.time()
+        save(paths[name], obj)
+        save_s[name] = time.time() - t0
+        sizes[name] = os.path.getsize(paths[name])
+        t0 = time.time()
+        loaded[name] = load(paths[name], device)
+        torch.cuda.synchronize()
+        load_s[name] = time.time() - t0
+        if not fields_equal(loaded[name], obj):
+            raise SystemExit(f"{name}: the loaded object differs from the saved one")
+    out = fused_mx2.bootstrap_mx2(binary["ct"], loaded["kms8party_scheme"], loaded["kms8party_mx_keys"], KMS_8PARTY)
+    want = state["mx2"]["out"]
+    if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
+        raise SystemExit("bootstrap_mx2 on the loaded keys differs from phase 17's output")
+    bm = batchminor.convert_scheme(loaded["cggi_scheme"], CGGI_PARAM)
+    out = fused_step.bootstrap_fused(state["cggi"]["ct"], bm, CGGI_PARAM)
+    want = state["cggi"]["out"]
+    if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
+        raise SystemExit("bootstrap_fused on the loaded CGGI scheme differs from phase 13's output")
+    del loaded, bm
+    print(
+        "[23 serialization] save / load onto the card, every field equal: " + "; ".join(
+            f"{name} {sizes[name] / 1e6:.1f} MB, save {save_s[name]:.2f} s, load {load_s[name]:.2f} s"
+            for name in objs) + "; bootstrap_mx2 (KMS8party) and bootstrap_fused (CGGI) on the loaded keys "
+        f"== phases 17 and 13, bit for bit; {shutil.disk_usage(tmp).free / 1e9:.0f} GB free in the "
+        f"temporary directory ({smi})"
+    )
+    t0 = time.time()
+    more = {"kms8party_ct": binary["ct"], "kms8party_bm_keys": state["mx2"]["bm_keys"],
+            "kms8partyblock_scheme": state["block"]["scheme"], "kms8partyblock_ct": state["block"]["ct"]}
+    for name, obj in more.items():
+        paths[name] = os.path.join(tmp, f"{name}.npz")
+        save(paths[name], obj)
+    print(f"[23b files for phase 26] " + ", ".join(
+        f"{name} {os.path.getsize(paths[name]) / 1e6:.1f} MB" for name in more) + f" saved in {time.time() - t0:.2f} s")
+    return paths
+
+
+def run_noise(state: dict, smi: str) -> None:
+    """Phase 24: `noise_report` on outputs of earlier phases, beside
+    MARGINS.md's row (margins.json) for the same preset; fails where the
+    largest error reaches the margin."""
+    rows = {row["preset"]: row for row in json.loads((Path(__file__).resolve().parent / "margins.json").read_text())}
+    parts = []
+    for label, preset, out, keys, want in state["noise"]:
+        rep = noise.noise_report(out, keys, want)
+        if rep["max_abs_bits"] >= rep["margin_bits"]:
+            raise SystemExit(f"{label} {preset}: phase error reaches the margin: {rep}")
+        row = rows[preset]
+        parts.append(
+            f"{label} {preset}, {rep['samples']} gates: {rep['margin_sigmas']:.2f} sigma, std "
+            f"{rep['std_bits']:.2f} bits, max |err| {rep['max_abs_bits']:.2f} of {rep['margin_bits']:.0f} bits "
+            f"(MARGINS.md: {row['margin_sigmas']} sigma, std {row['std_bits']} bits at batch {row['batch']})")
+    print("[24 noise] statistics of exact arithmetic, not speeds: " + "; ".join(parts) + f" ({smi})")
+
+
+def profile_phases(bootstrap, ct, scheme, params, logdir: str) -> dict:
+    """Device ms by named range over one warm `bootstrap` under
+    `profiling.trace`; a profile with no device time is taken again, up to
+    PROFILE_TRIES times in all, then raises."""
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profiling.trace(logdir) as prof:
+            bootstrap(ct, scheme, params).b.cpu()
+            torch.cuda.synchronize()
+        ms = profiling.phase_device_ms(prof)
+        if sum(ms.values()) > 0:
+            return ms
+        time.sleep(0.5)
+    raise SystemExit("torch.profiler recorded no device time in the named ranges' profile")
+
+
+def run_named_ranges(state: dict, binary: dict, tmp: str, smi: str) -> None:
+    """Phase 25: one warm `bootstrap_mx3` (KMS8partyblock) and one
+    `bootstrap_mx2` (KMS8party) under `profiling.trace`, the device ms of each
+    named range (`phase_device_ms`), which must hold RANGE_COVERAGE of the
+    device busy time; then the cost model's summary against the H100's peaks
+    at the chains' times of phases 6 and 17."""
+    mx_keys = state["mx2"]["mx_keys"]
+    cases = (
+        ("bootstrap_mx3", fused_mx3.bootstrap_mx3, state["block"]["ct"], state["block"]["scheme"],
+         KMS_8PARTY_BLOCK, state["block"]["chain_s"]),
+        ("bootstrap_mx2", lambda ct, scheme, params: fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params),
+         binary["ct"], state["mx2"]["lean"], KMS_8PARTY, state["mx2"]["chain_s"]),
+    )
+    for what, bootstrap, ct, scheme, params, chain_s in cases:
+        ms = profile_phases(bootstrap, ct, scheme, params, os.path.join(tmp, f"trace_{what}"))
+        busy = sum(ms.values())
+        covered = 1 - ms[profiling.OUTSIDE] / busy
+        if covered < RANGE_COVERAGE:
+            raise SystemExit(f"{what}: the named ranges hold {covered:.3f} of the device time: {ms}")
+        phase1 = sum(v for k, v in ms.items() if k.startswith("mktfhe/phase1/"))
+        merges = [v for k, v in ms.items() if k.startswith("mktfhe/phase2/")]
+        cost = profiling.kms_cost(params, "ref", params.ring_nprimes)
+        # the JAX package's TPU operation model, not the port's arithmetic: its
+        # utilization against the card's peak is left out (each kernel's own
+        # bound is in the kernels line)
+        summary = cost.summary(BATCH, chain_s, **H100_PEAKS)
+        del summary["vpu_utilization"]
+        print(
+            f"[25 named ranges] {what} {'KMS8partyblock' if params is KMS_8PARTY_BLOCK else 'KMS8party'} batch "
+            f"{BATCH}, one warm bootstrap, device busy {busy:.2f} ms: mod_switch {ms['mktfhe/mod_switch']:.3f} ms, "
+            f"phase 1 (sweeps, {params.k} parties) {phase1:.2f} ms, levkey_lift {ms['mktfhe/levkey_lift']:.3f} ms, "
+            f"phase 2 {sum(merges):.2f} ms (merges 1..{params.k}: " + ", ".join(f"{v:.2f}" for v in merges)
+            + f"), keyswitch {ms['mktfhe/keyswitch']:.3f} ms, outside every range {ms[profiling.OUTSIDE]:.3f} ms; "
+            f"the ranges hold {covered:.2%}; bounds of the JAX TPU op model, not the port's arithmetic "
+            f"(the JAX package's count, engine 'ref', "
+            f"{params.ring_nprimes} primes) against the H100's peaks (int32 {INT32_OPS_PER_S / 1e12:.1f} T ops/s, "
+            f"fp64 tensor {FP64_TENSOR_MACS_PER_S / 1e12:.1f} T MAC/s, {HBM_BYTES_PER_S / 1e12:.2f} TB/s) at the "
+            f"chain's {chain_s * 1e3:.1f} ms a batch: " + ", ".join(f"{k} {v:.4g}" for k, v in summary.items())
+            + f" ({smi})"
+        )
+
+
+def check_rank_results(job: str, ranks: list[list[dict]], index: int, want: Lwe, keys, clear, expect: dict) -> dict:
+    """Every rank's output of job `index` equals `want` and decrypts to
+    `clear`; every rank launched exactly `expect`'s kernels (the others not
+    at all) and imported no jax.  Returns the slowest rank's result."""
+    for rank, results in enumerate(ranks):
+        res = results[index]
+        out = Lwe(b=bridge.from_numpy(res["b"], want.b.device), a=bridge.from_numpy(res["a"], want.a.device))
+        if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
+            raise SystemExit(f"{job}: rank {rank}'s output differs from the single-process output")
+        if not np.array_equal(lwe_decrypt_bit_mk(out, keys).cpu().numpy(), clear):
+            raise SystemExit(f"{job}: rank {rank}'s output does not decrypt to the clear NAND")
+        got = res["launches"] = {k: v for k, v in res["launches"].items() if v}
+        if got != expect:
+            raise SystemExit(f"{job}: rank {rank} launched {got}, expected {expect}")
+        if res["jax"] or res["mktfhe_tpu"]:
+            raise SystemExit(f"{job}: rank {rank} imported jax or the JAX package")
+    return max((results[index] for results in ranks), key=lambda r: r["ms"])
+
+
+def shard_launches(params, kp: int, engine: str) -> dict:
+    """The kernel launches of one rank's sharded bootstrap with kp resident
+    parties: phase 1 by engine (the mx sweep once a party; the batch-minor
+    NTT once a step each way; the reference engine's natural NTT once a step
+    each way), each party's lev key lifted by one forward natural NTT, and 3
+    forward + 3 inverse natural NTTs a merge of phase 2."""
+    steps = params.n // (params.ell if isinstance(params, KmsBlockParams) else 1)
+    merges = 3 * params.k
+    if engine == "mx2":
+        return {"mx": kp, "fwd": kp + merges, "inv": merges}
+    if engine == "bm":
+        return {"fwd_bm": kp * steps, "inv_bm": kp * steps, "fwd": kp + merges, "inv": merges}
+    return {"fwd": kp * steps + kp + merges, "inv": kp * steps + merges}
+
+
+def run_sharded(state: dict, binary: dict, paths: dict, smi: str) -> None:
+    """Phase 26: the party-sharded bootstrap in ranks that load their keys
+    from phase 23's files (parallel/launch.py:bootstrap_jobs), the kernels
+    built by phase 2: (a) NCCL, one rank, a (1, 1) mesh, the mx2 engine at
+    KMS8party; (b) gloo, two ranks sharing cuda:0, a (party 2, batch 1) mesh:
+    mx2 with phase 2 replicated and with shard_phase2, the batch-minor
+    engine, `kms_bootstrap_sharded` and the reference engine at
+    KMS8partyblock.  Every output must equal the single-process output of
+    the same ciphertext and decrypt to the clear NAND; every rank's kernel
+    launches are held against `shard_launches`."""
+    p8, pb = KMS_8PARTY, KMS_8PARTY_BLOCK
+    mx2 = dict(params=p8, scheme=paths["kms8party_scheme"], ct=paths["kms8party_ct"],
+               phase1_keys=paths["kms8party_mx_keys"], reps=SHARD_REPS)
+    block = dict(params=pb, scheme=paths["kms8partyblock_scheme"], ct=paths["kms8partyblock_ct"])
+    bin_want, bin_keys, bin_clear = state["mx2"]["out"], binary["lwe_keys"], ~(binary["m1"] & binary["m2"])
+    blk_want, blk_keys, blk_clear = state["block"]["out"], state["block"]["lwe_keys"], state["block"]["want"]
+
+    t0 = time.time()
+    ranks = run_ranks(bootstrap_jobs, 1, "nccl", ([Job("mx2", mesh=(1, 1), **mx2)],), "cuda")
+    res = check_rank_results("(a) nccl mx2", ranks, 0, bin_want, bin_keys, bin_clear, shard_launches(p8, p8.k, "mx2"))
+    print(
+        f"[26a sharded, nccl] kms_bootstrap_shardmap, 1 rank, mesh (1, 1), mx2 engine, KMS8party NAND batch "
+        f"{BATCH}: == bootstrap_mx2 of phase 17 bit for bit, decrypt OK, launches {res['launches']}; "
+        f"{res['ms']:.1f} ms a bootstrap (warm); {time.time() - t0:.1f} s with the rank's start and key load ({smi})"
+    )
+
+    jobs = [
+        Job("mx2", mesh=(2, 1), **mx2),
+        Job("mx2 shard_phase2", mesh=(2, 1), shard_phase2=True, **mx2),
+        Job("bm", params=p8, scheme=paths["kms8party_scheme"], ct=paths["kms8party_ct"],
+            phase1_keys=paths["kms8party_bm_keys"], mesh=(2, 1)),
+        Job("kms_bootstrap_sharded", mesh=(2, 1), sharded=True, **block),
+        Job("ref", mesh=(2, 1), **block),
+    ]
+    cases = [(bin_want, bin_keys, bin_clear, p8, "mx2"), (bin_want, bin_keys, bin_clear, p8, "mx2"),
+             (bin_want, bin_keys, bin_clear, p8, "bm"), (blk_want, blk_keys, blk_clear, pb, "ref"),
+             (blk_want, blk_keys, blk_clear, pb, "ref")]
+    t0 = time.time()
+    ranks = run_ranks(bootstrap_jobs, 2, "gloo", (jobs,), "cuda")
+    wall = time.time() - t0
+    parts = []
+    for index, (job, (want, keys, clear, params, engine)) in enumerate(zip(jobs, cases)):
+        res = check_rank_results(f"(b) gloo {job.name}", ranks, index, want, keys, clear,
+                                 shard_launches(params, params.k // 2, engine))
+        held = max(results[index]["key_bytes"] for results in ranks)
+        whole = sum(os.path.getsize(path) for path in (job.scheme, job.phase1_keys) if path)
+        parts.append(f"{job.name} ({'KMS8partyblock' if params is pb else 'KMS8party'}): {res['ms']:.1f} ms"
+                     f"{' (warm)' if job.reps > 1 else ''}, launches a rank {res['launches']}, keys a rank "
+                     f"{held / 1e9:.3f} GB of {whole / 1e9:.3f} GB")
+    print(
+        f"[26b sharded, gloo] 2 ranks sharing cuda:0 (their SMs shared: a check of bits and wiring, not a "
+        f"scaling number), mesh (party 2, batch 1), batch {BATCH}, every output == the single-process output "
+        f"of the same ciphertext (phases 17 and 6) bit for bit on both ranks, decrypt OK; per job the slowest "
+        f"rank's ms a bootstrap: " + "; ".join(parts) + f"; {wall:.1f} s with the ranks' start and key loads "
+        f"({smi})"
+    )
 
 
 def main() -> int:
@@ -1497,22 +1770,31 @@ def main() -> int:
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    kernels, binary = run_kms(gen, device, smi, usage, rate)
-    cggi_rows, bm_times = run_cggi(gen, device, smi, usage, rate)
+    state = {"noise": []}  # what phases 23-26 take from the earlier ones
+    kernels, binary = run_kms(gen, device, smi, usage, rate, state)
+    cggi_rows, bm_times = run_cggi(gen, device, smi, usage, rate, state)
     kernels += cggi_rows
-    kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2], cggi_rows[:2], bm_times)
+    kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2], cggi_rows[:2], bm_times, state)
 
     # B1 at every shape of phases 19 and 20, timed before their profiles of
     # 10^5-10^6 events: after those, short profiles have come back empty
     t_gates = time.time()
     gate_times = time_ntt_shapes(gen, device, gate_path_ntt_shapes())
-    run_lmss(gen, smi, gate_times, rate, kernels[:2])
-    run_ccs(gen, smi, gate_times, rate, kernels[:2])
+    run_lmss(gen, smi, gate_times, rate, kernels[:2], state)
+    run_ccs(gen, smi, gate_times, rate, kernels[:2], state)
     run_cli(smi)
 
+    # 23-26: serialization, noise, named ranges, the sharded path
+    t_tools = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = run_serialization(state, binary, tmp, device, smi)
+        run_noise(state, smi)
+        run_named_ranges(state, binary, tmp, smi)
+        run_sharded(state, binary, paths, smi)
+
     # 22. results
-    print(f"[22 done] {time.time() - t_start:.1f} s in all, phases 19-21 {time.time() - t_gates:.1f} s; "
-          f"{NO_LIBRARY_CALL}")
+    print(f"[22 done] {time.time() - t_start:.1f} s in all, phases 19-21 {t_tools - t_gates:.1f} s, "
+          f"23-26 {time.time() - t_tools:.1f} s; {NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -23,7 +23,7 @@ from .kernels.fused_mx2 import MxKmsKeys
 from .schemes import params as _params
 from .schemes.ccs import CcsPartyKey
 from .schemes.cggi import CggiScheme
-from .schemes.kms import KmsPartyKey
+from .schemes.kms import KmsPartyKey, KmsScheme
 from .schemes.lmss import LmssScheme
 
 _VIEWS = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32}
@@ -58,6 +58,14 @@ def lwe(ct, device) -> Lwe:
 def party_key(pk, device) -> KmsPartyKey:
     """A reference KmsPartyKey (same field names) on `device`."""
     return KmsPartyKey(*(from_numpy(getattr(pk, f), device) for f in KmsPartyKey._fields))
+
+
+def kms_scheme(scheme, device) -> KmsScheme:
+    """A reference KmsScheme on `device`: residues u32 as int32, the int8
+    key-switch tables as they are.  The reference's Shoup companions
+    (`*_shoup`) have no counterpart in the port and are dropped."""
+    return KmsScheme(**{f.name: from_numpy(getattr(scheme, f.name), device)
+                        for f in dataclasses.fields(KmsScheme)})
 
 
 def cggi_scheme(scheme, device) -> CggiScheme:

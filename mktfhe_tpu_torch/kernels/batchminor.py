@@ -27,6 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.lwe import Lwe
@@ -34,12 +35,12 @@ from ..ciphertext.rlwe import gadget_gvec
 from ..ring.context import RingCtx, make_ring_ctx, nprimes_monomial_weighted, nprimes_needed
 from ..ring.modring import mulsum_mod, prime_column
 from ..ring.ntt import fwd_ntt
-from ..ring.torus import from_crt, lift
+from ..ring.torus import from_crt
 from ..schemes.cggi import CggiScheme, _ctx
 from ..schemes.common import initial_acc, keyswitch_table, mod_switch_2n
-from ..schemes.kms import monomial_table, phase1_key_image
+from ..schemes.kms import levkey_lift, monomial_table, phase1_key_image
 from ..schemes.params import CggiParams, KmsParams
-from .ntt import fwd_ntt_bm, fwd_ntt_nat, inv_ntt_bm
+from .ntt import fwd_ntt_bm, inv_ntt_bm
 
 
 def _p_col(ctx: RingCtx, device) -> torch.Tensor:
@@ -123,11 +124,13 @@ def bootstrap_bm(ct: Lwe, scheme: BmScheme, params: CggiParams) -> Lwe:
     schemes.cggi.bootstrap (the monomial table and the negacyclic roll
     compute the same exact integers)."""
     ctx = _ctx(params)
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, k+1, N]
-    acc = blind_rotate_bm(acc.permute(1, 2, 0).contiguous(), tildea, scheme, params, ctx)
-    acc = acc.permute(2, 0, 1)  # -> [G, k+1, N]
-    return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
+    with record_function("mktfhe/mod_switch"):
+        tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    with record_function("mktfhe/rotate"):
+        acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, k+1, N]
+        acc = blind_rotate_bm(acc.permute(1, 2, 0).contiguous(), tildea, scheme, params, ctx)
+    with record_function("mktfhe/keyswitch"):
+        return keyswitch_table(acc.permute(2, 0, 1), scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
 
 
 @dataclass(frozen=True)
@@ -181,5 +184,4 @@ def kms_phase1_bm(tildea_p: torch.Tensor, brk_p: torch.Tensor, phase1_keys: BmKm
         e = inv_ntt_bm(weighted.reshape(npr_p, iter_rows * 2, n, g), ctx_p.plan)
         acc = acc + from_crt_bm(e, ctx_p, ctx_p.dtype).reshape(iter_rows, 2, n, g)
     # back to the standard layout and the scheme's prime basis for phase 2
-    acc_std = acc.permute(3, 0, 1, 2).contiguous()  # [G, rows, 2, N]
-    return fwd_ntt_nat(lift(acc_std, out_ctx.crt), out_ctx.plan)
+    return levkey_lift(acc.permute(3, 0, 1, 2).contiguous(), out_ctx)  # [G, rows, 2, N]

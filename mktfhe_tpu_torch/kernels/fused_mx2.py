@@ -42,12 +42,12 @@ from ..ciphertext.lwe import Lwe
 from ..ring.context import RingCtx, make_ring_ctx, nprimes_monomial_weighted
 from ..ring.modring import PRIMES, _root_of_unity, mulsum_mod, prime_column
 from ..ring.ntt import fwd_ntt
-from ..ring.torus import from_crt, lift
+from ..ring.torus import from_crt
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
 from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, phase1_init
 from .mx_ntt import NK, mx_eval_index, mx_fwd_ref, mx_inv_ref, mx_odd_exponents
-from .ntt import MAX_N, MAX_NPR, MIN_NPR, _kernel_tables, fwd_ntt_nat
+from .ntt import MAX_N, MAX_NPR, MIN_NPR, _kernel_tables
 
 SOURCE = _build.CSRC / "mx_sweep.cu"
 BINARY_ONLY = "the mx phase-1 kernel implements the binary-key rotation"
@@ -286,9 +286,10 @@ def kms_phase1_mx2(tildea_p, brk_mx_p, iter_rows: int, params: KmsParams, out_ct
     primes (`brk_mx_p.shape[1]` of them), then the lev key in the NTT domain
     of the scheme's own prime basis `out_ctx`, [G, rows, 2, npr, N] int32.
     Bit-identical to kms.phase1."""
+    from ..schemes.kms import levkey_lift  # kms imports the kernels package
+
     ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, brk_mx_p.shape[1])
-    acc = mx_sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p)
-    return fwd_ntt_nat(lift(acc, out_ctx.crt), out_ctx.plan)
+    return levkey_lift(mx_sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p), out_ctx)
 
 
 def bootstrap_mx2(ct: Lwe, scheme, mx_keys: MxKmsKeys, params: KmsParams) -> Lwe:
@@ -301,8 +302,4 @@ def bootstrap_mx2(ct: Lwe, scheme, mx_keys: MxKmsKeys, params: KmsParams) -> Lwe
 
     if isinstance(params, KmsBlockParams):
         raise TypeError(BINARY_ONLY)
-    ctx = kms._ctx(params)
-    return kms.bootstrap_with_phase1(
-        ct, scheme, params,
-        lambda party, tildea_p, rows: kms_phase1_mx2(tildea_p, mx_keys.brk_mx[party], rows, params, ctx),
-    )
+    return kms.bootstrap_with_phase1(ct, scheme, params, "mx2", mx_keys)

@@ -34,10 +34,10 @@ from ..ciphertext.rlwe import gadget_gvec
 from ..ring.context import RingCtx
 from ..ring.modring import MAX_PRODUCT_TERMS, PRIMES, prime_column, shoup
 from ..ring.ntt import fwd_ntt, inv_ntt
-from ..ring.torus import from_crt, lift, negacyclic_roll
+from ..ring.torus import from_crt, negacyclic_roll
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
-from .ntt import MAX_N, MAX_NPR, MIN_N, MIN_NPR, _kernel_tables, fwd_ntt_nat
+from .ntt import MAX_N, MAX_NPR, MIN_N, MIN_NPR, _kernel_tables
 
 SOURCE = _build.CSRC / "phase1_sweep.cu"
 MAX_L_GSW = 6  # 2l digit polynomials of N u32 in shared memory (KMS32party)
@@ -260,8 +260,9 @@ def kms_phase1_mx3(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ctx: R
     """Phase 1 for one party: the sweep, then the lev key in the NTT domain,
     [G, rows, 2, npr, N] int32.  Bit-identical to kms.phase1 /
     kms.phase1_block."""
-    acc = phase1_sweep(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx)
-    return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
+    from ..schemes.kms import levkey_lift  # kms imports this module
+
+    return levkey_lift(phase1_sweep(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx), ctx)
 
 
 def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:
@@ -272,10 +273,4 @@ def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:
     from ..schemes import kms  # kms imports this module
 
     kms.require_brk(scheme, "bootstrap_mx3")
-    ctx = kms._ctx(params)
-    return kms.bootstrap_with_phase1(
-        ct, scheme, params,
-        lambda party, tildea_p, rows: kms_phase1_mx3(
-            tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx
-        ),
-    )
+    return kms.bootstrap_with_phase1(ct, scheme, params, "mx3")

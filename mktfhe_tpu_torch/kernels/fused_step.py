@@ -33,6 +33,7 @@ import ctypes
 import functools
 
 import torch
+from torch.profiler import record_function
 
 from ..ciphertext.gsw import rlwe_decomp_hat
 from ..ciphertext.lwe import Lwe
@@ -195,7 +196,10 @@ def bootstrap_fused(ct: Lwe, scheme: BmScheme, params: CggiParams) -> Lwe:
     rotation in one launch.  scheme: kernels.batchminor.BmScheme.
     Bit-identical to the other engines."""
     ctx = _ctx(params)
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, 2, N]
-    acc = cggi_step(acc, tildea.contiguous(), scheme.brk_bm, scheme.mono_hat, params, ctx)
-    return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
+    with record_function("mktfhe/mod_switch"):
+        tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    with record_function("mktfhe/rotate"):
+        acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, 2, N]
+        acc = cggi_step(acc, tildea.contiguous(), scheme.brk_bm, scheme.mono_hat, params, ctx)
+    with record_function("mktfhe/keyswitch"):
+        return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.gsw import rlwe_decomp_hat
@@ -152,9 +153,12 @@ def bootstrap(ct: Lwe, scheme: CcsScheme, params: CcsParams) -> Lwe:
     switch, initial accumulator, k parties' rotations, per-party key
     switch."""
     ctx = _ctx(params)
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
-    tild = tildea.reshape(tildea.shape[0], params.k, params.n)
-    for p1 in range(1, params.k + 1):
-        _hybrid_rotate_party(acc, tild[:, p1 - 1], p1, scheme, params, ctx)
-    return keyswitch_per_party(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
+    with record_function("mktfhe/mod_switch"):
+        tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    with record_function("mktfhe/rotate"):
+        acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
+        tild = tildea.reshape(tildea.shape[0], params.k, params.n)
+        for p1 in range(1, params.k + 1):
+            _hybrid_rotate_party(acc, tild[:, p1 - 1], p1, scheme, params, ctx)
+    with record_function("mktfhe/keyswitch"):
+        return keyswitch_per_party(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

@@ -150,13 +150,21 @@ def keyswitch_per_party(acc: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Ten
     own ksk; the partial b's sum and the a segments concatenate into the
     k*n mask.
     """
-    b0 = acc[..., 0, 0]
-    arr = sample_extract_coeffs(acc[..., 1:, :])  # [..., k, N]
-    oh = signed_onehot(balanced_decomp(arr, f, log_d), log_d)  # [..., k, N, f*D/2]
-    flat = oh.reshape(*oh.shape[:-2], -1)  # [..., k, R]
+    db, a = keyswitch_parties(acc[..., 1:, :], ksk_b, ksk_a, f, log_d)
+    return Lwe(b=wrap_i32(acc[..., 0, 0].long() + db), a=a)
+
+
+def keyswitch_parties(masks: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor, f: int, log_d: int):
+    """The key switch of some parties' ring masks: masks [..., kp, N] u32
+    (int32 carrier), ksk_b [kp, NLIMB, R], ksk_a [kp, NLIMB, R, n].  Returns
+    the parties' share of b, int64 [...] not yet wrapped (shares of
+    disjoint parties add up to `keyswitch_per_party`'s), and their a
+    segments, int32 [..., kp*n]."""
+    arr = sample_extract_coeffs(masks)  # [..., kp, N]
+    oh = signed_onehot(balanced_decomp(arr, f, log_d), log_d)  # [..., kp, N, f*D/2]
+    flat = oh.reshape(*oh.shape[:-2], -1)  # [..., kp, R]
     db, da = limb_dot(flat, ksk_b, ksk_a)
-    b = wrap_i32(b0.long() + db.sum(-1))
-    return Lwe(b=b, a=wrap_i32(da).reshape(*flat.shape[:-2], -1))
+    return db.sum(-1), wrap_i32(da).reshape(*flat.shape[:-2], -1)
 
 
 def keyswitch_partial(acc: torch.Tensor, n_free: int, ksk_b: torch.Tensor, ksk_a: torch.Tensor, f: int, log_d: int) -> Lwe:

@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.gsw import rgsw_encrypt, rlwe_decomp_hat
@@ -48,7 +49,7 @@ from ..ciphertext.keys import (
 )
 from ..ciphertext.lwe import Lwe
 from ..ciphertext.unienc import gen_b, sample_crs, unienc_encrypt
-from ..kernels.fused_mx3 import phase1_sweep_plain
+from ..kernels.fused_mx3 import kms_phase1_mx3, phase1_sweep_plain
 from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
 from ..ring.modring import addmod, mulsum_mod, negmod, prime_column
@@ -219,6 +220,15 @@ def require_brk(scheme: KmsScheme, engine: str) -> None:
         )
 
 
+def levkey_lift(acc: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
+    """A party's phase-1 accumulator [G, rows, 2, N] as its lev key: lifted
+    into `ctx`'s primes and forward-transformed by the NTT kernel,
+    [G, rows, 2, npr, N] int32 (the named range mktfhe/levkey_lift).  Every
+    phase-1 engine ends with it."""
+    with record_function("mktfhe/levkey_lift"):
+        return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
+
+
 def phase1(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, params: KmsParams, ctx: RingCtx) -> torch.Tensor:
     """Single-key blind rotation over an RLEV accumulator.
 
@@ -226,7 +236,7 @@ def phase1(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, para
     lev key in the NTT domain: [G, iter_rows, 2, npr, N] int32.
     """
     acc = phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows, None, params, ctx, ntt=_NTT_KERNEL)
-    return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
+    return levkey_lift(acc, ctx)
 
 
 def phase1_block(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int, mono_hat: torch.Tensor, params: KmsBlockParams, ctx: RingCtx) -> torch.Tensor:
@@ -234,7 +244,7 @@ def phase1_block(tildea_p: torch.Tensor, brk_hat_p: torch.Tensor, iter_rows: int
     ell monomial-weighted external products accumulated in the evaluation
     domain, one inverse NTT per block."""
     acc = phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, ntt=_NTT_KERNEL)
-    return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
+    return levkey_lift(acc, ctx)
 
 
 def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
@@ -275,16 +285,22 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     return out
 
 
+def _phase2_party(acc, levkey, p1: int, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
+    """One merge step of phase 2 with party p1's keys read from the scheme
+    (`_phase2_party_mat`)."""
+    return _phase2_party_mat(
+        acc, levkey, p1, scheme.rlk_d_hat[p1 - 1], scheme.rlk_f_hat[p1 - 1],
+        scheme.pub_b_hat[: p1 - 1], scheme.crs_hat, params, ctx,
+    )
+
+
 def _phase2(tildeb: torch.Tensor, levkeys: list[torch.Tensor], scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
     """The k sequential merges of phase 2 from the test vector: levkeys[i]
     is party i+1's lev key [G, rows, 2, npr, N].  Returns acc [G, k+1, N]."""
     acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
     for p1 in range(1, params.k + 1):
-        acc = _phase2_party_mat(
-            acc, levkeys[p1 - 1], p1,
-            scheme.rlk_d_hat[p1 - 1], scheme.rlk_f_hat[p1 - 1],
-            scheme.pub_b_hat[: p1 - 1], scheme.crs_hat, params, ctx,
-        )
+        with record_function(f"mktfhe/phase2/merge{p1}"):
+            acc = _phase2_party(acc, levkeys[p1 - 1], p1, scheme, params, ctx)
     return acc
 
 
@@ -306,33 +322,62 @@ def phase1_key_image(party_keys: list[KmsPartyKey], ctx: RingCtx, transform) -> 
     return out
 
 
-def _levkeys(tildea: torch.Tensor, params: AnyKmsParams, phase1_party) -> list[torch.Tensor]:
-    """Phase 1 of every party.  tildea: [G, k*n];
-    `phase1_party(party, tildea_p [G, n] contiguous, iter_rows)` returns the
-    party's lev key [G, iter_rows, 2, npr, N].
+def _levkeys(tildea: torch.Tensor, engine: str, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx, phase1_keys) -> list[torch.Tensor]:
+    """Phase 1 of every party on `engine` (`phase1_levkey`).  tildea:
+    [G, k*n].  Returns each party's lev key [G, rows, 2, npr, N].
 
     Party 1's phase 2 reads only row 0 of its lev key, so its phase 1 runs
     one RLEV row (the reference's iter=1 case); rows never mix, so that
     row is bit-identical to the JAX engine's uniform l_lev-row sweep.
     """
     tild = tildea.reshape(tildea.shape[0], params.k, params.n)
-    return [
-        phase1_party(party, tild[:, party].contiguous(), 1 if party == 0 else params.l_lev)
-        for party in range(params.k)
-    ]
+    levkeys = []
+    for party in range(params.k):
+        with record_function(f"mktfhe/phase1/party{party}"):
+            rows = 1 if party == 0 else params.l_lev
+            levkeys.append(phase1_levkey(engine, party, tild[:, party].contiguous(), rows, scheme, params, ctx,
+                                         phase1_keys))
+    return levkeys
 
 
-def blind_rotate(tildea: torch.Tensor, tildeb: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:
-    """Two-phase multi-key blind rotation.  tildea: [G, k*n]; tildeb: [G].
-    Returns acc [G, k+1, N] int64."""
-    require_brk(scheme, "kms.bootstrap")
+def phase1_engine(phase1_keys) -> str:
+    """The phase-1 engine that reads `phase1_keys`: None 'ref' (on
+    `scheme.brk_hat`), an MxKmsKeys 'mx2', a BmKmsPhase1 'bm'."""
+    from ..kernels.batchminor import BmKmsPhase1  # both import this module
+    from ..kernels.fused_mx2 import MxKmsKeys
 
-    def phase1_party(party, tildea_p, rows):
+    if phase1_keys is None:
+        return "ref"
+    if isinstance(phase1_keys, MxKmsKeys):
+        return "mx2"
+    if isinstance(phase1_keys, BmKmsPhase1):
+        return "bm"
+    raise TypeError(f"no phase-1 engine reads a {type(phase1_keys).__name__}")
+
+
+def phase1_levkey(engine: str, party: int, tildea_p: torch.Tensor, rows: int, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx, phase1_keys=None) -> torch.Tensor:
+    """One party's phase 1 on the named engine: 'ref' (`phase1` /
+    `phase1_block` on `scheme.brk_hat[party]`), 'mx3' (the sweep kernel,
+    `kms_phase1_mx3`, on the same keys), 'bm' (`kms_phase1_bm` on
+    `phase1_keys.brk_bm[party]`, a BmKmsPhase1) or 'mx2' (`kms_phase1_mx2`
+    on `phase1_keys.brk_mx[party]`, an MxKmsKeys).  `party` indexes the
+    tensors given, which may hold only some of the parties.  Returns the lev
+    key [G, rows, 2, npr, N] in the scheme's prime basis `ctx`."""
+    if engine == "ref":
         if isinstance(params, KmsBlockParams):
             return phase1_block(tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
         return phase1(tildea_p, scheme.brk_hat[party], rows, params, ctx)
+    if engine == "mx3":
+        return kms_phase1_mx3(tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
+    if engine == "bm":
+        from ..kernels.batchminor import kms_phase1_bm  # batchminor imports this module
 
-    return _phase2(tildeb, _levkeys(tildea, params, phase1_party), scheme, params, ctx)
+        return kms_phase1_bm(tildea_p, phase1_keys.brk_bm[party], phase1_keys, rows, params, ctx)
+    if engine == "mx2":
+        from ..kernels.fused_mx2 import kms_phase1_mx2
+
+        return kms_phase1_mx2(tildea_p, phase1_keys.brk_mx[party], rows, params, ctx)
+    raise ValueError(f"unknown phase-1 engine {engine!r}")
 
 
 def _keyswitch(acc: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
@@ -352,22 +397,22 @@ def _keyswitch(acc: torch.Tensor, scheme: KmsScheme, params: AnyKmsParams) -> Lw
     return Lwe(b=b, a=a)
 
 
-def bootstrap_with_phase1(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams, phase1_party) -> Lwe:
-    """The gate bootstrap around an engine's phase 1 (`phase1_party` as in
-    `_levkeys`): modulus switch, phase 1 per party, phase 2, key switch."""
+def bootstrap_with_phase1(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams, engine: str, phase1_keys=None) -> Lwe:
+    """The gate bootstrap around a phase-1 engine (`phase1_levkey`): modulus
+    switch, phase 1 per party, phase 2, key switch."""
     ctx = _ctx(params)
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    acc = _phase2(tildeb, _levkeys(tildea, params, phase1_party), scheme, params, ctx)
-    return _keyswitch(acc, scheme, params)
+    with record_function("mktfhe/mod_switch"):
+        tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    acc = _phase2(tildeb, _levkeys(tildea, engine, scheme, params, ctx, phase1_keys), scheme, params, ctx)
+    with record_function("mktfhe/keyswitch"):
+        return _keyswitch(acc, scheme, params)
 
 
 def bootstrap(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams) -> Lwe:
     """Multi-key gate bootstrap.  ct: Lwe on the 2^32 torus, b [G],
     a [G, k*n]; every NTT runs through the kernel wrapper."""
-    ctx = _ctx(params)
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    acc = blind_rotate(tildea, tildeb, scheme, params, ctx)
-    return _keyswitch(acc, scheme, params)
+    require_brk(scheme, "kms.bootstrap")
+    return bootstrap_with_phase1(ct, scheme, params, "ref")
 
 
 def bootstrap_bm(ct: Lwe, scheme: KmsScheme, phase1_keys, params: KmsParams) -> Lwe:
@@ -376,17 +421,9 @@ def bootstrap_bm(ct: Lwe, scheme: KmsScheme, phase1_keys, params: KmsParams) -> 
     kernels.batchminor.BmKmsPhase1 (from build_bm_kms_phase1); reads no
     `scheme.brk_hat`.  Phase 2 and the key switch as in `bootstrap`;
     bit-identical to it.  Binary keys only."""
-    from ..kernels.batchminor import kms_phase1_bm  # batchminor imports this module
-
     if isinstance(params, KmsBlockParams):
         raise TypeError(
             "batch-minor phase 1 implements the binary-key rotation; use bootstrap or "
             "bootstrap_mx3 for block presets"
         )
-    ctx = _ctx(params)
-    return bootstrap_with_phase1(
-        ct, scheme, params,
-        lambda party, tildea_p, rows: kms_phase1_bm(
-            tildea_p, phase1_keys.brk_bm[party], phase1_keys, rows, params, ctx
-        ),
-    )
+    return bootstrap_with_phase1(ct, scheme, params, "bm", phase1_keys)

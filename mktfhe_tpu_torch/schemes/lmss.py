@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.profiler import record_function
 
 from ..ciphertext.gsw import external_product_hat, rgsw_encrypt, rgsw_to_hat, rlwe_decomp_hat
 from ..ciphertext.keys import LweKey, RingKey, block_binary_lwe_key, partial_ring_key
@@ -103,7 +104,10 @@ def bootstrap(ct: Lwe, scheme: LmssScheme, params: BlockParams) -> Lwe:
     a [G, n]: modulus switch, initial accumulator, blind rotation, partial
     key switch."""
     ctx = _ctx(params)
-    tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
-    acc = blind_rotate(acc, tildea, scheme, params, ctx)
-    return keyswitch_partial(acc, params.n, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
+    with record_function("mktfhe/mod_switch"):
+        tildeb, tildea = mod_switch_2n(ct, params.big_n)
+    with record_function("mktfhe/rotate"):
+        acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
+        acc = blind_rotate(acc, tildea, scheme, params, ctx)
+    with record_function("mktfhe/keyswitch"):
+        return keyswitch_partial(acc, params.n, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

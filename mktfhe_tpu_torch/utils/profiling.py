@@ -1,0 +1,232 @@
+"""Profiling: a torch.profiler trace with named phase ranges, the device
+time of each range, and the static cost model of a bootstrap.
+
+Port of mktfhe_tpu/utils/profiling.py.
+
+Named ranges.  The bootstraps mark their phases with
+`torch.profiler.record_function` ranges, host-side only (no
+synchronisation, no device work, nothing per CMux step):
+
+  mktfhe/mod_switch           modulus switch of the input to Z_2N
+  mktfhe/phase1/party{i}      KMS phase 1 of party i (0-based)
+  mktfhe/levkey_lift          its lev key lifted into the primes and transformed
+  mktfhe/phase2/merge{p1}     KMS phase-2 merge of party p1 (1-based)
+  mktfhe/rotate               the blind rotation of CGGI, LMSS and CCS
+  mktfhe/keyswitch            modulus switch to 2^32 (KMS) and key switch
+
+`phase_device_ms` charges each device kernel to the innermost range that
+was open on the host when the kernel was launched.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import os
+import tempfile
+
+import torch
+
+PREFIX = "mktfhe/"
+OUTSIDE = "(outside every range)"
+
+
+@contextlib.contextmanager
+def trace(logdir: str | None = None):
+    """torch.profiler around a region: CPU activity, plus CUDA where there
+    is a card.  On exit the Chrome trace is written to `logdir`/trace.json
+    (default: mktfhe_trace under the temporary directory).  Yields the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logdir = os.path.join(tempfile.gettempdir(), "mktfhe_trace") if logdir is None else logdir
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def attribute(ranges, launches, kernels) -> dict[str, float]:
+    """Charge device time to host ranges.  ranges: (start_ns, end_ns, name)
+    on the host; launches: {correlation id: host ns of the launch call};
+    kernels: (correlation id, device ns).  A kernel goes to the innermost
+    range open at its launch (the latest-opened one containing it), else to
+    OUTSIDE.  Returns ms by name, ranges in order of opening, OUTSIDE last."""
+    ranges = sorted(ranges)
+    out = {name: 0.0 for _, _, name in ranges}
+    out[OUTSIDE] = 0.0
+    for corr, ns in kernels:
+        at = launches.get(corr)
+        name = OUTSIDE
+        if at is not None:
+            for start, end, rname in ranges:
+                if start > at:
+                    break
+                if at <= end:
+                    name = rname
+        out[name] += ns / 1e6
+    return out
+
+
+def phase_device_ms(prof) -> dict[str, float]:
+    """Device ms of the kernels (and copies, fills) launched inside each
+    named range of a torch.profiler profile, read from the profiler's own
+    records (its operator tree is not built); `OUTSIDE` holds what was
+    launched outside every range.  A device kernel is tied to its launch
+    call on the host by the CUDA correlation id; the device rows of the
+    ranges themselves are not kernels and are skipped."""
+    cpu, device = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    ranges, launches, kernels = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.is_user_annotation():
+            if e.device_type() == cpu and e.name().startswith(PREFIX):
+                ranges.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.device_type() == device:
+            if e.duration_ns() > 0:
+                kernels.append((e.correlation_id(), e.duration_ns()))
+        elif e.name().startswith("cu"):  # the CUDA API calls (cudaLaunchKernel, cuLaunchKernel, ...) that launch them
+            launches[e.correlation_id()] = e.start_ns()
+    return attribute(ranges, launches, kernels)
+
+
+def _digit_split(log_b: int) -> int:
+    """Number of bf16 operands per gadget digit in the JAX package's MXU
+    engines (kernels/fused_mx2.py there): one up to log_b = 9, two above."""
+    return 1 if log_b <= 9 else 2
+
+
+@dataclasses.dataclass
+class BootstrapCost:
+    """Static per-gate cost model of a blind rotation + key switch, counted
+    as the JAX package counts it (its TPU's units of work)."""
+
+    ntt_elems: int  # element-passes through NTT butterflies
+    vpu_ops: int  # estimated scalar integer ops outside the matrix unit
+    mxu_macs: int  # multiply-accumulates of the matrix unit (key switch; mx engines' transforms)
+    hbm_bytes: int  # bootstrapping-key bytes streamed per batch
+
+    def summary(self, batch: int, measured_s: float, *, peak_vpu: float, peak_mxu: float, peak_hbm: float) -> dict:
+        """Bounds against a device's peaks, which the caller must give (no
+        device's are assumed): peak_vpu integer operations/s, peak_mxu
+        multiply-accumulates/s of the unit that runs the matmuls, peak_hbm
+        device-memory bytes/s."""
+        per_gate = measured_s / batch
+        return {
+            "ms_per_gate": per_gate * 1e3,
+            "vpu_bound_ms": self.vpu_ops / peak_vpu * 1e3,
+            "mxu_bound_ms": self.mxu_macs / peak_mxu * 1e3,
+            "hbm_bound_ms_batch": self.hbm_bytes / peak_hbm * 1e3,
+            "vpu_utilization": self.vpu_ops / peak_vpu / per_gate,
+        }
+
+
+def kms_cost(params, engine: str = "mx", nprimes: int = 3) -> BootstrapCost:
+    """Per-gate cost of a KMS two-phase bootstrap, the JAX package's count.
+
+    engine: 'ref'/'bm' count the NTT butterflies as vector ops (a Shoup
+    modmul ~11 u32 ops, a butterfly ~14); 'mx'/'mx2' count the TPU's
+    128-point MXU factoring of each transform (bf16 limb matmuls) and the
+    vector stages left beside it.  The port's mx sweep kernel (B5) does not
+    run that arithmetic: the card's own bound for each kernel is counted in
+    that kernel's arithmetic by chip_smoke.py (`sweep_step_ops`).
+    """
+    n, big_n, k = params.n, params.big_n, params.k
+    l, l_lev = params.l_gsw, params.l_lev
+    logn = int(math.log2(big_n))
+    cpl = 2 * l  # decomposed digit polys per step (2 components x l)
+    rows = l_lev  # uniform RLEV rows in phase 1
+
+    # phase 1, per party per step: cpl fwd + 2 inv transforms, 2*cpl*2
+    # pointwise muls, mono weight, decomp+Garner overhead
+    fwd_elems = cpl * nprimes * big_n * logn // 2  # butterflies
+    inv_elems = 2 * nprimes * big_n * logn // 2
+    pointwise = nprimes * big_n * (cpl * 2 + 2)
+    glue = big_n * (10 * cpl + 30)  # decomp digits + Garner + u64 adds
+    if engine in ("mx", "mx2"):
+        nb = big_n // 128
+        s_count = int(math.log2(nb)) if nb > 1 else 0
+        stage_elems = (cpl + 2) * nprimes * big_n * (s_count + 2) // 2
+        vpu_step = stage_elems * 14 + pointwise * 11 + glue
+        nsplit = _digit_split(params.log_b_gsw)
+        mxu_step = nprimes * 128 * 128 * (cpl * nb * 4 * nsplit + 2 * nb * 16)
+    else:
+        vpu_step = (fwd_elems + inv_elems) * 14 + pointwise * 11 + glue
+        mxu_step = 0
+    p1_vpu = k * rows * n * vpu_step
+    p1_mxu = k * rows * n * mxu_step
+
+    # phase 2, party p1: LEV contract (p1*l_lev fwd + 2 inv round trips),
+    # hybrid product (~(p1*l_uni + l_uni) fwd + 2 inv + p1+2 out inv)
+    p2_ntt_polys = sum(
+        p1 * l_lev + 2 + p1 * params.l_uni + params.l_uni + (p1 + 2) for p1 in range(1, k + 1)
+    )
+    p2_vpu = p2_ntt_polys * nprimes * big_n * logn // 2 * 14
+
+    ks_macs = 4 * k * params.f * big_n * (n + 1)
+    brk_bytes = k * n * nprimes * cpl * 2 * big_n * 4 * 2
+    return BootstrapCost(
+        ntt_elems=(fwd_elems + inv_elems) * 2 * k * rows * n,
+        vpu_ops=p1_vpu + p2_vpu,
+        mxu_macs=p1_mxu + ks_macs,
+        hbm_bytes=brk_bytes,
+    )
+
+
+def lmss_cost(params, nprimes: int = 2) -> BootstrapCost:
+    """Per-gate cost of an LMSS block-binary bootstrap: one decomposition +
+    (k+1)*l forward transforms per block (d blocks), ell monomial-weighted
+    external products accumulated in the evaluation domain, then k+1
+    inverses."""
+    big_n, k, l, d, ell = params.big_n, params.k, params.l_gsw, params.d, params.ell
+    logn = int(math.log2(big_n))
+    fwd = (k + 1) * l * nprimes * big_n * logn // 2
+    inv = (k + 1) * nprimes * big_n * logn // 2
+    # per member: external product (k+1)^2*l products + monomial weight
+    pointwise = ell * big_n * nprimes * ((k + 1) * (k + 1) * l + (k + 1))
+    per_block = (fwd + inv) * 14 + pointwise * 11 + big_n * 40
+    vpu = d * per_block
+    tail = k * big_n - d * ell  # coefficients beyond the free head
+    ks_macs = 4 * tail * params.f * (1 << (params.log_d - 1)) * (d * ell + 1)
+    brk_bytes = d * ell * (k + 1) * l * (k + 1) * nprimes * big_n * 4 * 2
+    return BootstrapCost(ntt_elems=d * (fwd + inv) * 2, vpu_ops=vpu, mxu_macs=ks_macs, hbm_bytes=brk_bytes)
+
+
+def ccs_cost(params, nprimes: int = 2) -> BootstrapCost:
+    """Per-gate cost of a CCS hybrid-product bootstrap: for party index idx
+    (1-based), each of n steps decomposes idx+1 components (l digits each),
+    forward-transforms them twice (acc digits, then v digits), computes
+    u/v/w pointwise, and inverse-transforms v (idx+1) and the output
+    (idx+1), as the JAX package counts it."""
+    n, big_n, k, l = params.n, params.big_n, params.k, params.l_uni
+    logn = int(math.log2(big_n))
+    vpu = 0
+    ntt_elems = 0
+    for idx in range(1, k + 1):
+        comps = idx + 1
+        fwd = 2 * comps * l * nprimes * big_n * logn // 2  # acc + v digits
+        inv = 2 * comps * nprimes * big_n * logn // 2  # v + output
+        # u: comps*l products; v: comps*l; w: 2*comps*l (b and a rows)
+        pointwise = big_n * nprimes * (4 * comps * l + 2)
+        vpu += n * ((fwd + inv) * 14 + pointwise * 11 + big_n * 40)
+        ntt_elems += n * (fwd + inv) * 2
+    ks_macs = 4 * k * big_n * params.f * (1 << (params.log_d - 1)) * (n + 1)
+    brk_bytes = k * n * l * 3 * nprimes * big_n * 4 * 2  # d + f stacks
+    return BootstrapCost(ntt_elems=ntt_elems, vpu_ops=vpu, mxu_macs=ks_macs, hbm_bytes=brk_bytes)
+
+
+def cggi_cost(params, nprimes: int = 2) -> BootstrapCost:
+    """Per-gate cost of a CGGI bootstrap."""
+    n, big_n, k, l = params.n, params.big_n, params.k, params.l_gsw
+    logn = int(math.log2(big_n))
+    fwd = (k + 1) * l * nprimes * big_n * logn  # butterfly elements
+    inv = (k + 1) * nprimes * big_n * logn
+    pointwise = big_n * nprimes * (k + 1) * (k + 1) * l
+    per_step = (fwd + inv) // 2 * 14 + pointwise * 16
+    vpu = n * per_step
+    ks_macs = 4 * (k * big_n * params.f) * (n + 1)
+    brk_bytes = n * (k + 1) * l * (k + 1) * nprimes * big_n * 4 * 2
+    return BootstrapCost(ntt_elems=n * (fwd + inv), vpu_ops=vpu, mxu_macs=ks_macs, hbm_bytes=brk_bytes)

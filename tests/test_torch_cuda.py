@@ -9,7 +9,9 @@ both homes of its power table; the fused CGGI step kernel
 over ring sizes, prime counts, gadgets (the 32-bit rounding carry live and
 not), step ranges and batch sizes; bit-exact (tolerance 0), plus the
 wrappers' contracts on CUDA tensors and each dispatcher's instance as ptxas
-built it.  Skips where there is no
+built it.  Then LMSS, CCS, `utils.load`, `utils.noise` and the sharded
+bootstrap in two gloo ranks sharing the card, each against the CPU at the
+tiny sets.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -21,6 +23,7 @@ import dataclasses
 import pytest
 import torch
 
+from mktfhe_tpu_torch import bridge
 from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
@@ -28,7 +31,10 @@ from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.schemes import ccs, gates, kms, lmss
+from mktfhe_tpu_torch.parallel.launch import Job, bootstrap_jobs, run_ranks
 from mktfhe_tpu_torch.schemes.params import BlockParams, CcsParams, CggiParams, KmsBlockParams, KmsParams
+from mktfhe_tpu_torch.schemes.presets import TEST_PRESETS
+from mktfhe_tpu_torch.utils import load, noise, save
 
 pytestmark = pytest.mark.cuda
 
@@ -580,3 +586,54 @@ def test_ccs_bootstrap_card_equals_cpu(device, params):
     assert gates.lwe_decrypt_bit_mk(out, lwe_keys).tolist() == [not (x and y) for x, y in zip(m1.tolist(), m2.tolist())]
     steps = params.k * params.n
     assert kntt.fwd_ntt_nat.launches == kntt.inv_ntt_nat.launches == 2 * steps
+
+
+def _tiny_kms(seed: int):
+    """TinyKMS2party keys, scheme and a NAND batch of 6 gates, on the CPU."""
+    params = TEST_PRESETS["TinyKMS2party"]
+    gen = torch.Generator().manual_seed(seed)
+    a = kms.crs(gen, params)
+    parties = [kms.party_keygen(gen, a, params) for _ in range(params.k)]
+    lwe_keys = [p[0] for p in parties]
+    m1, m2 = (torch.randint(0, 2, (6,), generator=gen).bool() for _ in range(2))
+    cts = [gates.lwe_ith_encrypt_bit(gen, m, i, lwe_keys[i], params.alpha, params.k, (6,)) for i, m in enumerate((m1, m2))]
+    return params, lwe_keys, kms.setup(a, [p[3] for p in parties], params), gates.gate_affine(0, *cts), ~(m1 & m2)
+
+
+def test_serialization_on_card_equals_cpu(device, tmp_path):
+    params, _, scheme, ct, _ = _tiny_kms(41)
+    for name, obj in (("scheme", scheme), ("ct", ct)):
+        save(str(tmp_path / f"{name}.npz"), obj)
+    on_card = load(str(tmp_path / "scheme.npz"), device)
+    assert all(getattr(on_card, f.name).device == device for f in dataclasses.fields(on_card))
+    assert all(torch.equal(getattr(on_card, f.name).cpu(), getattr(scheme, f.name)) for f in dataclasses.fields(scheme))
+    got = kms.bootstrap(load(str(tmp_path / "ct.npz"), device), on_card, params)
+    want = kms.bootstrap(ct, scheme, params)
+    assert torch.equal(got.b.cpu(), want.b) and torch.equal(got.a.cpu(), want.a)
+
+
+def test_noise_on_card_equals_cpu(device):
+    params, lwe_keys, scheme, ct, clear = _tiny_kms(43)
+    out = kms.bootstrap(ct, scheme, params)
+    card = Lwe(b=out.b.to(device), a=out.a.to(device))
+    card_keys = [k._replace(key=k.key.to(device)) for k in lwe_keys]
+    assert (noise.phase_error_bits(card, card_keys, clear) == noise.phase_error_bits(out, lwe_keys, clear)).all()
+    got, want = noise.noise_report(card, card_keys, clear), noise.noise_report(out, lwe_keys, clear)
+    assert got["samples"] == want["samples"]
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_sharded_two_gloo_ranks_on_one_card_equal_cpu(device, tmp_path):
+    """kms_bootstrap_shardmap in two ranks sharing cuda:0 over gloo, a
+    (party 2, batch 1) mesh: bit for bit the CPU's kms.bootstrap; each rank
+    launched the natural NTT kernel."""
+    params, lwe_keys, scheme, ct, clear = _tiny_kms(47)
+    paths = [str(tmp_path / f) for f in ("scheme.npz", "ct.npz")]
+    save(paths[0], scheme)
+    save(paths[1], ct)
+    ranks = run_ranks(bootstrap_jobs, 2, "gloo", ([Job("ref", params, *paths, mesh=(2, 1))],), "cuda")
+    want = kms.bootstrap(ct, scheme, params)
+    assert gates.lwe_decrypt_bit_mk(want, lwe_keys).tolist() == clear.tolist()
+    for (res,) in ranks:
+        assert (res["b"] == bridge.to_numpy(want.b)).all() and (res["a"] == bridge.to_numpy(want.a)).all()
+        assert res["launches"]["fwd"] > 0 and res["launches"]["inv"] > 0 and not res["jax"]

@@ -21,7 +21,8 @@ def test_module_list_covers_the_slices():
     for name in ("kernels.ntt", "kernels.fused_mx3", "kernels.fused_step", "kernels.batchminor",
                  "kernels.mx_ntt", "kernels.fused_mx2", "schemes.kms", "schemes.cggi", "bridge",
                  "schemes.lmss", "schemes.ccs", "native.chacha", "cli", "ciphertext.lev",
-                 "kernels.natural"):
+                 "kernels.natural", "utils", "utils.serialization", "utils.noise", "utils.profiling",
+                 "parallel", "parallel.mesh", "parallel.shardmap", "parallel.launch"):
         assert f"mktfhe_tpu_torch.{name}" in MODULES
 
 
