@@ -82,12 +82,26 @@ Phases, each printing one line; any failure exits non-zero:
      decrypt-checked `ccs.bootstrap` of 128 gates on CCS8partyTight;
  21. the port's CLI, `python -m mktfhe_tpu_torch.cli`, as a subprocess with
      ChaCha seeding at Block and CCS2partyTight: both must exit 0 and print OK;
+ 27. (run after 21, before 23) KMS32partyblock at full width, NAND batch 128:
+     the natural NTT kernel against its plain version at the largest shape the
+     path launches; keygen on the card; one party's sweep against its plain
+     version over all steps; a dependent chain of `bootstrap_mx3`, every link
+     decrypt-checked, launches held to the count phase 2's chunks give;
+     `kms.bootstrap` once on the same input, bit-identical; the named-range
+     split of 32 merges;
+ 28. KMS32party: both key images on the card; B2 and B5 against their plain
+     versions over all steps; `bootstrap_mx3` once, then a dependent chain of
+     `bootstrap_mx2` on the scheme without `brk_hat`, bit-identical;
+ 29. KMS16, KMS4 and KMS2, block keys through `bootstrap_mx3`, binary keys
+     through `bootstrap_mx2`: a decrypt-checked bootstrap and a dependent one,
+     the instance that served the sweeps, each preset's keys freed before the
+     next; then a summary of every preset of 27-29 (29b);
  23. serialization on the card: the KMS8party scheme without `brk_hat`, its
      mx keys and the CGGI scheme saved (`utils.save`) and loaded back onto
      the card; `bootstrap_mx2` and `bootstrap_fused` on the loaded keys give
      phases 17's and 13's outputs bit for bit; the files phase 26 loads;
  24. noise: `utils.noise.noise_report` on the outputs of phases 6, 13, 17,
-     19 and 20 beside MARGINS.md's rows (margins.json); fails where an
+     19, 20 and 27-29 beside MARGINS.md's rows (margins.json); fails where an
      error reaches the margin;
  25. named ranges: one `bootstrap_mx3` (KMS8partyblock) and one
      `bootstrap_mx2` (KMS8party) under `utils.profiling.trace`, the device ms
@@ -145,9 +159,16 @@ from mktfhe_tpu_torch.schemes.presets import (
     CCS_4PARTY_TIGHT,
     CCS_8PARTY_TIGHT,
     CGGI_PARAM,
+    KMS_2PARTY,
+    KMS_2PARTY_BLOCK,
+    KMS_4PARTY,
+    KMS_4PARTY_BLOCK,
     KMS_8PARTY,
     KMS_8PARTY_BLOCK,
+    KMS_16PARTY,
+    KMS_16PARTY_BLOCK,
     KMS_32PARTY,
+    KMS_32PARTY_BLOCK,
 )
 from mktfhe_tpu_torch.tools import butterfly_rate
 from mktfhe_tpu_torch.tools.time_sweeps import device_ms
@@ -191,6 +212,16 @@ WIDE_GADGET = KmsParams(
 # is read from device memory (the kernel's other template instance)
 SIX_DIGITS = dataclasses.replace(KMS_32PARTY, n=CHECK_STEPS, k=2)
 SIX_DIGITS_PRIMES = 4
+
+# phases 27-29: the KMS presets beyond k = 8, each at full width and BATCH;
+# k = 32 timed over a dependent chain of PARTY_CHAIN bootstraps after the
+# first, the others over one
+PARTY_CHAIN = 3
+OTHER_PARTIES = [
+    ("KMS16partyblock", KMS_16PARTY_BLOCK), ("KMS16party", KMS_16PARTY),
+    ("KMS4partyblock", KMS_4PARTY_BLOCK), ("KMS4party", KMS_4PARTY),
+    ("KMS2partyblock", KMS_2PARTY_BLOCK), ("KMS2party", KMS_2PARTY),
+]
 
 # small sets of no preset's shape: they run the sweep kernels' instances with
 # run-time shapes
@@ -529,11 +560,25 @@ def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool,
     out = {"err": err, "steps": short.n // ell}
     if timed:
         args = (tildea, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
-        fused_mx3.phase1_sweep(*args)  # warm-up at the full shape
-        out["ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep(*args), 3)
-        if plain:
-            out["plain_ms"] = _sync_ms(lambda: fused_mx3.phase1_sweep_plain(*args), 1)
+        out.update(timed_whole(fused_mx3.phase1_sweep, fused_mx3.phase1_sweep_plain if plain else None, args,
+                               f"sweep kernel ({type(params).__name__}, {params.n // ell} steps)"))
         out.update(sweep_bound(params, ctx, g, rows, tildea, rate))
+    return out
+
+
+def timed_whole(kernel, plain, args: tuple, what: str) -> dict:
+    """A sweep kernel's device time at the full shape (after a warm-up), and,
+    if `plain` is given, its plain version's time on the same arguments,
+    whose output must equal the kernel's bit for bit over all steps."""
+    got = kernel(*args)  # warm-up at the full shape
+    out = {"ms": _sync_ms(lambda: kernel(*args), 3)}
+    if plain is not None:
+        held = {}
+        out["plain_ms"] = _sync_ms(lambda: held.setdefault("want", plain(*args)), 1)
+        err = _max_abs_diff(got, held["want"])
+        if err > TOLERANCE or not torch.equal(got, held["want"]):
+            raise SystemExit(f"{what} disagrees with its plain version over all steps: max |diff| {err}")
+        out["whole_err"] = err
     return out
 
 
@@ -560,21 +605,25 @@ def checked_bootstrap(bootstrap, ct, want, scheme, params, decrypt, what: str):
 
 def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, chain: int) -> dict:
     """NAND bootstrap of a batch, decrypt-checked, then a timed chain of
-    `chain` dependent bootstraps, decrypt-checked."""
+    `chain` dependent bootstraps, every link decrypt-checked after the
+    timing."""
     nand = GATE_IDS["NAND"]
     want = ~(m1 & m2)
     t0 = time.time()
     first = out = checked_bootstrap(bootstrap, ct, want, scheme, params, decrypt, "bootstrap")
     first_s = time.time() - t0
+    links = []
     t0 = time.time()
     for _ in range(chain):
         out = bootstrap(gate_affine(nand, out, c2), scheme, params)
         want = ~(want & m2)
+        links.append((out, want))
     out.b.cpu()  # a hard device -> host read ends the timed chain
     dt = (time.time() - t0) / chain
-    got = decrypt(out).cpu().numpy()
-    if not np.array_equal(got, want):
-        raise SystemExit(f"chain decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
+    for i, (out, want) in enumerate(links):
+        got = decrypt(out).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise SystemExit(f"chain link {i + 1} decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
     return {"first_s": first_s, "batch_s": dt, "first": first}
 
 
@@ -899,15 +948,12 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     err1, args1 = check_mx_sweep(gen, params, mx_keys.brk_mx[0], BATCH, 1)
     err_wide, _ = check_mx_sweep(gen, WIDE_GADGET, wide_keys.brk_mx[1], 5, WIDE_GADGET.l_lev)
     err_six, _ = check_mx_sweep(gen, SIX_DIGITS, six_keys.brk_mx[1], 5, SIX_DIGITS.l_lev)
-    for args in (args3, args1):  # warm-up at the full shapes
-        fused_mx2.mx_sweep(*args)
     rows3 = {
         "err": max(err3, err1, err_wide, err_six),
-        "ms": _sync_ms(lambda: fused_mx2.mx_sweep(*args3), 3),
-        "plain_ms": _sync_ms(lambda: fused_mx2.mx_sweep_plain(*args3), 1),
+        **timed_whole(fused_mx2.mx_sweep, fused_mx2.mx_sweep_plain, args3, "mx sweep kernel (KMS8party)"),
         **mx_sweep_bound(params, args3[4], BATCH, params.l_lev, args3[0], rate),
     }
-    row1_ms = _sync_ms(lambda: fused_mx2.mx_sweep(*args1), 3)
+    row1_ms = timed_whole(fused_mx2.mx_sweep, None, args1, "")["ms"]
     notes = [
         instance_note(
             fused_mx2.mx_kernel(p, make_ring_ctx(p.big_n, p.ring_torus_bits, keys.brk_mx.shape[2])),
@@ -917,7 +963,8 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     ]
     print(
         f"[16 mx sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps on "
-        f"real mx keys: KMS8party width at G={BATCH} with rows=3 and rows=1 through {notes[0]}, wide gadget "
+        f"real mx keys (and over all {params.n} steps at rows=3): KMS8party width at G={BATCH} with rows=3 "
+        f"and rows=1 through {notes[0]}, wide gadget "
         f"(N={WIDE_GADGET.big_n}, log_b_gsw={WIDE_GADGET.log_b_gsw}, {wide_keys.brk_mx.shape[2]} primes) "
         f"through {notes[1]}, six digits with the power table in device memory (N={SIX_DIGITS.big_n}, "
         f"l_gsw={SIX_DIGITS.l_gsw}, {six_keys.brk_mx.shape[2]} primes, G=5) through {notes[2]}; the "
@@ -1073,7 +1120,8 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
         for p in (params, KMS_8PARTY, WIDE_GADGET)
     ]
     print(
-        f"[5 sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps: "
+        f"[5 sweep] bit-exact vs plain version (tolerance {TOLERANCE}) over {CHECK_STEPS} steps (and over "
+        f"all steps at rows=3 where the plain version is timed): "
         f"block keys at KMS8partyblock width through {notes[0]}, binary keys at KMS8party width "
         f"through {notes[1]} (G={BATCH}, rows=3 and rows=1), wide gadget (N={WIDE_GADGET.big_n}, "
         f"log_b_gsw={WIDE_GADGET.log_b_gsw}) through {notes[2]}, and block, binary and mx keys at "
@@ -1491,6 +1539,362 @@ def run_cli(smi: str) -> None:
               + " | ".join(lines[-3:]) + f" ({smi})")
 
 
+def party_keygen_lean(gen, params, with_brk: bool, mx: bool) -> dict:
+    """crs, k party keygens and setup on the card (and the mx keys): the
+    party keys, whose torus `brk` a k = 32 party holds 220 MB of, are dropped
+    once the key images are built; `setup` and `build_mx_kms_keys` go party by
+    party.  Returns the LWE keys, the scheme, the mx keys, the seconds, the
+    bytes held and the peak allocated above what was held before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    a = kms.crs(gen, params)
+    parties = [kms.party_keygen(gen, a, params) for _ in range(params.k)]
+    lwe_keys = [p[0] for p in parties]
+    party_keys = [p[3] for p in parties]
+    del parties
+    scheme = kms.setup(a, party_keys, params, with_brk=with_brk)
+    mx_keys = fused_mx2.build_mx_kms_keys(party_keys, params) if mx else None
+    with_party_keys = torch.cuda.memory_allocated() - before
+    del party_keys
+    torch.cuda.synchronize()
+    return {
+        "lwe_keys": lwe_keys, "scheme": scheme, "mx_keys": mx_keys, "s": time.time() - t0,
+        "scheme_bytes": scheme_bytes(scheme), "mx_bytes": scheme_bytes(mx_keys) if mx else 0,
+        "party_key_bytes": with_party_keys - (torch.cuda.memory_allocated() - before),
+        "peak": torch.cuda.max_memory_allocated() - before,
+    }
+
+
+def with_peak(fn):
+    """fn()'s result and the device memory it allocated at its peak above
+    what was allocated when it started (its transients and its outputs)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - held
+
+
+def preset_record(name: str, engine: str, keys: dict, ms: float, above: int, instance: str) -> dict:
+    """One row of phase 29b's summary: keygen seconds, the key images' bytes,
+    keygen's peak above what was held before it, the bootstrap's ms and its
+    peak above the keys it found held, and the instance of its sweeps."""
+    return {"preset": name, "engine": engine, "keygen_s": keys["s"],
+            "key_gb": (keys["scheme_bytes"] + keys["mx_bytes"]) / 1e9, "keygen_peak_gb": keys["peak"] / 1e9,
+            "ms": ms, "above_gb": above / 1e9, "instance": instance}
+
+
+def keygen_note(name: str, params, keys: dict) -> str:
+    return (f"{name} (k={params.k}, n={params.n}, N={params.big_n}, l_gsw={params.l_gsw}, l_uni={params.l_uni}, "
+            f"npr={params.ring_nprimes}): crs, {params.k} party keygens, setup"
+            + (", build_mx_kms_keys" if keys["mx_keys"] is not None else "")
+            + f" in {keys['s']:.2f} s; scheme {keys['scheme_bytes'] / 1e9:.3f} GB"
+            + (f", mx keys {keys['mx_bytes'] / 1e9:.3f} GB" if keys["mx_keys"] is not None else "")
+            + f", party keys dropped after ({keys['party_key_bytes'] / 1e9:.3f} GB); peak allocated above what "
+            f"was held before {keys['peak'] / 1e9:.2f} GB")
+
+
+def served_by(params, mx_keys=None) -> str:
+    """The compiled instance that serves the preset's sweep (mx keys: the mx
+    sweep's); fails on the kernel with run-time shapes."""
+    if mx_keys is None:
+        kernel = fused_mx3.sweep_kernel(params, kms._ctx(params))
+    else:
+        kernel = fused_mx2.mx_kernel(params, make_ring_ctx(params.big_n, params.ring_torus_bits,
+                                                           mx_keys.brk_mx.shape[2]))
+    if kernel["run_time_shapes"]:
+        raise SystemExit(f"{params} runs the kernel with run-time shapes: {kernel['name']}")
+    return kernel["name"]
+
+
+def nat_shapes_note(fwd: dict, inv: dict, runs: int) -> str:
+    """The natural NTT's launches a bootstrap by [rows, npr, N], in one line."""
+    parts = []
+    for d, shapes in (("fwd", fwd), ("inv", inv)):
+        items = sorted(shapes.items(), reverse=True)
+        parts.append(f"{d} {sum(c for _, c in items) // runs} at {len(items)} shapes (" + ", ".join(
+            f"{list(shape)} x{c // runs}" for shape, c in items) + ")")
+    return "; ".join(parts)
+
+
+def check_ntt_at(gen, device, shape, rate) -> dict:
+    """The natural NTT kernel vs its plain version at one large shape [rows,
+    npr, N], both ways, bit-exact; the kernel's time against its bound."""
+    plan = make_plan(shape[2], shape[1])
+    x = _residues(gen, shape, device)
+    fk = kntt.fwd_ntt_nat(x, plan)
+    err = _max_abs_diff(fk, fwd_ntt(x, plan))
+    ik = kntt.inv_ntt_nat(fk, plan)
+    err = max(err, _max_abs_diff(ik, inv_ntt(fk, plan)))
+    torch.cuda.synchronize()
+    if err > TOLERANCE or not torch.equal(ik, x):
+        raise SystemExit(f"NTT kernel disagrees with its plain version at {shape}: max |diff| {err}")
+    out = {"err": err, "fwd_ms": _sync_ms(lambda: kntt.fwd_ntt_nat(x, plan), 5),
+           "inv_ms": _sync_ms(lambda: kntt.inv_ntt_nat(fk, plan), 5),
+           "fwd_bound": ntt_bound(shape, True, rate), "inv_bound": ntt_bound(shape, False, rate)}
+    del x, fk, ik
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
+    """Phase 27: KMS32partyblock at full width (k = 32, d = 203, ell = 3, N =
+    2048, 3 primes), NAND batch 128: B1 at the largest shape the path
+    launches (the digits of merge 32's hybrid product) against its plain
+    version; keygen on the card; one party's B2 sweep against its plain
+    version over all steps; a dependent chain of PARTY_CHAIN `bootstrap_mx3`
+    after the first, every link decrypt-checked; `kms.bootstrap` once on the
+    first input, bit-identical; the named-range split; launches of B2 and of
+    B1 by shape.  Returns the B2 row of the kernels line."""
+    params = KMS_32PARTY_BLOCK
+    ctx = kms._ctx(params)
+    big = (BATCH * params.k * params.l_uni, ctx.nprimes, ctx.n)
+    ntt = check_ntt_at(gen, device, big, rate)
+    print(
+        f"[27a ntt at k=32] natural NTT kernel vs plain version at {list(big)} ({big[0] * big[1] * big[2]:,} "
+        f"words, the digits of merge 32's hybrid product): bit-exact both ways (tolerance {TOLERANCE}); fwd "
+        f"{ntt['fwd_ms']:.3f} ms (bound {ntt['fwd_bound']['bound_ms']:.3f} by {ntt['fwd_bound']['bound_by']}), "
+        f"inv {ntt['inv_ms']:.3f} ms (bound {ntt['inv_bound']['bound_ms']:.3f} by {ntt['inv_bound']['bound_by']}) "
+        f"({smi})"
+    )
+    keys = party_keygen_lean(gen, params, with_brk=True, mx=False)
+    print(f"[27 keygen] " + keygen_note("KMS32partyblock", params, keys) + f" ({smi})")
+    scheme, lwe_keys = keys["scheme"], keys["lwe_keys"]
+
+    sweep = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True, rate=rate)
+    sweep1 = check_sweep(gen, params, scheme, 0, BATCH, 1, timed=True, plain=False, rate=rate)
+    note = instance_note(fused_mx3.sweep_kernel(params, ctx), usage["phase1_sweep"], must_not_spill=True)
+    print(
+        f"[27b sweep] KMS32partyblock, one party's B2 sweep at G={BATCH}, rows=3, all {params.d} steps: kernel "
+        f"{sweep['ms']:.2f} ms vs plain {sweep['plain_ms']:.1f} ms, bit-exact over all steps (max |diff| "
+        f"{sweep['whole_err']}) and over {CHECK_STEPS} steps from the LEV rows at rows=1 too; rows=1 kernel "
+        f"{sweep1['ms']:.2f} ms; through {note}; {bounds_note(sweep)} ({smi})"
+    )
+
+    def decrypt(out):
+        return lwe_decrypt_bit_mk(out, lwe_keys)
+
+    ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, BATCH)
+    reset_launches()
+    boot, above = with_peak(lambda: bootstrap_chain(fused_mx3.bootstrap_mx3, ct, c2, m1, m2, params, decrypt,
+                                                    scheme, PARTY_CHAIN))
+    launches = read_launches()
+    shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
+    runs = 1 + PARTY_CHAIN
+    fwd, inv = merge_launches(params, BATCH)
+    want = {"sweep": runs * params.k, "fwd": runs * (params.k + fwd), "inv": runs * inv}
+    if {k: launches[k] for k in want} != want:
+        raise SystemExit(f"KMS32partyblock bootstrap_mx3: expected {want} launches in {runs} bootstraps (phase 2's "
+                         f"hybrid product in chunks of {kms.hybrid_chunk(BATCH, params, ctx)} parties), got {launches}")
+    dt = boot["batch_s"]
+    print(
+        f"[27c bootstrap_mx3] KMS32partyblock NAND batch {BATCH}: decrypt OK x{runs} (every link of the chain); "
+        f"first {boot['first_s']:.2f} s; chain of {PARTY_CHAIN}: {dt * 1e3:.1f} ms/batch = {BATCH / dt:.2f} "
+        f"boots/s; peak allocated {above / 1e9:.2f} GB above the held keys and inputs (phase 2's hybrid product "
+        f"in chunks of {kms.hybrid_chunk(BATCH, params, ctx)} parties, the key switch a party at a time); "
+        f"launches in {runs} bootstraps: B2 {launches['sweep']} "
+        f"({launches['sweep'] // runs} a bootstrap, every one through {served_by(params)}), B1 fwd "
+        f"{launches['fwd']} inv {launches['inv']} ({smi})"
+    )
+    print(f"[27d ntt by shape] B1 per KMS32partyblock bootstrap_mx3, [rows, npr, N]: "
+          + nat_shapes_note(*shapes, runs) + f" ({smi})")
+
+    reset_launches()
+    t0 = time.time()
+    ref = checked_bootstrap(kms.bootstrap, ct, ~(m1 & m2), scheme, params, decrypt, "KMS32partyblock kms.bootstrap")
+    ref_s = time.time() - t0
+    ref_launches = read_launches()
+    if not (torch.equal(ref.b, boot["first"].b) and torch.equal(ref.a, boot["first"].a)):
+        raise SystemExit("KMS32partyblock: kms.bootstrap and bootstrap_mx3 differ on the same ciphertext")
+    if ref_launches["sweep"] != 0:
+        raise SystemExit(f"kms.bootstrap launched the sweep kernel: {ref_launches}")
+    print(
+        f"[27e kms.bootstrap] KMS32partyblock, the chain's first input: decrypt OK, output bit-identical to "
+        f"bootstrap_mx3 (b and a); {ref_s:.2f} s (host clock to the decrypted bits); B1 launches fwd "
+        f"{ref_launches['fwd']} inv {ref_launches['inv']}, no sweep ({smi})"
+    )
+    del ref
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ms = profile_phases(fused_mx3.bootstrap_mx3, ct, scheme, params, os.path.join(tmp, "trace_k32"))
+    print(ranges_line("27f named ranges", "bootstrap_mx3 KMS32partyblock", params, ms) + f" ({smi})")
+    state["noise"].append(("bootstrap_mx3 [27]", "KMS32partyblock", boot["first"], lwe_keys, ~(m1 & m2)))
+    state["parties"].append(
+        preset_record("KMS32partyblock", "bootstrap_mx3", keys, dt * 1e3, above, served_by(params)))
+    row = kernel_row("phase1_sweep_block_k32", "phase1_sweep.cu", "mktfhe_tpu/kernels/fused_mx3.py:226",
+                     launches["sweep"], max(sweep["err"], sweep["whole_err"], sweep1["err"]), sweep["ms"],
+                     sweep["plain_ms"], sweep)
+    row.update(preset="KMS32partyblock", launches_per_bootstrap=launches["sweep"] // runs)
+    return [row]
+
+
+def ranges_line(tag: str, what: str, params, ms: dict) -> str:
+    """Device ms by named range (`profiling.phase_device_ms`) of one warm
+    bootstrap; fails if the ranges hold less than RANGE_COVERAGE of it."""
+    busy = sum(ms.values())
+    covered = 1 - ms[profiling.OUTSIDE] / busy
+    if covered < RANGE_COVERAGE:
+        raise SystemExit(f"{what}: the named ranges hold {covered:.3f} of the device time: {ms}")
+    phase1 = sum(v for k, v in ms.items() if k.startswith("mktfhe/phase1/"))
+    merges = [v for k, v in ms.items() if k.startswith("mktfhe/phase2/")]
+    return (
+        f"[{tag}] {what} batch {BATCH}, one warm bootstrap, device busy {busy:.2f} ms: mod_switch "
+        f"{ms['mktfhe/mod_switch']:.3f} ms, phase 1 (sweeps, {params.k} parties) {phase1:.2f} ms, levkey_lift "
+        f"{ms['mktfhe/levkey_lift']:.3f} ms, phase 2 {sum(merges):.2f} ms (merges 1..{params.k}: "
+        + ", ".join(f"{v:.2f}" for v in merges) + f"), keyswitch {ms['mktfhe/keyswitch']:.3f} ms, outside every "
+        f"range {ms[profiling.OUTSIDE]:.3f} ms; the ranges hold {covered:.2%}"
+    )
+
+
+def run_k32_binary(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
+    """Phase 28: KMS32party at full width (n = 560, 3 primes), NAND batch 128:
+    keygen on the card with both key images (`brk_hat` and the mx keys); one
+    party's B2 and B5 sweeps against their plain versions over all steps;
+    `bootstrap_mx3` once, then a dependent chain of PARTY_CHAIN
+    `bootstrap_mx2` after the first on the scheme without `brk_hat`, every
+    link decrypt-checked, the first equal to `bootstrap_mx3`'s output bit
+    for bit.  Returns the B2 and B5 rows of the kernels line."""
+    params = KMS_32PARTY
+    ctx = kms._ctx(params)
+    keys = party_keygen_lean(gen, params, with_brk=True, mx=True)
+    print(f"[28 keygen] " + keygen_note("KMS32party", params, keys) + f" ({smi})")
+    scheme, mx_keys, lwe_keys = keys["scheme"], keys["mx_keys"], keys["lwe_keys"]
+
+    sweep = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True, rate=rate)
+    err_mx, args_mx = check_mx_sweep(gen, params, mx_keys.brk_mx[1], BATCH, params.l_lev)
+    mx = {"err": err_mx, **timed_whole(fused_mx2.mx_sweep, fused_mx2.mx_sweep_plain, args_mx, "mx sweep (KMS32party)"),
+          **mx_sweep_bound(params, args_mx[4], BATCH, params.l_lev, args_mx[0], rate)}
+    note = instance_note(fused_mx3.sweep_kernel(params, ctx), usage["phase1_sweep"], must_not_spill=True)
+    mx_note = instance_note(fused_mx2.mx_kernel(params, args_mx[4]), usage["mx_sweep"], must_not_spill=True)
+    print(
+        f"[28a sweeps] KMS32party, one party at G={BATCH}, rows=3, all {params.n} steps, bit-exact over all steps "
+        f"and over {CHECK_STEPS} from the LEV rows (tolerance {TOLERANCE}): B2 kernel {sweep['ms']:.2f} ms vs plain "
+        f"{sweep['plain_ms']:.1f} ms through {note}, {bounds_note(sweep)}; B5 kernel {mx['ms']:.2f} ms vs "
+        f"mx_sweep_plain {mx['plain_ms']:.1f} ms ({args_mx[4].nprimes} primes) through {mx_note}, "
+        f"{bounds_note(mx)} ({smi})"
+    )
+
+    def decrypt(out):
+        return lwe_decrypt_bit_mk(out, lwe_keys)
+
+    ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, BATCH)
+    reset_launches()
+    t0 = time.time()
+    mx3_out, mx3_above = with_peak(lambda: checked_bootstrap(
+        fused_mx3.bootstrap_mx3, ct, ~(m1 & m2), scheme, params, decrypt, "KMS32party bootstrap_mx3"))
+    mx3_s = time.time() - t0
+    mx3_launches = read_launches()
+    if mx3_launches["sweep"] != params.k or mx3_launches["mx"] != 0:
+        raise SystemExit(f"KMS32party bootstrap_mx3: expected {params.k} B2 sweeps, got {mx3_launches}")
+    keys["scheme"] = lean = kms.drop_brk(scheme)  # brk_hat freed
+    del scheme
+
+    def bootstrap_mx2(ct, scheme, params):
+        return fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params)
+
+    reset_launches()
+    boot, above = with_peak(lambda: bootstrap_chain(bootstrap_mx2, ct, c2, m1, m2, params, decrypt, lean,
+                                                    PARTY_CHAIN))
+    launches = read_launches()
+    runs = 1 + PARTY_CHAIN
+    if launches["mx"] != runs * params.k or launches["sweep"] != 0 or min(launches["fwd"], launches["inv"]) == 0:
+        raise SystemExit(f"KMS32party bootstrap_mx2: expected {params.k} B5 sweeps a bootstrap and the NTT "
+                         f"kernel, got {launches} in {runs} bootstraps")
+    if not (torch.equal(boot["first"].b, mx3_out.b) and torch.equal(boot["first"].a, mx3_out.a)):
+        raise SystemExit("KMS32party: bootstrap_mx2 and bootstrap_mx3 differ on the same ciphertext")
+    dt = boot["batch_s"]
+    print(
+        f"[28b bootstrap_mx2] KMS32party NAND batch {BATCH}: bootstrap_mx3 once {mx3_s * 1e3:.1f} ms (host clock "
+        f"to the decrypted bits, {mx3_launches['sweep']} B2 launches through {served_by(params)}, peak "
+        f"{mx3_above / 1e9:.2f} GB above the held keys); on the scheme "
+        f"without brk_hat bootstrap_mx2 decrypt OK x{runs} (every link), its first output bit-identical to "
+        f"bootstrap_mx3's (b and a); first {boot['first_s']:.2f} s; chain of {PARTY_CHAIN}: {dt * 1e3:.1f} "
+        f"ms/batch = {BATCH / dt:.2f} boots/s; peak allocated {above / 1e9:.2f} GB above the held keys; "
+        f"launches in {runs} bootstraps: B5 {launches['mx']} through "
+        f"{served_by(params, mx_keys=mx_keys)}, B1 fwd {launches['fwd']} inv {launches['inv']} ({smi})"
+    )
+    state["noise"].append(("bootstrap_mx2 [28]", "KMS32party", boot["first"], lwe_keys, ~(m1 & m2)))
+    state["parties"] += [
+        preset_record("KMS32party", "bootstrap_mx3", keys, mx3_s * 1e3, mx3_above, served_by(params)),
+        preset_record("KMS32party", "bootstrap_mx2", keys, dt * 1e3, above, served_by(params, mx_keys=mx_keys)),
+    ]
+    rows = [
+        kernel_row("phase1_sweep_binary_k32", "phase1_sweep.cu", "mktfhe_tpu/kernels/fused_mx3.py:226",
+                   mx3_launches["sweep"], max(sweep["err"], sweep["whole_err"]), sweep["ms"], sweep["plain_ms"], sweep),
+        kernel_row("mx_sweep_binary_k32", "mx_sweep.cu", "mktfhe_tpu/kernels/fused_mx2.py:217", launches["mx"],
+                   max(mx["err"], mx["whole_err"]), mx["ms"], mx["plain_ms"], mx),
+    ]
+    rows[0].update(preset="KMS32party", launches_per_bootstrap=mx3_launches["sweep"])
+    rows[1].update(preset="KMS32party", launches_per_bootstrap=launches["mx"] // runs)
+    return rows
+
+
+def run_other_parties(gen, smi: str, state: dict) -> None:
+    """Phase 29: every other KMS preset the JAX package serves but KMS8, at
+    full width, NAND batch 128: the block forms through `bootstrap_mx3`, the
+    binary forms through `bootstrap_mx2` on mx keys and a scheme without
+    `brk_hat`; one decrypt-checked bootstrap and one dependent, timed and
+    decrypt-checked; the compiled instance that served the sweeps; each
+    preset's keys freed before the next keygen, so that peaks are per
+    preset."""
+    for name, params in OTHER_PARTIES:
+        block = isinstance(params, KmsBlockParams)
+        keys = party_keygen_lean(gen, params, with_brk=block, mx=not block)
+        lwe_keys, scheme, mx_keys = keys["lwe_keys"], keys["scheme"], keys["mx_keys"]
+
+        def decrypt(out):
+            return lwe_decrypt_bit_mk(out, lwe_keys)
+
+        if block:
+            engine, bootstrap, instance = "bootstrap_mx3", fused_mx3.bootstrap_mx3, served_by(params)
+        else:
+            engine, instance = "bootstrap_mx2", served_by(params, mx_keys=mx_keys)
+
+            def bootstrap(ct, scheme, params):
+                return fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params)
+
+        ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, BATCH)
+        reset_launches()
+        boot, above = with_peak(lambda: bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, 1))
+        launches = read_launches()
+        sweeps = launches["sweep" if block else "mx"]
+        if sweeps != 2 * params.k or launches["mx" if block else "sweep"] != 0:
+            raise SystemExit(f"{name} {engine}: expected {params.k} sweeps a bootstrap, got {launches}")
+        dt = boot["batch_s"]
+        print(
+            f"[29 {name}] " + keygen_note(name, params, keys) + f"; {engine} NAND batch {BATCH}: decrypt OK x2, "
+            f"first {boot['first_s'] * 1e3:.1f} ms, a dependent one {dt * 1e3:.1f} ms/batch = {BATCH / dt:.2f} "
+            f"boots/s; {sweeps} sweeps through {instance}; peak allocated {above / 1e9:.2f} GB above the held keys "
+            f"({smi})"
+        )
+        state["noise"].append((f"{engine} [29]", name, boot["first"], lwe_keys, ~(m1 & m2)))
+        state["parties"].append(preset_record(name, engine, keys, dt * 1e3, above, instance))
+        del keys, scheme, mx_keys, boot
+        torch.cuda.empty_cache()
+
+
+def run_parties(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
+    """Phases 27-29: the KMS main path at every party count the JAX package
+    serves beyond phase 6's k = 8, at full width; a summary line; returns the
+    k = 32 rows of the kernels line."""
+    state.setdefault("parties", [])
+    rows = run_k32_block(gen, device, smi, usage, rate, state)
+    torch.cuda.empty_cache()
+    rows += run_k32_binary(gen, device, smi, usage, rate, state)
+    torch.cuda.empty_cache()
+    run_other_parties(gen, smi, state)
+    print(f"[29b presets] KMS on the card, NAND batch {BATCH}, ms a batch (a dependent bootstrap; KMS32party's "
+          f"bootstrap_mx3: its one bootstrap), keygen s, key images GB, keygen's peak above what was held before "
+          f"it, the bootstrap's peak above the keys: " + "; ".join(
+              f"{r['preset']} {r['engine']} {r['ms']:.1f} ms = {BATCH / r['ms'] * 1e3:.2f} boots/s, keygen "
+              f"{r['keygen_s']:.2f} s, keys {r['key_gb']:.3f} GB, keygen peak {r['keygen_peak_gb']:.2f} GB, "
+              f"bootstrap peak {r['above_gb']:.2f} GB, {r['instance']}" for r in state["parties"]) + f" ({smi})")
+    return rows
+
+
 # The card's peaks for the cost model's summary (utils/profiling.py): its
 # integer operations at INT32_OPS_PER_S, its matmul work (the key switch's
 # float64 gemm) at the FP64 tensor-core rate, 67 TFLOP/s on the H100 SXM data
@@ -1605,30 +2009,20 @@ def run_named_ranges(state: dict, binary: dict, tmp: str, smi: str) -> None:
     )
     for what, bootstrap, ct, scheme, params, chain_s in cases:
         ms = profile_phases(bootstrap, ct, scheme, params, os.path.join(tmp, f"trace_{what}"))
-        busy = sum(ms.values())
-        covered = 1 - ms[profiling.OUTSIDE] / busy
-        if covered < RANGE_COVERAGE:
-            raise SystemExit(f"{what}: the named ranges hold {covered:.3f} of the device time: {ms}")
-        phase1 = sum(v for k, v in ms.items() if k.startswith("mktfhe/phase1/"))
-        merges = [v for k, v in ms.items() if k.startswith("mktfhe/phase2/")]
         cost = profiling.kms_cost(params, "ref", params.ring_nprimes)
         # the JAX package's TPU operation model, not the port's arithmetic: its
         # utilization against the card's peak is left out (each kernel's own
         # bound is in the kernels line)
         summary = cost.summary(BATCH, chain_s, **H100_PEAKS)
         del summary["vpu_utilization"]
+        preset = "KMS8partyblock" if params is KMS_8PARTY_BLOCK else "KMS8party"
         print(
-            f"[25 named ranges] {what} {'KMS8partyblock' if params is KMS_8PARTY_BLOCK else 'KMS8party'} batch "
-            f"{BATCH}, one warm bootstrap, device busy {busy:.2f} ms: mod_switch {ms['mktfhe/mod_switch']:.3f} ms, "
-            f"phase 1 (sweeps, {params.k} parties) {phase1:.2f} ms, levkey_lift {ms['mktfhe/levkey_lift']:.3f} ms, "
-            f"phase 2 {sum(merges):.2f} ms (merges 1..{params.k}: " + ", ".join(f"{v:.2f}" for v in merges)
-            + f"), keyswitch {ms['mktfhe/keyswitch']:.3f} ms, outside every range {ms[profiling.OUTSIDE]:.3f} ms; "
-            f"the ranges hold {covered:.2%}; bounds of the JAX TPU op model, not the port's arithmetic "
-            f"(the JAX package's count, engine 'ref', "
-            f"{params.ring_nprimes} primes) against the H100's peaks (int32 {INT32_OPS_PER_S / 1e12:.1f} T ops/s, "
-            f"fp64 tensor {FP64_TENSOR_MACS_PER_S / 1e12:.1f} T MAC/s, {HBM_BYTES_PER_S / 1e12:.2f} TB/s) at the "
-            f"chain's {chain_s * 1e3:.1f} ms a batch: " + ", ".join(f"{k} {v:.4g}" for k, v in summary.items())
-            + f" ({smi})"
+            ranges_line("25 named ranges", f"{what} {preset}", params, ms)
+            + f"; bounds of the JAX TPU op model, not the port's arithmetic (the JAX package's count, engine "
+            f"'ref', {params.ring_nprimes} primes) against the H100's peaks (int32 {INT32_OPS_PER_S / 1e12:.1f} "
+            f"T ops/s, fp64 tensor {FP64_TENSOR_MACS_PER_S / 1e12:.1f} T MAC/s, {HBM_BYTES_PER_S / 1e12:.2f} "
+            f"TB/s) at the chain's {chain_s * 1e3:.1f} ms a batch: "
+            + ", ".join(f"{k} {v:.4g}" for k, v in summary.items()) + f" ({smi})"
         )
 
 
@@ -1651,19 +2045,27 @@ def check_rank_results(job: str, ranks: list[list[dict]], index: int, want: Lwe,
     return max((results[index] for results in ranks), key=lambda r: r["ms"])
 
 
+def merge_launches(params, g: int) -> tuple[int, int]:
+    """Natural NTT launches of phase 2's k merges at batch g: forward the LEV
+    digits, the hybrid product's digits in chunks of `kms.hybrid_chunk`
+    parties and v's digits; inverse y, v and the new accumulator."""
+    step = kms.hybrid_chunk(g, params, kms._ctx(params))
+    return sum(2 + -(-p1 // step) for p1 in range(1, params.k + 1)), 3 * params.k
+
+
 def shard_launches(params, kp: int, engine: str) -> dict:
     """The kernel launches of one rank's sharded bootstrap with kp resident
     parties: phase 1 by engine (the mx sweep once a party; the batch-minor
     NTT once a step each way; the reference engine's natural NTT once a step
-    each way), each party's lev key lifted by one forward natural NTT, and 3
-    forward + 3 inverse natural NTTs a merge of phase 2."""
+    each way), each party's lev key lifted by one forward natural NTT, and
+    phase 2's merges (`merge_launches`; one chunk a merge at KMS8)."""
     steps = params.n // (params.ell if isinstance(params, KmsBlockParams) else 1)
-    merges = 3 * params.k
+    fwd, inv = merge_launches(params, BATCH)
     if engine == "mx2":
-        return {"mx": kp, "fwd": kp + merges, "inv": merges}
+        return {"mx": kp, "fwd": kp + fwd, "inv": inv}
     if engine == "bm":
-        return {"fwd_bm": kp * steps, "inv_bm": kp * steps, "fwd": kp + merges, "inv": merges}
-    return {"fwd": kp * steps + kp + merges, "inv": kp * steps + merges}
+        return {"fwd_bm": kp * steps, "inv_bm": kp * steps, "fwd": kp + fwd, "inv": inv}
+    return {"fwd": kp * steps + kp + fwd, "inv": kp * steps + inv}
 
 
 def run_sharded(state: dict, binary: dict, paths: dict, smi: str) -> None:
@@ -1784,7 +2186,13 @@ def main() -> int:
     run_ccs(gen, smi, gate_times, rate, kernels[:2], state)
     run_cli(smi)
 
-    # 23-26: serialization, noise, named ranges, the sharded path
+    # 27-29: every other party count, k = 32 at full width
+    t_parties = time.time()
+    kernels += run_parties(gen, device, smi, usage, rate, state)
+    torch.cuda.empty_cache()
+
+    # 23-26: serialization, noise (with phases 27-29's outputs), named ranges,
+    # the sharded path
     t_tools = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         paths = run_serialization(state, binary, tmp, device, smi)
@@ -1793,8 +2201,9 @@ def main() -> int:
         run_sharded(state, binary, paths, smi)
 
     # 22. results
-    print(f"[22 done] {time.time() - t_start:.1f} s in all, phases 19-21 {t_tools - t_gates:.1f} s, "
-          f"23-26 {time.time() - t_tools:.1f} s; {NO_LIBRARY_CALL}")
+    print(f"[22 done] {time.time() - t_start:.1f} s in all: phases 1-18 {t_gates - t_start:.1f} s, 19-21 "
+          f"{t_parties - t_gates:.1f} s, 27-29 {t_tools - t_parties:.1f} s, 23-26 {time.time() - t_tools:.1f} s; "
+          f"{NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -119,14 +119,20 @@ def limb_dot(flat: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor):
     single = ksk_b.dim() == 2
     if single:  # one table is one party
         flat, ksk_b, ksk_a = flat[..., None, :], ksk_b[None], ksk_a[None]
-    x = flat.to(torch.float64)
-    db = da = 0
-    for limb in range(NLIMB):
-        pb = torch.einsum("...kr,kr->...k", x, ksk_b[:, limb].to(torch.float64))
-        pa = torch.einsum("...kr,krn->...kn", x, ksk_a[:, limb].to(torch.float64))
-        db = db + (pb.to(torch.int64) << (8 * limb))
-        da = da + (pa.to(torch.int64) << (8 * limb))
-    return (db[..., 0], da[..., 0, :]) if single else (db, da)
+    dbs, das = [], []
+    # one party at a time: the float64 images of a party's tables (147 MB a
+    # limb at the non-block KMS presets) rather than of all k at once
+    for party in range(ksk_b.shape[0]):
+        x = flat[..., party, :].to(torch.float64)
+        db = da = 0
+        for limb in range(NLIMB):
+            pb = x @ ksk_b[party, limb].to(torch.float64)
+            pa = x @ ksk_a[party, limb].to(torch.float64)
+            db = db + (pb.to(torch.int64) << (8 * limb))
+            da = da + (pa.to(torch.int64) << (8 * limb))
+        dbs.append(db)
+        das.append(da)
+    return (dbs[0], das[0]) if single else (torch.stack(dbs, -1), torch.stack(das, -2))
 
 
 def keyswitch_table(acc: torch.Tensor, ksk_b: torch.Tensor, ksk_a: torch.Tensor, f: int, log_d: int) -> Lwe:

@@ -52,7 +52,7 @@ from ..ciphertext.unienc import gen_b, sample_crs, unienc_encrypt
 from ..kernels.fused_mx3 import kms_phase1_mx3, phase1_sweep_plain
 from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
-from ..ring.modring import addmod, mulsum_mod, negmod, prime_column
+from ..ring.modring import addmod, mulsum_mod, prime_column
 from ..ring.sampler import rng_streams
 from ..ring.ntt import fwd_ntt
 from ..ring.torus import lift, wrap_i32
@@ -97,6 +97,10 @@ class KmsScheme:
 AnyKmsParams = KmsParams | KmsBlockParams
 # top-level sampling streams consumed by keygen (ring/sampler.rng_streams)
 KEYGEN_STREAMS = 7
+# residues of one chunk of phase 2's hybrid-product digits (`hybrid_chunk`):
+# one chunk a merge at every preset up to k = 16 at batch 128, a transient
+# of about 2.5 GB at most
+PHASE2_CHUNK_RESIDUES = 1 << 27
 # this engine's phase 1 is the sweep's loop in plain PyTorch with the NTT
 # kernel under its transforms
 _NTT_KERNEL = (fwd_ntt_nat, inv_ntt_nat)
@@ -264,13 +268,8 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     y = mulsum_mod(dhat, levkey[:, None, :, 1], -3, p)
     y_t = inv_to_torus(y, ctx)  # [G, p1, N]
 
-    # hybrid product of y with this party's rlk
-    yhat = rlwe_decomp_hat(y_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, p1, l, npr, N]
-    u = mulsum_mod(rd, yhat, -3, p)
-    v = negmod(mulsum_mod(crs_hat, yhat[:, 0], -3, p), p)
-    if p1 > 1:
-        vi = mulsum_mod(pub_h, yhat[:, 1:], -3, p)  # [G, p1-1, npr, N]
-        v = torch.remainder(v + vi.sum(1), p)
+    # hybrid product of y with this party's rlk, over chunks of parties
+    u, v = _hybrid_product(y_t, rd, pub_h, crs_hat, params, ctx, p)
     v_t = inv_to_torus(v, ctx)  # [G, N]
 
     vhat = rlwe_decomp_hat(v_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, l, npr, N]
@@ -283,6 +282,39 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     out = torch.zeros_like(acc)
     out[:, : p1 + 1] = new
     return out
+
+
+def hybrid_chunk(g: int, params: AnyKmsParams, ctx: RingCtx) -> int:
+    """Parties per chunk of phase 2's hybrid product at batch g: as many as
+    keep a chunk's digit transforms [g, parties, l_uni, npr, N] within
+    PHASE2_CHUNK_RESIDUES residues (at least one party)."""
+    return max(1, PHASE2_CHUNK_RESIDUES // (g * params.l_uni * ctx.nprimes * ctx.n))
+
+
+def _hybrid_product(y_t, rd, pub_h, crs_hat, params: AnyKmsParams, ctx: RingCtx, p):
+    """The hybrid product of a merge: y_t [G, p1, N] torus, each party's
+    component decomposed and transformed, contracted against party p1's rlk
+    d-vector `rd` (u [G, p1, npr, N]) and against the crs (component 0) and
+    the earlier parties' public keys `pub_h` (v [G, npr, N], reduced).
+
+    The digits go through chunks of `hybrid_chunk` parties, so the
+    transients of this contraction stop growing with p1 (about 9 GB at
+    merge 32 of the KMS32 presets at G = 128 when taken at once); each
+    chunk's u is exact and v is summed over chunks before one reduction, so
+    the residues are the unchunked ones."""
+    g, p1 = y_t.shape[0], y_t.shape[1]
+    step = hybrid_chunk(g, params, ctx)
+    us, v = [], 0
+    for c0 in range(0, p1, step):
+        c1 = min(c0 + step, p1)
+        yhat = rlwe_decomp_hat(y_t[:, c0:c1], params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, c, l, npr, N]
+        us.append(mulsum_mod(rd, yhat, -3, p))
+        if c0 == 0:
+            v = v - mulsum_mod(crs_hat, yhat[:, 0], -3, p)
+        lo = max(c0, 1)  # parties 2.. weigh by the earlier parties' public keys
+        if lo < c1:
+            v = v + mulsum_mod(pub_h[lo - 1 : c1 - 1], yhat[:, lo - c0 :], -3, p).sum(1)
+    return torch.cat(us, 1), torch.remainder(v, p)
 
 
 def _phase2_party(acc, levkey, p1: int, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx) -> torch.Tensor:

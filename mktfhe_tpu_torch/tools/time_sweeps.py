@@ -7,11 +7,15 @@ keys (block or binary) and, for a binary preset, `mx_sweep` on its mx keys.
 as one launch and one step.  `--ntt`: the natural NTT kernel (B1), forward
 and inverse, at the shapes `bootstrap_mx3`, `bootstrap_mx2` and
 `cggi.bootstrap` launch (NTT_SHAPES), and the batch-minor one (B4) at the
-shapes the CGGI and KMS batch-minor engines launch (NTT_BM_SHAPES).  Each is
-first held bit-exact against its plain version.  Keys and inputs are uniform
-residues: the kernels' time does not depend on them.  The short kernels are
-timed by their device time in torch.profiler, found by the instance name the
-source's dispatcher reports (`device_ms`).
+shapes the CGGI and KMS batch-minor engines launch (NTT_BM_SHAPES).
+`--stages`: for each KMS preset named, also the last merge of phase 2
+(`kms._phase2_party_mat` for party k) and the key switch (`kms._keyswitch`)
+at batch 128: device ms and the device memory each allocates at its peak
+above its inputs.  Each kernel is first held bit-exact against its plain
+version.  Keys and inputs are uniform residues: the kernels' time does not
+depend on them.  The short kernels are timed by their device time in
+torch.profiler, found by the instance name the source's dispatcher reports
+(`device_ms`).
 
 `--tree DIR` (repeatable) times other checkouts of the repository beside this
 one (each package imported from its DIR, its kernels built there), in turns:
@@ -24,6 +28,7 @@ Usage (one CUDA card):
   python -m mktfhe_tpu_torch.tools.time_sweeps --preset KMS32party --preset KMS16partyblock \
       --tree _probe/parent
   python -m mktfhe_tpu_torch.tools.time_sweeps --cggi --ntt --tree _probe/parent
+  python -m mktfhe_tpu_torch.tools.time_sweeps --stages --preset KMS32partyblock --tree _probe/parent
 Prints one JSON object per tree and turn, each with the card's name and
 power limit.
 """
@@ -190,7 +195,61 @@ def time_ntt(device, gen) -> dict:
     return out
 
 
-def worker(names, cggi: bool = False, ntt: bool = False) -> dict:
+def _peak(fn) -> int:
+    """Bytes fn() allocates on the card at its peak above what was
+    allocated when it started."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+def time_stages(params, device, gen) -> dict:
+    """Phase 2's last merge (party k onto components 0..k-1) and the key
+    switch at batch BATCH on uniform inputs of the preset's shapes: the
+    accumulator over all of 64 bits, lev key, rlk, public keys and crs as
+    residues, the key-switching tables as int8 limbs (time and memory do not
+    depend on the values)."""
+    from mktfhe_tpu_torch.schemes import kms
+    from mktfhe_tpu_torch.schemes.common import NLIMB
+    from mktfhe_tpu_torch.schemes.params import KmsBlockParams
+
+    ctx = kms._ctx(params)
+    npr, n, k = ctx.nprimes, ctx.n, params.k
+
+    def residues(*lead):
+        return _residues(gen, (*lead, npr, n), len(lead), npr, device)
+
+    acc = torch.randint(-(1 << 63), (1 << 63) - 1, (BATCH, k + 1, n), generator=gen, device=device)
+    acc[:, k] = 0
+    levkey = residues(BATCH, params.l_lev, 2)
+    rd, rf, crs = residues(params.l_uni), residues(params.l_uni, 2), residues(params.l_uni)
+    pub = residues(k - 1, params.l_uni)
+    coeffs = n - params.n if isinstance(params, KmsBlockParams) else n
+    rows = coeffs * params.f * (1 << params.log_d) // 2
+    limbs = dict(generator=gen, device=device, dtype=torch.int8)
+    empty = torch.zeros((0,), dtype=torch.int32, device=device)
+    scheme = kms.KmsScheme(
+        crs_hat=crs, pub_b_hat=pub, brk_hat=empty, rlk_d_hat=residues(k, params.l_uni),
+        rlk_f_hat=residues(k, params.l_uni, 2), ksk_b=torch.randint(-128, 128, (k, NLIMB, rows), **limbs),
+        ksk_a=torch.randint(-128, 128, (k, NLIMB, rows, params.n), **limbs), mono_hat=empty,
+    )
+
+    def merge():
+        return kms._phase2_party_mat(acc, levkey, k, rd, rf, pub, crs, params, ctx)
+
+    def keyswitch():
+        return kms._keyswitch(acc, scheme, params)
+
+    return {
+        "merge_ms": _ms(merge, REPS), "merge_peak_gb": _peak(merge) / 1e9,
+        "keyswitch_ms": _ms(keyswitch, REPS), "keyswitch_peak_gb": _peak(keyswitch) / 1e9,
+    }
+
+
+def worker(names, cggi: bool = False, ntt: bool = False, stages: bool = False) -> dict:
     """Times of the package that this process imports (the first
     `mktfhe_tpu_torch` on its path)."""
     from mktfhe_tpu_torch.kernels import _build, fused_mx2, fused_mx3
@@ -237,6 +296,8 @@ def worker(names, cggi: bool = False, ntt: bool = False) -> dict:
             "row1_ms": _ms(lambda: fused_mx2.mx_sweep(ta, brk_mx, 1, params, ctx_p), REPS),
         }
         del brk_mx
+    if stages:
+        out["stages"] = {name: time_stages(ALL_PRESETS[name], device, gen) for name in names}
     if cggi:
         out["cggi_step"] = time_cggi(device, gen)
     if ntt:
@@ -257,6 +318,8 @@ def main() -> int:
                     help=f"a KMS preset of schemes/presets.py:ALL_PRESETS (default: {', '.join(DEFAULT_PRESETS)})")
     ap.add_argument("--cggi", action="store_true", help="time the CGGI step kernel")
     ap.add_argument("--ntt", action="store_true", help="time the NTT kernels")
+    ap.add_argument("--stages", action="store_true",
+                    help="also phase 2's last merge and the key switch of each preset named: ms and peak memory")
     ap.add_argument("--tree", metavar="DIR", action="append", default=[],
                     help="another checkout to time beside this one (repeatable)")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -266,7 +329,7 @@ def main() -> int:
         return 1
     names = ns.preset or ([] if ns.cggi or ns.ntt else list(DEFAULT_PRESETS))
     if ns.worker:
-        print(json.dumps(worker(names, ns.cggi, ns.ntt)))
+        print(json.dumps(worker(names, ns.cggi, ns.ntt, ns.stages)))
         return 0
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -278,7 +341,7 @@ def main() -> int:
     # the worker is this file, whichever tree's package it then imports
     command = [sys.executable, str(Path(__file__).resolve()), "--worker",
                *(a for n in names for a in ("--preset", n)), *(["--cggi"] if ns.cggi else []),
-               *(["--ntt"] if ns.ntt else [])]
+               *(["--ntt"] if ns.ntt else []), *(["--stages"] if ns.stages else [])]
     for tree in trees + trees[::-1] if len(trees) > 1 else trees:
         proc = subprocess.run(command, cwd=tree, env={**os.environ, "PYTHONPATH": str(tree)},
                               capture_output=True, text=True)
@@ -287,7 +350,7 @@ def main() -> int:
             failed = True
             continue
         res = json.loads(proc.stdout.strip().splitlines()[-1])
-        failed |= not all(r["exact"] for name, r in res.items() if name != "ptxas")
+        failed |= not all(r["exact"] for name, r in res.items() if name not in ("ptxas", "stages"))
         print(json.dumps({"tree": str(tree), "card": smi, **res}))
     return 1 if failed else 0
 

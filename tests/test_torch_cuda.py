@@ -3,7 +3,9 @@
 The NTT kernel at every supported ring size and prime count, forward and
 inverse, in the natural and the batch-minor layout (whole and ragged gate
 tiles); the phase-1 sweep kernel over ring sizes, prime counts, binary and
-block keys, row counts, gadgets and batch sizes; the mx sweep kernel over
+block keys, row counts, gadgets and batch sizes, and at every KMS preset
+through its compiled instance over all of the preset's steps (the mx sweep
+too, at the binary presets); the mx sweep kernel over
 ring sizes (nb = 1 to 16), the key's prime counts, row counts, gadgets and
 both homes of its power table; the fused CGGI step kernel
 over ring sizes, prime counts, gadgets (the 32-bit rounding carry live and
@@ -30,7 +32,7 @@ from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
-from mktfhe_tpu_torch.schemes import ccs, gates, kms, lmss
+from mktfhe_tpu_torch.schemes import ccs, gates, kms, lmss, presets
 from mktfhe_tpu_torch.parallel.launch import Job, bootstrap_jobs, run_ranks
 from mktfhe_tpu_torch.schemes.params import BlockParams, CcsParams, CggiParams, KmsBlockParams, KmsParams
 from mktfhe_tpu_torch.schemes.presets import TEST_PRESETS
@@ -337,6 +339,61 @@ def test_mx_sweep_wrapper_contract_on_cuda(device):
     assert fused_mx2.mx_sweep.launches == 0
     empty = fused_mx2.mx_sweep(ta[:0], brk, 2, params, ctx)
     assert tuple(empty.shape) == (0, 2, 2, ctx.n) and fused_mx2.mx_sweep.launches == 0
+
+
+# --- every KMS preset's sweeps, whole -----------------------------------------
+
+# the KMS presets at full width (schemes/presets.py), each served by a compiled
+# instance of each sweep it runs
+KMS_FULL = {name: p for name, p in vars(presets).items()
+            if isinstance(p, (KmsParams, KmsBlockParams)) and p.big_n == 2048}
+WHOLE_GATES = 8
+
+
+def _preset_inputs(params, npr, key_shape, prime_axis, device, seed):
+    """Random key residues of `key_shape`, below the prime of their index on
+    `prime_axis`, and rotation amounts over all of [0, 2N) for WHOLE_GATES
+    gates."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    keys = torch.randint(0, 1 << 62, key_shape, generator=gen, device=device)
+    column = prime_column(npr, device).reshape(npr, *[1] * (len(key_shape) - prime_axis - 1))
+    keys = torch.remainder(keys, column).to(torch.int32)
+    ta = torch.randint(0, 2 * params.big_n, (WHOLE_GATES, params.n), generator=gen, device=device, dtype=torch.int32)
+    ta[0, 0], ta[-1, -1] = 0, 2 * params.big_n - 1
+    return keys, ta
+
+
+@pytest.mark.parametrize("name", sorted(KMS_FULL))
+def test_sweep_kernel_whole_preset(device, name):
+    """A preset's phase-1 sweep through the instance compiled for it (never
+    the kernel with run-time shapes), all of its steps, l_lev rows, against
+    the plain version on random keys."""
+    params = KMS_FULL[name]
+    ctx = kms._ctx(params)
+    assert not fused_mx3.sweep_kernel(params, ctx)["run_time_shapes"]
+    brk, ta = _preset_inputs(params, ctx.nprimes, (params.n, 2, params.l_gsw, 2, ctx.nprimes, ctx.n), 4, device,
+                             seed=params.k)
+    mono = kms.monomial_table(ctx, device) if isinstance(params, KmsBlockParams) else None
+    fused_mx3.reset_launches()
+    got = fused_mx3.phase1_sweep(ta, brk, params.l_lev, mono, params, ctx)
+    assert fused_mx3.phase1_sweep.launches == 1
+    assert torch.equal(got, fused_mx3.phase1_sweep_plain(ta, brk, params.l_lev, mono, params, ctx))
+
+
+@pytest.mark.parametrize("name", sorted(n for n, p in KMS_FULL.items() if not isinstance(p, KmsBlockParams)))
+def test_mx_sweep_kernel_whole_preset(device, name):
+    """A binary preset's mx sweep on keys over `mx_nprimes` primes through
+    the instance compiled for it, all of its steps, l_lev rows, against
+    `mx_sweep_plain`."""
+    params = KMS_FULL[name]
+    npr = fused_mx2.mx_nprimes(params)
+    ctx = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
+    assert not fused_mx2.mx_kernel(params, ctx)["run_time_shapes"]
+    brk, ta = _preset_inputs(params, npr, (params.n, npr, 2 * params.l_gsw, 2, ctx.n), 1, device, seed=params.k + 1)
+    fused_mx2.reset_launches()
+    got = fused_mx2.mx_sweep(ta, brk, params.l_lev, params, ctx)
+    assert fused_mx2.mx_sweep.launches == 1
+    assert torch.equal(got, fused_mx2.mx_sweep_plain(ta, brk, params.l_lev, params, ctx))
 
 
 # --- the batch-minor NTT kernel ----------------------------------------------
