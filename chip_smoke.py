@@ -82,6 +82,9 @@ Phases, each printing one line; any failure exits non-zero:
      decrypt-checked `ccs.bootstrap` of 128 gates on CCS8partyTight;
  21. the port's CLI, `python -m mktfhe_tpu_torch.cli`, as a subprocess with
      ChaCha seeding at Block and CCS2partyTight: both must exit 0 and print OK;
+ 30a. (run after 18, before 19) the batch-minor NTT kernel against its plain
+     version at every shape `kms.bootstrap_bm` launches at KMS16party and
+     KMS32party, each through its instance, timed against its bound;
  27. (run after 21, before 23) KMS32partyblock at full width, NAND batch 128:
      the natural NTT kernel against its plain version at the largest shape the
      path launches; keygen on the card; one party's sweep against its plain
@@ -89,20 +92,32 @@ Phases, each printing one line; any failure exits non-zero:
      decrypt-checked, launches held to the count phase 2's chunks give;
      `kms.bootstrap` once on the same input, bit-identical; the named-range
      split of 32 merges;
- 28. KMS32party: both key images on the card; B2 and B5 against their plain
-     versions over all steps; `bootstrap_mx3` once, then a dependent chain of
-     `bootstrap_mx2` on the scheme without `brk_hat`, bit-identical;
+ 28. KMS32party: both key images and the batch-minor image on the card; B2
+     and B5 against their plain versions over all steps; `bootstrap_mx3` once,
+     then a dependent chain of `bootstrap_mx2` on the scheme without
+     `brk_hat`, bit-identical;
  29. KMS16, KMS4 and KMS2, block keys through `bootstrap_mx3`, binary keys
      through `bootstrap_mx2`: a decrypt-checked bootstrap and a dependent one,
      the instance that served the sweeps, each preset's keys freed before the
      next; then a summary of every preset of 27-29 (29b);
+ 30. (in 28 and 29) `kms.bootstrap_bm` at KMS32party and KMS16party on the
+     chain's first input, on the batch-minor image of the same party keys:
+     bit-identical to `bootstrap_mx2`, decrypt-checked, the batch-minor NTT's
+     launches counted by shape, times the time at each; at KMS16party one
+     warm bootstrap under the profiler split by named range; the files of
+     phase 31's ranks (each rank's share in a file of its own);
+ 32. CCS8party and CCS16party: keygen on the card, a decrypt-checked
+     `ccs.bootstrap` of 128 gates and a dependent one (2 k n + 2 k n natural
+     NTT launches a bootstrap), the natural NTT's launches by shape with the
+     time and bound at each, and at CCS16party the kernel against its plain
+     version at the path's largest shape;
  23. serialization on the card: the KMS8party scheme without `brk_hat`, its
      mx keys and the CGGI scheme saved (`utils.save`) and loaded back onto
      the card; `bootstrap_mx2` and `bootstrap_fused` on the loaded keys give
      phases 17's and 13's outputs bit for bit; the files phase 26 loads;
  24. noise: `utils.noise.noise_report` on the outputs of phases 6, 13, 17,
-     19, 20 and 27-29 beside MARGINS.md's rows (margins.json); fails where an
-     error reaches the margin;
+     19, 20, 27-29 and 32 beside MARGINS.md's rows (margins.json); fails where
+     an error reaches the margin;
  25. named ranges: one `bootstrap_mx3` (KMS8partyblock) and one
      `bootstrap_mx2` (KMS8party) under `utils.profiling.trace`, the device ms
      of each named phase range, which must hold 95% of the device busy time,
@@ -113,6 +128,12 @@ Phases, each printing one line; any failure exits non-zero:
      shard_phase2, the batch-minor engine, `kms_bootstrap_sharded` and the
      reference engine at KMS8partyblock; every output equal to the
      single-process one and decrypt-checked, every rank's launches counted;
+ 31. the party-sharded bootstrap at k = 16 (two gloo ranks sharing the card:
+     the batch-minor engine, and mx2 with shard_phase2) and at k = 32 (four
+     ranks, mx2 with shard_phase2), each rank reading only its share of the
+     keys from disk: every output equal to the single-process
+     `bootstrap_mx2` output and decrypt-checked, every rank's launches
+     counted, its key bytes, bytes read, host and device memory printed;
  22. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
@@ -139,7 +160,8 @@ from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.parallel.launch import Job, bootstrap_jobs, run_ranks
-from mktfhe_tpu_torch.ring.context import make_ring_ctx
+from mktfhe_tpu_torch.parallel.mesh import party_share
+from mktfhe_tpu_torch.ring.context import make_ring_ctx, nprimes_monomial_weighted
 from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.ring.sampler import uniform_torus
@@ -157,7 +179,9 @@ from mktfhe_tpu_torch.schemes.presets import (
     BLOCK_PARAM,
     CCS_2PARTY_TIGHT,
     CCS_4PARTY_TIGHT,
+    CCS_8PARTY,
     CCS_8PARTY_TIGHT,
+    CCS_16PARTY,
     CGGI_PARAM,
     KMS_2PARTY,
     KMS_2PARTY_BLOCK,
@@ -222,6 +246,11 @@ OTHER_PARTIES = [
     ("KMS4partyblock", KMS_4PARTY_BLOCK), ("KMS4party", KMS_4PARTY),
     ("KMS2partyblock", KMS_2PARTY_BLOCK), ("KMS2party", KMS_2PARTY),
 ]
+
+# phase 30: kms.bootstrap_bm at the binary presets beyond k = 8; phase 32:
+# the CCS presets that contract the most digit products (204 at CCS16party)
+BM_PARTIES = (("KMS16party", KMS_16PARTY), ("KMS32party", KMS_32PARTY))
+CCS_PARTIES = (("CCS8party", CCS_8PARTY), ("CCS16party", CCS_16PARTY))
 
 # small sets of no preset's shape: they run the sweep kernels' instances with
 # run-time shapes
@@ -450,12 +479,13 @@ def ntt_by_shape(path: str, fwd: dict, inv: dict, bootstraps: int, times: dict) 
 
 
 def by_shape_line(tag: str, rows: list[dict], profiled_ms: float, smi: str,
-                  kernel: str = "natural NTT kernel", axes: str = "[rows, npr, N]") -> str:
+                  kernel: str = "natural NTT kernel", axes: str = "[rows, npr, N]",
+                  against: str = "in the profile") -> str:
     parts = "; ".join(f"{r['shape']} " + ", ".join(
         f"{d} {r[d]:g} x {r[d + '_ms']:.4f} ms" for d in ("fwd", "inv") if r[d]) for r in rows)
     total = sum(r["ms_per_bootstrap"] for r in rows)
     return (f"[{tag}] {kernel} per {rows[0]['path']}, by shape {axes}: {parts}; "
-            f"launches x time = {total:.3f} ms against {profiled_ms:.3f} ms in the profile ({smi})")
+            f"launches x time = {total:.3f} ms against {profiled_ms:.3f} ms {against} ({smi})")
 
 
 def keygen(gen, params):
@@ -712,15 +742,17 @@ def _bm_residues(gen, shape, device) -> torch.Tensor:
     return torch.remainder(x, prime_column(npr, device)[:, :, None, None]).to(torch.int32)
 
 
-def check_ntt_bm(gen, device, usage: list[str], rate: dict) -> dict:
-    """Batch-minor kernel vs plain version on the card at NTT_BM_SHAPES, each
+def check_ntt_bm(gen, device, usage: list[str], rate: dict, shapes=tuple(NTT_BM_SHAPES), timed=tuple(NTT_BM_TIMED),
+                 plain_at=(NTT_BM_SHAPES[0], NTT_BM_SHAPES[1])) -> dict:
+    """Batch-minor kernel vs plain version on the card at `shapes`, each
     shape through the instances that serve it (named with what ptxas said of
-    them; none may spill); both directions timed on the device at
-    NTT_BM_TIMED with their bounds, the plain version and the wrapper's call
-    as the host enqueues it at the CGGI pair."""
+    them; none may spill); both directions timed on the device at `timed`
+    with their bounds, the plain version and the wrapper's call as the host
+    enqueues it at `plain_at` (forward at the first, inverse at the second:
+    the CGGI pair by default)."""
     err = {"fwd": 0, "inv": 0}
     notes = {}
-    for shape in NTT_BM_SHAPES:
+    for shape in shapes:
         npr, rows, n, gates = shape
         plan = make_plan(n, npr)
         x = _bm_residues(gen, shape, device)
@@ -737,13 +769,13 @@ def check_ntt_bm(gen, device, usage: list[str], rate: dict) -> dict:
     for d in ("fwd", "inv"):
         if err[d] > TOLERANCE:
             raise SystemExit(f"batch-minor NTT {d} kernel disagrees with its plain version: max |diff| {err[d]}")
-    times = time_bm_shapes(gen, device, NTT_BM_TIMED)
+    times = time_bm_shapes(gen, device, timed)
     rows = {shape: {
         d: {"ms": times[shape][k], **ntt_bm_bound(shape, d == "fwd", rate)} for k, d in enumerate(("fwd", "inv"))
-    } for shape in NTT_BM_TIMED}
+    } for shape in timed}
     plain, enqueued = {}, {}
-    for d, shape, wrapper, forward in (("fwd", NTT_BM_SHAPES[0], kntt.fwd_ntt_bm, True),
-                                       ("inv", NTT_BM_SHAPES[1], kntt.inv_ntt_bm, False)):
+    for d, shape, wrapper, forward in (("fwd", plain_at[0], kntt.fwd_ntt_bm, True),
+                                       ("inv", plain_at[1], kntt.inv_ntt_bm, False)):
         plan = make_plan(shape[2], shape[0])
         x = _bm_residues(gen, shape, device)
         kntt.ntt_bm_plain(x, plan, forward)  # warm-up
@@ -1390,11 +1422,30 @@ def gate_path_ntt_shapes() -> set[tuple]:
     e back, and the digit sum of G^-1(v) forward."""
     p = BLOCK_PARAM
     out = {(LMSS_BATCH * (p.k + 1) * rows, p.nprimes, p.big_n) for rows in (p.l_gsw, 1)}
-    for p in (CCS_2PARTY_TIGHT, CCS_4PARTY_TIGHT):
-        out.add((CCS_BATCH * p.l_uni, p.nprimes, p.big_n))
-        out |= {(CCS_BATCH * (p1 + 1) * rows, p.nprimes, p.big_n)
-                for p1 in range(1, p.k + 1) for rows in (p.l_uni, 1)}
+    for p in (CCS_2PARTY_TIGHT, CCS_4PARTY_TIGHT) + tuple(params for _, params in CCS_PARTIES):
+        out |= ccs_ntt_shapes(p)
     return out
+
+
+def ccs_ntt_shapes(p) -> set[tuple]:
+    """[rows, npr, N] of the natural NTT's launches in one `ccs.bootstrap` of
+    CCS_BATCH gates at preset p (`gate_path_ntt_shapes`)."""
+    return {(CCS_BATCH * p.l_uni, p.nprimes, p.big_n)} | {
+        (CCS_BATCH * (p1 + 1) * rows, p.nprimes, p.big_n) for p1 in range(1, p.k + 1) for rows in (p.l_uni, 1)}
+
+
+def ntt_bounds_note(by_shape: list[dict], rate: dict) -> str:
+    """Each shape and direction of `ntt_by_shape`'s rows: launches a
+    bootstrap, the time, and the bound (`ntt_bound`) with the share of it
+    reached."""
+    parts = []
+    for r in by_shape:
+        for d in ("fwd", "inv"):
+            if r[d]:
+                b = ntt_bound(tuple(r["shape"]), d == "fwd", rate)
+                parts.append(f"{d} {r['shape']} x{r[d]:g} {r[d + '_ms']:.4f} ms (bound {b['bound_ms']:.4f} by "
+                             f"{b['bound_by']}, {b['bound_ms'] / r[d + '_ms']:.0%} reached)")
+    return "; ".join(parts)
 
 
 def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, decrypt,
@@ -1439,14 +1490,7 @@ def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, dec
           f"{dt * 1e3:.1f} ms a batch: idle share {max(0.0, 1 - prof['device_ms'] / (dt * 1e3)):.3f} ({smi})")
     by_shape = ntt_by_shape(path, *shapes, runs, times)
     print(by_shape_line(f"{tag}c ntt by shape", by_shape, prof["parts"]["NTT kernels"], smi))
-    bounds = []
-    for r in by_shape:
-        for d in ("fwd", "inv"):
-            if r[d]:
-                b = ntt_bound(tuple(r["shape"]), d == "fwd", rate)
-                bounds.append(f"{d} {r['shape']} {r[d + '_ms']:.4f} ms, bound {b['bound_ms']:.4f} by "
-                              f"{b['bound_by']} ({b['bound_ms'] / r[d + '_ms']:.0%} reached)")
-    print(f"[{tag}d ntt bounds] " + "; ".join(bounds) + f" ({smi})")
+    print(f"[{tag}d ntt bounds] " + ntt_bounds_note(by_shape, rate) + f" ({smi})")
     for row, d in zip(ntt_rows, ("fwd", "inv")):
         row["launches_by_shape"] += [
             {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
@@ -1476,6 +1520,21 @@ def run_lmss(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state
     state["noise"].append(("lmss.bootstrap [19]", "Block", out, [lwe_key], ~(m1 & m2)))
 
 
+def ccs_keygen(gen, params) -> tuple:
+    """crs, k party keygens and setup on the generator's device: the LWE
+    keys, the scheme, the seconds and the peak allocated above what was held
+    before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.time()
+    a = ccs.crs(gen, params)
+    parties = [ccs.party_keygen(gen, a, params) for _ in range(params.k)]
+    scheme = ccs.setup(a, [p[2] for p in parties], params)
+    torch.cuda.synchronize()
+    return [p[0] for p in parties], scheme, time.time() - t0, torch.cuda.max_memory_allocated() - before
+
+
 def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state: dict) -> None:
     """Phase 20: the CCS gate bootstrap on CCS2partyTight and CCS4partyTight
     (keygen on the card, then `ntt_path`: 2 * k * n forward and as many
@@ -1485,21 +1544,12 @@ def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state:
     batch = CCS_BATCH
     for name, params in (("CCS2partyTight", CCS_2PARTY_TIGHT), ("CCS4partyTight", CCS_4PARTY_TIGHT),
                          ("CCS8partyTight", CCS_8PARTY_TIGHT)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        t0 = time.time()
-        a = ccs.crs(gen, params)
-        parties = [ccs.party_keygen(gen, a, params) for _ in range(params.k)]
-        lwe_keys = [p[0] for p in parties]
-        scheme = ccs.setup(a, [p[2] for p in parties], params)
-        del parties
-        torch.cuda.synchronize()
+        lwe_keys, scheme, keygen_s, peak = ccs_keygen(gen, params)
         print(
             f"[20 ccs keygen] {name} (k={params.k}, n={params.n}, N={params.big_n}, l_uni={params.l_uni}, "
             f"log_b_uni={params.log_b_uni}, npr={params.nprimes}): crs, {params.k} party keygens and setup "
-            f"in {time.time() - t0:.2f} s; scheme {scheme_bytes(scheme) / 1e6:.1f} MB; peak allocated above "
-            f"what was held before {(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB ({smi})"
+            f"in {keygen_s:.2f} s; scheme {scheme_bytes(scheme) / 1e6:.1f} MB; peak allocated above "
+            f"what was held before {peak / 1e9:.3f} GB ({smi})"
         )
         ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, batch)
 
@@ -1524,6 +1574,77 @@ def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state:
         )
 
 
+def run_ccs_parties(gen, device, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state: dict) -> list[dict]:
+    """Phase 32: CCS8party and CCS16party at full width, NAND batch
+    CCS_BATCH: keygen on the card (crs, k party keygens, setup); one
+    decrypt-checked `ccs.bootstrap` and one dependent, timed and
+    decrypt-checked (counts reset just before, read just after: 2 k n
+    forward and as many inverse natural NTT launches a bootstrap and no
+    other kernel); B1's launches by shape x the time at each (`times`, taken
+    beforehand) and each shape's bound, added to B1's rows of the kernels
+    line; at CCS16party B1 against its plain version at the path's largest
+    shape (party 16's digits), whose rows of the kernels line this returns.
+    No card-against-CPU check here: at k = 16 it takes minutes of the
+    host's CPU (the CPU tests hold these gadgets to the JAX package)."""
+    rows = []
+    for name, params in CCS_PARTIES:
+        lwe_keys, scheme, keygen_s, keygen_peak = ccs_keygen(gen, params)
+        ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, CCS_BATCH)
+
+        def decrypt(out):
+            return lwe_decrypt_bit_mk(out, lwe_keys)
+
+        reset_launches()
+        boot, above = with_peak(lambda: bootstrap_chain(ccs.bootstrap, ct, c2, m1, m2, params, decrypt, scheme, 1))
+        launches = {k: v for k, v in read_launches().items() if v}
+        shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
+        per_bootstrap = 2 * params.k * params.n
+        if launches != {"fwd": 2 * per_bootstrap, "inv": 2 * per_bootstrap}:
+            raise SystemExit(f"ccs.bootstrap {name}: expected {per_bootstrap} + {per_bootstrap} natural NTT launches "
+                             f"a bootstrap and no other kernel, got {launches} in 2 bootstraps")
+        if set(shapes[0]) | set(shapes[1]) != ccs_ntt_shapes(params):
+            raise SystemExit(f"ccs.bootstrap {name} launched B1 at {sorted(set(shapes[0]) | set(shapes[1]))}, "
+                             f"expected {sorted(ccs_ntt_shapes(params))}")
+        print(
+            f"[32 ccs] {name} (k={params.k}, n={params.n}, N={params.big_n}, l_uni={params.l_uni}, log_b_uni="
+            f"{params.log_b_uni}, npr={params.nprimes}; party {params.k}'s relinearisation contracts "
+            f"{(params.k + 1) * params.l_uni} digit products): crs, {params.k} party keygens and setup in "
+            f"{keygen_s:.2f} s, scheme {scheme_bytes(scheme) / 1e9:.3f} GB, peak allocated above what was held before "
+            f"{keygen_peak / 1e9:.3f} GB; NAND batch {CCS_BATCH}: decrypt OK x2, first {boot['first_s']:.2f} s, a "
+            f"dependent one {boot['batch_s']:.2f} s a batch = {CCS_BATCH / boot['batch_s']:.2f} boots/s (host clock, "
+            f"unprofiled), peak {above / 1e9:.3f} GB above the held keys; natural NTT launches in 2 bootstraps "
+            f"fwd {launches['fwd']} inv {launches['inv']} ({per_bootstrap} each way a bootstrap) ({smi})"
+        )
+        by_shape = ntt_by_shape(f"ccs.bootstrap {name}", *shapes, 2, times)
+        total = sum(r["ms_per_bootstrap"] for r in by_shape)
+        print(f"[32b ntt by shape] B1 per ccs.bootstrap {name}, a bootstrap by shape [rows, npr, N]: "
+              + ntt_bounds_note(by_shape, rate) + f"; launches x time = {total:.1f} ms of the dependent bootstrap's "
+              f"{boot['batch_s'] * 1e3:.1f} ms ({smi})")
+        for row, d in zip(ntt_rows, ("fwd", "inv")):
+            row["launches_by_shape"] += [
+                {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]}
+                for r in by_shape if r[d]]
+        state["noise"].append(("ccs.bootstrap [32]", name, boot["first"], lwe_keys, ~(m1 & m2)))
+        if params is CCS_16PARTY:
+            big = max(shapes[0])
+            ntt = check_ntt_at(gen, device, big, rate)
+            print(
+                f"[32c ntt at CCS16party] B1 vs plain version at {list(big)} (party {params.k}'s digits): bit-exact "
+                f"both ways (tolerance {TOLERANCE}); fwd {ntt['fwd_ms']:.4f} ms vs plain {ntt['fwd_plain_ms']:.2f} "
+                f"ms (bound {ntt['fwd_bound']['bound_ms']:.4f} by {ntt['fwd_bound']['bound_by']}), inv "
+                f"{ntt['inv_ms']:.4f} ms vs plain {ntt['inv_plain_ms']:.2f} ms (bound "
+                f"{ntt['inv_bound']['bound_ms']:.4f} by {ntt['inv_bound']['bound_by']}) ({smi})"
+            )
+            for d in ("fwd", "inv"):
+                row = kernel_row(f"ntt_{d}_nat_ccs16party", "ntt.cu", "mktfhe_tpu/kernels/ntt_pallas.py:340",
+                                 launches[d], ntt["err"], ntt[f"{d}_ms"], ntt[f"{d}_plain_ms"], ntt[f"{d}_bound"])
+                row.update(preset=name, timed_at=list(big), launches_per_bootstrap=launches[d] // 2)
+                rows.append(row)
+        del scheme, boot
+        torch.cuda.empty_cache()
+    return rows
+
+
 def run_cli(smi: str) -> None:
     """Phase 21: the port's CLI as a user runs it, ChaCha-seeded (no --seed),
     on the card, at Block and CCS2partyTight; each must exit 0 and print OK."""
@@ -1539,12 +1660,14 @@ def run_cli(smi: str) -> None:
               + " | ".join(lines[-3:]) + f" ({smi})")
 
 
-def party_keygen_lean(gen, params, with_brk: bool, mx: bool) -> dict:
-    """crs, k party keygens and setup on the card (and the mx keys): the
-    party keys, whose torus `brk` a k = 32 party holds 220 MB of, are dropped
-    once the key images are built; `setup` and `build_mx_kms_keys` go party by
-    party.  Returns the LWE keys, the scheme, the mx keys, the seconds, the
-    bytes held and the peak allocated above what was held before."""
+def party_keygen_lean(gen, params, with_brk: bool, mx: bool, bm: bool = False) -> dict:
+    """crs, k party keygens and setup on the card (and the mx keys, and
+    after them the batch-minor image of `kms.bootstrap_bm`): the party keys,
+    whose torus `brk` a k = 32 party holds 220 MB of, are dropped once the
+    key images are built; `setup`, `build_mx_kms_keys` and
+    `build_bm_kms_phase1` go party by party.  Returns the LWE keys, the
+    scheme, the mx and batch-minor keys, the seconds, the bytes held and the
+    peak allocated above what was held before."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -1556,12 +1679,14 @@ def party_keygen_lean(gen, params, with_brk: bool, mx: bool) -> dict:
     del parties
     scheme = kms.setup(a, party_keys, params, with_brk=with_brk)
     mx_keys = fused_mx2.build_mx_kms_keys(party_keys, params) if mx else None
+    bm_keys = batchminor.build_bm_kms_phase1(party_keys, params) if bm else None
     with_party_keys = torch.cuda.memory_allocated() - before
     del party_keys
     torch.cuda.synchronize()
     return {
-        "lwe_keys": lwe_keys, "scheme": scheme, "mx_keys": mx_keys, "s": time.time() - t0,
+        "lwe_keys": lwe_keys, "scheme": scheme, "mx_keys": mx_keys, "bm_keys": bm_keys, "s": time.time() - t0,
         "scheme_bytes": scheme_bytes(scheme), "mx_bytes": scheme_bytes(mx_keys) if mx else 0,
+        "bm_bytes": scheme_bytes(bm_keys) if bm else 0,
         "party_key_bytes": with_party_keys - (torch.cuda.memory_allocated() - before),
         "peak": torch.cuda.max_memory_allocated() - before,
     }
@@ -1591,8 +1716,10 @@ def keygen_note(name: str, params, keys: dict) -> str:
     return (f"{name} (k={params.k}, n={params.n}, N={params.big_n}, l_gsw={params.l_gsw}, l_uni={params.l_uni}, "
             f"npr={params.ring_nprimes}): crs, {params.k} party keygens, setup"
             + (", build_mx_kms_keys" if keys["mx_keys"] is not None else "")
+            + (", build_bm_kms_phase1" if keys["bm_keys"] is not None else "")
             + f" in {keys['s']:.2f} s; scheme {keys['scheme_bytes'] / 1e9:.3f} GB"
             + (f", mx keys {keys['mx_bytes'] / 1e9:.3f} GB" if keys["mx_keys"] is not None else "")
+            + (f", batch-minor keys {keys['bm_bytes'] / 1e9:.3f} GB" if keys["bm_keys"] is not None else "")
             + f", party keys dropped after ({keys['party_key_bytes'] / 1e9:.3f} GB); peak allocated above what "
             f"was held before {keys['peak'] / 1e9:.2f} GB")
 
@@ -1626,14 +1753,18 @@ def check_ntt_at(gen, device, shape, rate) -> dict:
     plan = make_plan(shape[2], shape[1])
     x = _residues(gen, shape, device)
     fk = kntt.fwd_ntt_nat(x, plan)
-    err = _max_abs_diff(fk, fwd_ntt(x, plan))
+    held = {}
+    fwd_plain_ms = _sync_ms(lambda: held.setdefault("fwd", fwd_ntt(x, plan)), 1)
+    err = _max_abs_diff(fk, held.pop("fwd"))
     ik = kntt.inv_ntt_nat(fk, plan)
-    err = max(err, _max_abs_diff(ik, inv_ntt(fk, plan)))
+    inv_plain_ms = _sync_ms(lambda: held.setdefault("inv", inv_ntt(fk, plan)), 1)
+    err = max(err, _max_abs_diff(ik, held.pop("inv")))
     torch.cuda.synchronize()
     if err > TOLERANCE or not torch.equal(ik, x):
         raise SystemExit(f"NTT kernel disagrees with its plain version at {shape}: max |diff| {err}")
     out = {"err": err, "fwd_ms": _sync_ms(lambda: kntt.fwd_ntt_nat(x, plan), 5),
            "inv_ms": _sync_ms(lambda: kntt.inv_ntt_nat(fk, plan), 5),
+           "fwd_plain_ms": fwd_plain_ms, "inv_plain_ms": inv_plain_ms,
            "fwd_bound": ntt_bound(shape, True, rate), "inv_bound": ntt_bound(shape, False, rate)}
     del x, fk, ik
     torch.cuda.empty_cache()
@@ -1751,15 +1882,17 @@ def ranges_line(tag: str, what: str, params, ms: dict) -> str:
 
 def run_k32_binary(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
     """Phase 28: KMS32party at full width (n = 560, 3 primes), NAND batch 128:
-    keygen on the card with both key images (`brk_hat` and the mx keys); one
-    party's B2 and B5 sweeps against their plain versions over all steps;
-    `bootstrap_mx3` once, then a dependent chain of PARTY_CHAIN
-    `bootstrap_mx2` after the first on the scheme without `brk_hat`, every
-    link decrypt-checked, the first equal to `bootstrap_mx3`'s output bit
-    for bit.  Returns the B2 and B5 rows of the kernels line."""
+    keygen on the card with both key images (`brk_hat` and the mx keys) and
+    the batch-minor image; one party's B2 and B5 sweeps against their plain
+    versions over all steps; `bootstrap_mx3` once, then a dependent chain of
+    PARTY_CHAIN `bootstrap_mx2` after the first on the scheme without
+    `brk_hat`, every link decrypt-checked, the first equal to
+    `bootstrap_mx3`'s output bit for bit; then phase 30 on the first input,
+    and the files of phase 31's four ranks.  Returns the B2, B5 and B4 rows
+    of the kernels line."""
     params = KMS_32PARTY
     ctx = kms._ctx(params)
-    keys = party_keygen_lean(gen, params, with_brk=True, mx=True)
+    keys = party_keygen_lean(gen, params, with_brk=True, mx=True, bm=True)
     print(f"[28 keygen] " + keygen_note("KMS32party", params, keys) + f" ({smi})")
     scheme, mx_keys, lwe_keys = keys["scheme"], keys["mx_keys"], keys["lwe_keys"]
 
@@ -1829,7 +1962,25 @@ def run_k32_binary(gen, device, smi: str, usage: dict, rate: dict, state: dict) 
     ]
     rows[0].update(preset="KMS32party", launches_per_bootstrap=mx3_launches["sweep"])
     rows[1].update(preset="KMS32party", launches_per_bootstrap=launches["mx"] // runs)
-    return rows
+
+    # 30. the batch-minor engine on the chain's first input: B4's rows at the
+    # KMS32party shapes of the kernels line
+    check = state["bm_check"]
+    bm_rows = [
+        kernel_row(f"ntt_{d}_bm_kms32party", "ntt.cu", "mktfhe_tpu/kernels/ntt_pallas.py:240", 0, check["err"][d],
+                   check["rows"][shape][d]["ms"], check["plain"][d], check["rows"][shape][d])
+        for d, shape in zip(("fwd", "inv"), check["k32"])
+    ]
+    for row, shape in zip(bm_rows, check["k32"]):
+        row.update(preset="KMS32party", timed_at=list(shape), launches_by_shape=[])
+    bm = run_bootstrap_bm("KMS32party", params, keys, ct, boot["first"], ~(m1 & m2), decrypt, check, smi, bm_rows,
+                          profiled=False)
+    for row, d in zip(bm_rows, ("fwd", "inv")):
+        row.update(launches=bm["launches"][f"{d}_bm"], launches_per_bootstrap=bm["launches"][f"{d}_bm"])
+    keys["bm_keys"] = None
+    torch.cuda.empty_cache()
+    save_shard_case(state, "KMS32party", params, keys, ct, boot["first"], ~(m1 & m2), 4)
+    return rows + bm_rows
 
 
 def run_other_parties(gen, smi: str, state: dict) -> None:
@@ -1839,10 +1990,11 @@ def run_other_parties(gen, smi: str, state: dict) -> None:
     `brk_hat`; one decrypt-checked bootstrap and one dependent, timed and
     decrypt-checked; the compiled instance that served the sweeps; each
     preset's keys freed before the next keygen, so that peaks are per
-    preset."""
+    preset.  At KMS16party also the batch-minor image, phase 30 on the
+    first input and the files of phase 31's two ranks."""
     for name, params in OTHER_PARTIES:
         block = isinstance(params, KmsBlockParams)
-        keys = party_keygen_lean(gen, params, with_brk=block, mx=not block)
+        keys = party_keygen_lean(gen, params, with_brk=block, mx=not block, bm=params is KMS_16PARTY)
         lwe_keys, scheme, mx_keys = keys["lwe_keys"], keys["scheme"], keys["mx_keys"]
 
         def decrypt(out):
@@ -1872,8 +2024,37 @@ def run_other_parties(gen, smi: str, state: dict) -> None:
         )
         state["noise"].append((f"{engine} [29]", name, boot["first"], lwe_keys, ~(m1 & m2)))
         state["parties"].append(preset_record(name, engine, keys, dt * 1e3, above, instance))
+        if keys["bm_keys"] is not None:
+            run_bootstrap_bm(name, params, keys, ct, boot["first"], ~(m1 & m2), decrypt, state["bm_check"], smi, [],
+                             profiled=True)
+            save_shard_case(state, name, params, keys, ct, boot["first"], ~(m1 & m2), 2)
         del keys, scheme, mx_keys, boot
         torch.cuda.empty_cache()
+
+
+def save_shard_case(state: dict, name: str, params, keys: dict, ct, want, clear, world: int) -> None:
+    """The files of phase 31's `world` ranks, mesh (party world, batch 1),
+    each rank's share in a file of its own: for the mx2 engine with
+    shard_phase2, the scheme's shares with the phase-2 keys cut and the mx
+    keys' shares; where `keys` hold the batch-minor image, for the
+    batch-minor engine (phase 2 replicated, its gates split) the scheme
+    without `brk_hat` whole and that image's shares; the ciphertext."""
+    tag = name.lower()
+    lean, mx_keys, bm_keys = keys["scheme"], keys["mx_keys"], keys["bm_keys"]
+    objs = {"scheme": (lean, True), "mx": (mx_keys, False)}
+    if bm_keys is not None:
+        objs["bm"] = (bm_keys, False)
+    shares = save_shares(state["tmp"], tag, world, objs)
+    ct_path = os.path.join(state["tmp"], f"{tag}_ct.npz")
+    save(ct_path, ct)
+    jobs = [Job("mx2 shard_phase2", params, shares["scheme"], ct_path, mesh=(world, 1), phase1_keys=shares["mx"],
+                shard_phase2=True, reps=SHARD_REPS)]
+    if bm_keys is not None:
+        whole = os.path.join(state["tmp"], f"{tag}_scheme.npz")
+        save(whole, lean)
+        jobs.insert(0, Job("bm", params, whole, ct_path, mesh=(world, 1), phase1_keys=shares["bm"]))
+    state["shard_cases"].append({"name": name, "params": params, "want": want, "lwe_keys": keys["lwe_keys"],
+                                 "clear": clear, "mx_bytes": scheme_bytes(mx_keys), "jobs": jobs})
 
 
 def run_parties(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
@@ -1893,6 +2074,139 @@ def run_parties(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> 
               f"{r['keygen_s']:.2f} s, keys {r['key_gb']:.3f} GB, keygen peak {r['keygen_peak_gb']:.2f} GB, "
               f"bootstrap peak {r['above_gb']:.2f} GB, {r['instance']}" for r in state["parties"]) + f" ({smi})")
     return rows
+
+
+def bm_shapes(params, g: int) -> tuple[dict, dict]:
+    """The batch-minor NTT's launches in one `kms.bootstrap_bm` at batch g,
+    by [npr', R, N, G] (npr' the monomial-weighted prime count): a step of
+    party 1 (one RLEV row) transforms 2 l_gsw digit rows forward and 2 back,
+    a step of every other party l_lev times as many."""
+    npr = nprimes_monomial_weighted(params.ring_torus_bits, params.big_n, params.l_gsw, params.log_b_gsw)
+    fwd, inv = {}, {}
+    for rows, parties in ((1, 1), (params.l_lev, params.k - 1)):
+        fwd[(npr, rows * 2 * params.l_gsw, params.big_n, g)] = parties * params.n
+        inv[(npr, rows * 2, params.big_n, g)] = parties * params.n
+    return fwd, inv
+
+
+def check_bm_parties(gen, device, usage: dict, rate: dict, smi: str) -> dict:
+    """Phase 30a: the batch-minor NTT kernel against its plain version,
+    bit-exact both ways, at every shape `kms.bootstrap_bm` launches at
+    BM_PARTIES (each through the instance `bm_plan` picks, named with
+    ptxas's registers), timed on the device against its bound; the plain
+    version timed at KMS32party's forward and inverse shapes of parties
+    2..k.  Run before the large profiles (short profiles after those have
+    come back empty)."""
+    shapes = sorted({shape for _, params in BM_PARTIES for d in bm_shapes(params, BATCH) for shape in d})
+    k32_fwd, k32_inv = (max(d, key=lambda shape: shape[1]) for d in bm_shapes(KMS_32PARTY, BATCH))
+    res = check_ntt_bm(gen, device, usage["ntt"], rate, shapes, shapes, (k32_fwd, k32_inv))
+    print(
+        f"[30a ntt batch-minor at k=16, 32] bit-exact vs plain version at every shape kms.bootstrap_bm launches at "
+        f"KMS16party and KMS32party, batch {BATCH}, {[list(x) for x in shapes]} [npr, R, N, G] (tolerance "
+        f"{TOLERANCE}), through " + "; ".join(res["notes"]) + "; on the device: " + bm_times_line(res)
+        + f"; plain version fwd {res['plain']['fwd']:.3f} ms at {list(k32_fwd)}, inv {res['plain']['inv']:.3f} ms "
+        f"at {list(k32_inv)} ({smi})"
+    )
+    res["k32"] = (k32_fwd, k32_inv)
+    return res
+
+
+def profile_split(bootstrap, ct, scheme, params, kernel: str) -> dict:
+    """One warm `bootstrap` under torch.profiler, without a trace file (a
+    batch-minor or CCS bootstrap makes 10^5-10^6 events): device ms by named
+    range (`profiling.phase_device_ms`), the device ms of the kernels whose
+    names hold `kernel`, device busy and wall; taken again, up to
+    PROFILE_TRIES times in all, if it recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on_device = torch.autograd.DeviceType.CUDA
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            bootstrap(ct, scheme, params).b.cpu()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        ms = profiling.phase_device_ms(prof)
+        if sum(ms.values()) > 0:
+            kernel_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                            if e.device_type() == on_device and not e.is_user_annotation()
+                            and kernel in e.name()) / 1e6
+            return {"ranges": ms, "kernel_ms": kernel_ms, "device_ms": sum(ms.values()), "wall_ms": wall_ms}
+        time.sleep(0.5)
+    raise SystemExit("torch.profiler recorded no device time in the named ranges' profile")
+
+
+def run_bootstrap_bm(name: str, params, keys: dict, ct, want, clear, decrypt, bm_check: dict, smi: str,
+                     bm_rows: list[dict], profiled: bool) -> dict:
+    """Phase 30 at one binary preset: `kms.bootstrap_bm` once on the
+    ciphertext whose `bootstrap_mx2` output is `want`, on the batch-minor
+    image built from the same party keys and the scheme without `brk_hat`:
+    decrypt-checked, bit-identical to `want`, B4 launched n times a party
+    each way (by shape: `bm_shapes`), B1 for the lev keys and phase 2's
+    merges and no other kernel; if `profiled`, one warm bootstrap under the
+    profiler split by named range (not at KMS32party, for the script's
+    time: its profile's 10^6 events are read in Python); B4's launches by
+    shape x time against the profile, else against the bootstrap's host
+    clock (added to B4's rows of the kernels line).  Returns the launches."""
+    bm_keys, lean = keys["bm_keys"], keys["scheme"]
+
+    def bootstrap(ct, scheme, params):
+        return kms.bootstrap_bm(ct, scheme, bm_keys, params)
+
+    reset_launches()
+    t0 = time.time()
+    out, above = with_peak(lambda: checked_bootstrap(bootstrap, ct, clear, lean, params, decrypt,
+                                                     f"{name} kms.bootstrap_bm"))
+    one_s = time.time() - t0
+    launches = {k: v for k, v in read_launches().items() if v}
+    shapes = (dict(kntt.fwd_ntt_bm.shapes), dict(kntt.inv_ntt_bm.shapes))
+    fwd, inv = merge_launches(params, BATCH)
+    steps = params.k * params.n
+    expect = {"fwd_bm": steps, "inv_bm": steps, "fwd": params.k + fwd, "inv": inv}
+    if launches != expect or shapes != bm_shapes(params, BATCH):
+        raise SystemExit(f"{name} kms.bootstrap_bm: expected launches {expect} by shape {bm_shapes(params, BATCH)}, "
+                         f"got {launches} by shape {shapes}")
+    if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
+        raise SystemExit(f"{name}: kms.bootstrap_bm and bootstrap_mx2 differ on the same ciphertext")
+    instances = sorted({kntt.bm_kernel(shape[2], shape[0], shape[1], shape[3], forward)["name"]
+                        for forward, by in ((True, shapes[0]), (False, shapes[1])) for shape in by})
+    print(
+        f"[30 kms.bootstrap_bm] {name} NAND batch {BATCH}, on build_bm_kms_phase1 of the party keys of the mx keys "
+        f"({keys['bm_bytes'] / 1e9:.3f} GB, {bm_keys.brk_bm.shape[2]} primes) and the scheme without brk_hat: "
+        f"decrypt OK, output bit-identical to bootstrap_mx2's on the same ciphertext (b and a); one bootstrap "
+        f"{one_s:.2f} s (host clock to the decrypted bits, no warm-up), peak {above / 1e9:.2f} GB above the held "
+        f"keys; launches {launches} (B4 {params.n} steps x {params.k} parties each way, through "
+        + ", ".join(instances) + f"; B1 for the lev keys and phase 2) ({smi})"
+    )
+    times = {shape: bm_check["times"][shape] for shape in set(shapes[0]) | set(shapes[1])}
+    by_shape = ntt_by_shape(f"kms.bootstrap_bm {name}", *shapes, 1, times)
+    if profiled:
+        prof = profile_split(bootstrap, ct, lean, params, "ntt_bm_kernel")
+        print(ranges_line("30b named ranges", f"kms.bootstrap_bm {name}", params, prof["ranges"])
+              + f"; wall {prof['wall_ms']:.1f} ms under the profiler (idle share "
+              f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.3f}), B4 {prof['kernel_ms']:.2f} ms ({smi})")
+        print(by_shape_line("30c ntt batch-minor by shape", by_shape, prof["kernel_ms"], smi,
+                            "batch-minor NTT kernel", "[npr, R, N, G]"))
+    else:
+        print(by_shape_line("30c ntt batch-minor by shape", by_shape, one_s * 1e3, smi, "batch-minor NTT kernel",
+                            "[npr, R, N, G]", "of the whole bootstrap on the host clock (not profiled)"))
+    for row, d in zip(bm_rows, ("fwd", "inv")):
+        row["launches_by_shape"] += [
+            {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
+    return {"launches": launches}
+
+
+def save_shares(tmp: str, tag: str, n_party: int, objs: dict) -> dict:
+    """Each object of `objs` (name -> (object, shard_phase2)) saved as one
+    file a rank of a party axis of n_party ranks (`mesh.party_share`), the
+    files phase 31's ranks load; returns name -> the tuple of paths."""
+    paths = {}
+    for name, (obj, shard_phase2) in objs.items():
+        paths[name] = tuple(os.path.join(tmp, f"{tag}_{name}_{p}of{n_party}.npz") for p in range(n_party))
+        for p, path in enumerate(paths[name]):
+            save(path, party_share(obj, p, n_party, shard_phase2))
+    return paths
 
 
 # The card's peaks for the cost model's summary (utils/profiling.py): its
@@ -2126,6 +2440,60 @@ def run_sharded(state: dict, binary: dict, paths: dict, smi: str) -> None:
     )
 
 
+def file_bytes(paths) -> int:
+    """Bytes on disk of a Job's key files (one path, or one a rank)."""
+    if paths is None:
+        return 0
+    return sum(os.path.getsize(path) for path in ((paths,) if isinstance(paths, str) else paths))
+
+
+def run_sharded_parties(state: dict, smi: str) -> None:
+    """Phase 31: the party-sharded bootstrap at k = 16 and k = 32 in gloo
+    ranks sharing cuda:0, on the files phases 28 and 29 saved: KMS16party in
+    two ranks, mesh (party 2, batch 1), the batch-minor engine (phase 2
+    replicated, its gates split) and the mx2 engine with shard_phase2;
+    KMS32party in four ranks, mesh (party 4, batch 1), mx2 with
+    shard_phase2 (PARALLEL.md's k = 32 residency: 8 parties a rank, the
+    phase-2 keys party-sharded).  Every rank reads only its share of the
+    party-sharded keys from disk.  Every output must equal the
+    single-process `bootstrap_mx2` output of the same ciphertext (phases 29
+    and 28) and decrypt to the clear NAND; every rank's launches are held
+    against `shard_launches`."""
+    for case in state["shard_cases"]:
+        params, jobs = case["params"], case["jobs"]
+        world = jobs[0].mesh[0]
+        t0 = time.time()
+        ranks = run_ranks(bootstrap_jobs, world, "gloo", (jobs,), "cuda")
+        wall = time.time() - t0
+        parts = []
+        for index, job in enumerate(jobs):
+            engine = "bm" if job.name == "bm" else "mx2"
+            res = check_rank_results(f"(31) {case['name']} gloo {job.name}", ranks, index, case["want"],
+                                     case["lwe_keys"], case["clear"], shard_launches(params, params.k // world, engine))
+            results = [r[index] for r in ranks]
+            host, dev = (", ".join(f"{r[key] / 1e9:.2f}" for r in results)
+                         for key in ("host_rss_bytes", "device_peak_bytes"))
+            parts.append(
+                f"{job.name}: {res['ms']:.1f} ms{' (warm)' if job.reps > 1 else ''}, launches a rank "
+                f"{res['launches']}, keys a rank (max) {max(r['key_bytes'] for r in results) / 1e9:.3f} GB of "
+                f"{(file_bytes(job.scheme) + file_bytes(job.phase1_keys)) / 1e9:.3f} GB in the whole files, read "
+                f"from disk a rank (max) {max(r['loaded_bytes'] for r in results) / 1e9:.3f} GB, host resident "
+                f"a rank (sampled with the keys loaded and after the bootstraps) {host} GB, device peak a rank "
+                f"{dev} GB")
+        note = ""
+        if world == 4:
+            note = (f"; the brk_mx share a rank {case['mx_bytes'] / world / 1e9:.3f} GB (a quarter of "
+                    f"{case['mx_bytes'] / 1e9:.3f} GB), beside PARALLEL.md's 4x2 row of the JAX package on TPU "
+                    f"v5e: 5.28 GB of brk a device in its own layout")
+        print(
+            f"[31 sharded, k={params.k}] {case['name']} NAND batch {BATCH}, {world} gloo ranks sharing cuda:0 "
+            f"(their SMs shared: a check of bits and wiring, not a scaling number), mesh (party {world}, batch 1), "
+            f"{params.k // world} parties a rank; every rank's output == the single-process bootstrap_mx2 output "
+            f"bit for bit, decrypt OK; per job the slowest rank's ms a bootstrap: " + "; ".join(parts) + note
+            + f"; {wall:.1f} s with the ranks' start and key loads ({smi})"
+        )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; needs a CUDA card", file=sys.stderr)
@@ -2172,38 +2540,48 @@ def main() -> int:
     )
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    state = {"noise": []}  # what phases 23-26 take from the earlier ones
+    # what the later phases take from the earlier ones
+    state = {"noise": [], "shard_cases": []}
     kernels, binary = run_kms(gen, device, smi, usage, rate, state)
     cggi_rows, bm_times = run_cggi(gen, device, smi, usage, rate, state)
     kernels += cggi_rows
     kernels += run_mx2(gen, device, smi, binary, usage, rate, kernels[:2], cggi_rows[:2], bm_times, state)
 
-    # B1 at every shape of phases 19 and 20, timed before their profiles of
-    # 10^5-10^6 events: after those, short profiles have come back empty
+    # B1 at every shape of phases 19, 20 and 32, and B4 at phase 30's (30a),
+    # timed before the profiles of 10^5-10^6 events: after those, short
+    # profiles have come back empty
     t_gates = time.time()
     gate_times = time_ntt_shapes(gen, device, gate_path_ntt_shapes())
+    state["bm_check"] = check_bm_parties(gen, device, usage, rate, smi)
     run_lmss(gen, smi, gate_times, rate, kernels[:2], state)
     run_ccs(gen, smi, gate_times, rate, kernels[:2], state)
     run_cli(smi)
 
-    # 27-29: every other party count, k = 32 at full width
-    t_parties = time.time()
-    kernels += run_parties(gen, device, smi, usage, rate, state)
-    torch.cuda.empty_cache()
-
-    # 23-26: serialization, noise (with phases 27-29's outputs), named ranges,
-    # the sharded path
-    t_tools = time.time()
     with tempfile.TemporaryDirectory() as tmp:
+        state["tmp"] = tmp
+        # 27-30: every other party count, k = 32 at full width, and the
+        # batch-minor engine at k = 16 and 32 (saving phase 31's files)
+        t_parties = time.time()
+        kernels += run_parties(gen, device, smi, usage, rate, state)
+        torch.cuda.empty_cache()
+        # 32: CCS8party and CCS16party
+        t_ccs = time.time()
+        kernels += run_ccs_parties(gen, device, smi, gate_times, rate, kernels[:2], state)
+
+        # 23-26 and 31: serialization, noise (with phases 27-32's outputs),
+        # named ranges, the sharded path at k = 8, 16 and 32
+        t_tools = time.time()
         paths = run_serialization(state, binary, tmp, device, smi)
         run_noise(state, smi)
         run_named_ranges(state, binary, tmp, smi)
         run_sharded(state, binary, paths, smi)
+        t_shards = time.time()
+        run_sharded_parties(state, smi)
 
     # 22. results
-    print(f"[22 done] {time.time() - t_start:.1f} s in all: phases 1-18 {t_gates - t_start:.1f} s, 19-21 "
-          f"{t_parties - t_gates:.1f} s, 27-29 {t_tools - t_parties:.1f} s, 23-26 {time.time() - t_tools:.1f} s; "
-          f"{NO_LIBRARY_CALL}")
+    print(f"[22 done] {time.time() - t_start:.1f} s in all: phases 1-18 {t_gates - t_start:.1f} s, 19-21 and 30a "
+          f"{t_parties - t_gates:.1f} s, 27-30 {t_ccs - t_parties:.1f} s, 32 {t_tools - t_ccs:.1f} s, 23-26 "
+          f"{t_shards - t_tools:.1f} s, 31 {time.time() - t_shards:.1f} s; {NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -17,8 +17,11 @@ device_type is "cpu" (one thread a rank).
 `bootstrap_jobs` is the rank program of `kms_bootstrap_shardmap` /
 `kms_bootstrap_sharded`: every rank loads the keys and the ciphertext from
 .npz files (`utils.serialization`; files of the JAX package's `save` will
-do), keeps its parties' share (`shard_scheme`), bootstraps, and reports
-the output, the kernel launches, the time and the bytes of keys it held.
+do) and keeps its parties' share (`shard_scheme`), or loads only its share
+from a file of its own (`mesh.party_share`, saved by the parent: at k = 32
+a whole file is 13 GB, which four ranks on one host would each read),
+bootstraps, and reports the output, the kernel launches, the time, the
+bytes of keys it held and read, and its host and device memory.
 
 On a card, two ranks sharing cuda:0 over gloo (`main`):
     python -m mktfhe_tpu_torch.parallel --preset TinyKMS2party --world 2 --backend gloo
@@ -103,17 +106,20 @@ def run_ranks(fn, world: int, backend: str, args: tuple = (), device_type: str =
 class Job:
     """One sharded bootstrap for `bootstrap_jobs`.  scheme, ct,
     phase1_keys: .npz paths (a KmsScheme, an Lwe, and None or an
-    MxKmsKeys / BmKmsPhase1); mesh: (n_party, n_batch), n_batch None for
-    a party-only mesh; sharded: `kms_bootstrap_sharded` instead of
-    `kms_bootstrap_shardmap`; reps: bootstraps run (the output is the
-    first's, time and launches the last's)."""
+    MxKmsKeys / BmKmsPhase1); scheme and phase1_keys may instead be a tuple
+    of one path per rank of the party axis, each file holding that rank's
+    `mesh.party_share` (with shard_phase2 for the scheme if the job has
+    it); mesh: (n_party, n_batch), n_batch None for a party-only mesh;
+    sharded: `kms_bootstrap_sharded` instead of `kms_bootstrap_shardmap`;
+    reps: bootstraps run (the output is the first's, time and launches the
+    last's)."""
 
     name: str
     params: object
-    scheme: str
+    scheme: str | tuple
     ct: str
     mesh: tuple
-    phase1_keys: str | None = None
+    phase1_keys: str | tuple | None = None
     shard_phase2: bool = False
     sharded: bool = False
     reps: int = 1
@@ -147,8 +153,17 @@ def _on(obj, device):
 
 
 def _bytes(obj) -> int:
-    """Bytes of a key dataclass' tensors."""
-    return sum(getattr(obj, f.name).numel() * getattr(obj, f.name).element_size() for f in dataclasses.fields(obj))
+    """Bytes of a key dataclass' (or NamedTuple's) tensors."""
+    tensors = obj if hasattr(obj, "_fields") else [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _host_rss_bytes() -> int:
+    """This process' resident host memory now (/proc/self/statm; a peak
+    counter would not do: `ru_maxrss` keeps the spawning parent's peak
+    across a spawned rank's exec, and not every kernel reports `VmHWM`)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
 def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
@@ -156,9 +171,13 @@ def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
     of the keys.  Per job: the output ("b", "a": the whole batch), the
     kernel launches and the ms of one bootstrap on this rank (from a
     barrier to the output, the device synchronised), the bytes of keys it
-    held, and whether jax or the JAX package were imported here."""
+    held, the bytes of the files it read for the job (its shares' files, or
+    the whole files it cut its share from, and the ciphertext), its
+    resident host memory (the larger of two samples: with the job's keys
+    loaded, and after its bootstraps), its device memory peak in the job
+    (0 on the CPU), and whether jax or the JAX package were imported here."""
     from ..utils.serialization import load
-    from .mesh import kms_bootstrap_sharded, make_mesh, shard_scheme
+    from .mesh import axis, kms_bootstrap_sharded, make_mesh, shard_scheme
     from .shardmap import kms_bootstrap_shardmap
 
     files, meshes, out = {}, {}, []
@@ -168,13 +187,26 @@ def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
             files[path] = load(path, "cpu")
         return files[path]
 
+    def own(path, mesh):
+        """The file this rank reads: the whole file, or its share's."""
+        return path if isinstance(path, str) else path[axis(mesh, "party")[0]]
+
+    def share(path, mesh, shard_phase2=False):
+        """This rank's share: cut from a whole file, or a file of its own."""
+        if isinstance(path, str):
+            return shard_scheme(loaded(path), mesh, shard_phase2)
+        return loaded(own(path, mesh))
+
     for job in jobs:
         if job.mesh not in meshes:
             meshes[job.mesh] = make_mesh(*job.mesh, device.type)
         mesh = meshes[job.mesh]
-        scheme = _on(shard_scheme(loaded(job.scheme), mesh, job.shard_phase2), device)
-        keys = None if job.phase1_keys is None else _on(shard_scheme(loaded(job.phase1_keys), mesh), device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        scheme = _on(share(job.scheme, mesh, job.shard_phase2), device)
+        keys = None if job.phase1_keys is None else _on(share(job.phase1_keys, mesh), device)
         ct = _on(loaded(job.ct), device)
+        rss = _host_rss_bytes()
         for rep in range(job.reps):
             _reset_launches()
             dist.barrier()
@@ -193,6 +225,10 @@ def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
         out.append({
             "name": job.name, "b": first.b, "a": first.a, "launches": _launches(), "ms": ms,
             "key_bytes": _bytes(scheme) + (0 if keys is None else _bytes(keys)),
+            "loaded_bytes": sum(_bytes(loaded(own(path, mesh))) for path in (job.scheme, job.phase1_keys, job.ct)
+                                if path is not None),
+            "host_rss_bytes": max(rss, _host_rss_bytes()),
+            "device_peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0,
             "jax": "jax" in sys.modules, "mktfhe_tpu": "mktfhe_tpu" in sys.modules,
         })
         del scheme, keys

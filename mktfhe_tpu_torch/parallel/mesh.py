@@ -63,13 +63,11 @@ def resident(x: torch.Tensor, k: int, mesh: DeviceMesh) -> torch.Tensor:
     raise ValueError(f"a per-party tensor of {x.shape[0]} parties is neither all {k} nor this rank's {kp}")
 
 
-def shard_scheme(obj, mesh: DeviceMesh, shard_phase2: bool = False):
-    """The rank's share of a KmsScheme, MxKmsKeys or BmKmsPhase1: the
-    per-party phase-1 keys (`brk_hat`, `brk_mx`, `brk_bm`) cut to this
-    rank's resident parties, and with shard_phase2 also the KmsScheme's
-    phase-2 and key-switch keys (`PHASE2_FIELDS`); the rest replicated.  The
-    cut parts are copies, so the whole tensors can be freed: a rank holds
-    only its parties' keys (PARALLEL.md)."""
+def party_share(obj, pidx: int, n_party: int, shard_phase2: bool = False):
+    """The share of a whole KmsScheme, MxKmsKeys or BmKmsPhase1 that rank
+    `pidx` of a party axis of n_party ranks holds (`shard_scheme`), without
+    a mesh: what a parent saves as one file a rank, so that a rank reads
+    only its parties' keys from disk (`launch.Job`)."""
     if isinstance(obj, KmsScheme):
         k = obj.pub_b_hat.shape[0]
         names = PHASE1_FIELDS + (PHASE2_FIELDS if shard_phase2 else ())
@@ -79,13 +77,24 @@ def shard_scheme(obj, mesh: DeviceMesh, shard_phase2: bool = False):
         k, names = obj.brk_bm.shape[0], ("brk_bm",)
     else:
         raise TypeError(f"nothing to shard in a {type(obj).__name__}")
-    _, n_party = axis(mesh, "party")
     if k % n_party:
         raise ValueError(f"{k} parties do not divide over {n_party} ranks of the party axis")
+    kp = k // n_party
     return dataclasses.replace(obj, **{
-        name: resident(getattr(obj, name), k, mesh).clone()
+        name: getattr(obj, name)[pidx * kp : (pidx + 1) * kp].clone()
         for name in names if getattr(obj, name).numel()  # an empty brk_hat (drop_brk) stays empty
     })
+
+
+def shard_scheme(obj, mesh: DeviceMesh, shard_phase2: bool = False):
+    """The rank's share of a whole KmsScheme, MxKmsKeys or BmKmsPhase1: the
+    per-party phase-1 keys (`brk_hat`, `brk_mx`, `brk_bm`) cut to this
+    rank's resident parties, and with shard_phase2 also the KmsScheme's
+    phase-2 and key-switch keys (`PHASE2_FIELDS`); the rest replicated.  The
+    cut parts are copies, so the whole tensors can be freed: a rank holds
+    only its parties' keys (PARALLEL.md)."""
+    pidx, n_party = axis(mesh, "party")
+    return party_share(obj, pidx, n_party, shard_phase2)
 
 
 def all_gather(x: torch.Tensor, mesh: DeviceMesh, name: str, dim: int = 0) -> torch.Tensor:

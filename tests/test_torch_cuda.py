@@ -79,6 +79,20 @@ def test_kernel_goes_round_the_tiles(device, rows, npr, n):
     assert torch.equal(kntt.inv_ntt_nat(x, plan), inv_ntt(x, plan))
 
 
+@pytest.mark.parametrize("rows", [8 * 17 * 12, 8 * 2 * 12, 8 * 12, 8 * 17, 8 * 2])
+def test_kernel_ccs16party_shapes(device, rows):
+    """The natural NTT at the shapes `ccs.bootstrap` launches at CCS16party
+    (N = 1024, 2 primes) for 8 gates: party p1's digits of p1 + 1
+    components (p1 = 16 and 1), the digit sum of G^-1(v), and the inverses
+    of p1 + 1 components; both ways against the twin."""
+    plan = make_plan(1024, 2)
+    x = _residues((rows,), 2, 1024, device, seed=rows)
+    hat = kntt.fwd_ntt_nat(x, plan)
+    assert torch.equal(hat, fwd_ntt(x, plan))
+    assert torch.equal(kntt.inv_ntt_nat(x, plan), inv_ntt(x, plan))
+    assert torch.equal(kntt.inv_ntt_nat(hat, plan), x)
+
+
 @pytest.mark.parametrize("n", [64, 128, 256, 512, 1024, 2048])
 def test_kernel_is_built_as_described(device, n):
     """The dispatcher's instance for N, both directions, is a kernel that
@@ -443,6 +457,21 @@ def test_bm_kernel_engine_shapes(device, shape):
     x = _bm_residues(*shape, device, seed=sum(shape))
     hat = kntt.fwd_ntt_bm(x, plan)
     assert torch.equal(hat, kntt.ntt_bm_plain(x, plan, True))
+    assert torch.equal(kntt.inv_ntt_bm(hat, plan), x)
+
+
+@pytest.mark.parametrize("shape", [(3, 30, 2048, 8), (3, 10, 2048, 8), (3, 36, 2048, 8), (3, 12, 2048, 8),
+                                   (3, 6, 2048, 8)], ids=lambda s: "x".join(map(str, s)))
+def test_bm_kernel_party_shapes(device, shape):
+    """The shapes `kms.bootstrap_bm` launches at KMS16party and KMS32party
+    (forward l_lev x 2 x l_gsw digit rows, 30 and 36, and party 1's 10 and
+    12; inverse 6 rows) at 8 gates, both ways."""
+    npr, _, n, _ = shape
+    plan = make_plan(n, npr)
+    x = _bm_residues(*shape, device, seed=sum(shape))
+    hat = kntt.fwd_ntt_bm(x, plan)
+    assert torch.equal(hat, kntt.ntt_bm_plain(x, plan, True))
+    assert torch.equal(kntt.inv_ntt_bm(x, plan), kntt.ntt_bm_plain(x, plan, False))
     assert torch.equal(kntt.inv_ntt_bm(hat, plan), x)
 
 

@@ -1,9 +1,10 @@
 """Port parity at the gadget of the largest KMS presets (KMS32party,
 KMS32partyblock: l_gsw = 6, l_lev = 3, l_uni = 16, log_b_uni = 2).
 
-The port's three KMS engines -- `kms.bootstrap`, `bootstrap_mx3` (on CPU
-tensors the sweep kernel's plain version) and `bootstrap_mx2` (the mx sweep
-kernel's plain version; binary keys) -- on the JAX package's own keys and
+The port's KMS engines -- `kms.bootstrap`, `bootstrap_mx3` (on CPU
+tensors the sweep kernel's plain version), and for binary keys
+`bootstrap_mx2` (the mx sweep kernel's plain version) and `kms.bootstrap_bm`
+(the batch-minor NTT's plain version) -- on the JAX package's own keys and
 gate ciphertexts, bridged as numpy, against the JAX `kms.bootstrap` (jitted);
 tolerance 0; phase 2's hybrid product also over chunks of parties.  The
 tiny sets keep the presets' gadgets and cut n, N and k:
@@ -24,7 +25,7 @@ from mktfhe_tpu.schemes.gates import gate_affine as j_gate_affine
 from mktfhe_tpu.schemes.gates import lwe_ith_encrypt_bit as j_encrypt
 from mktfhe_tpu.schemes.params import KmsBlockParams, KmsParams
 from mktfhe_tpu_torch import bridge
-from mktfhe_tpu_torch.kernels import fused_mx2
+from mktfhe_tpu_torch.kernels import batchminor, fused_mx2
 from mktfhe_tpu_torch.kernels.fused_mx3 import bootstrap_mx3
 from mktfhe_tpu_torch.ring.modring import MAX_PRODUCT_TERMS, PRIMES, mulsum_mod
 from mktfhe_tpu_torch.schemes import kms
@@ -72,6 +73,9 @@ def port_output(case, engine: str):
         return kms.bootstrap(ct, scheme, tparams)
     if engine == "bootstrap_mx3":
         return bootstrap_mx3(ct, scheme, tparams)
+    if engine == "kms.bootstrap_bm":
+        bm_keys = batchminor.build_bm_kms_phase1(case["party_keys"], tparams)
+        return kms.bootstrap_bm(ct, kms.drop_brk(scheme), bm_keys, tparams)
     mx_keys = fused_mx2.build_mx_kms_keys(case["party_keys"], tparams)
     return fused_mx2.bootstrap_mx2(ct, kms.drop_brk(scheme), mx_keys, tparams)
 
@@ -122,6 +126,13 @@ def test_bootstrap_mx2_matches_reference(binary):
     """The mx engine (binary keys only), on its own keys built from the
     bridged party keys and a scheme without `brk_hat`."""
     assert_same(port_output(binary, "bootstrap_mx2"), binary["want"])
+
+
+def test_bootstrap_bm_matches_reference(binary):
+    """The batch-minor engine (binary keys only), on its own keys built from
+    the bridged party keys (l_gsw = 6: forward transforms of 3 x 2 x 6 = 36
+    rows a step) and a scheme without `brk_hat`."""
+    assert_same(port_output(binary, "kms.bootstrap_bm"), binary["want"])
 
 
 @pytest.mark.parametrize("parties", [1, 2])

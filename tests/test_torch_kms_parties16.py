@@ -1,10 +1,11 @@
 """Port parity at k = 16 parties (the party count of KMS16party and
 KMS16partyblock), with the tiny gadget of TinyKMS2partyMX at n = 8, N = 128.
 
-The port's `kms.bootstrap`, `bootstrap_mx3` and `bootstrap_mx2` (on CPU
-tensors their kernels' plain versions) on the JAX package's keys and gate
-ciphertexts against the JAX `kms.bootstrap`, tolerance 0: sixteen sequential
-merges of phase 2 and the key switch of sixteen parties.  A file of its own:
+The port's `kms.bootstrap`, `bootstrap_mx3`, `bootstrap_mx2` and
+`kms.bootstrap_bm` (on CPU tensors their kernels' plain versions) on the JAX
+package's keys and gate ciphertexts against the JAX `kms.bootstrap`,
+tolerance 0: sixteen sequential merges of phase 2 and the key switch of
+sixteen parties.  A file of its own:
 the JAX compile of sixteen unrolled merges takes most of its time, and
 `--dist loadfile` gives each file a worker.
 """
@@ -25,7 +26,7 @@ def case():
     return reference_case(TINY_K16)
 
 
-@pytest.mark.parametrize("engine", ["kms.bootstrap", "bootstrap_mx3", "bootstrap_mx2"])
+@pytest.mark.parametrize("engine", ["kms.bootstrap", "bootstrap_mx3", "bootstrap_mx2", "kms.bootstrap_bm"])
 def test_bootstrap_matches_reference(case, engine):
     assert_same(port_output(case, engine), case["want"])
 
