@@ -73,7 +73,7 @@ Phases, each printing one line; any failure exits non-zero:
      and the batch-minor NTT's launches by shape (18b);
  19. the LMSS path: keygen on the card for preset Block, then
      `lmss.bootstrap` of 256 NAND gates, decrypt-checked, and a timed
-     data-dependent chain of three more; the natural NTT kernel must have been
+     data-dependent one more; the natural NTT kernel must have been
      launched 229 + 229 times a bootstrap and no other kernel; the first 4
      gates through the CPU path, bit for bit; one more under torch.profiler,
      and the natural NTT's launches by shape (19c);
@@ -106,7 +106,7 @@ Phases, each printing one line; any failure exits non-zero:
      launches counted by shape, times the time at each; at KMS16party one
      warm bootstrap under the profiler split by named range; the files of
      phase 31's ranks (each rank's share in a file of its own);
- 32. CCS8party and CCS16party: keygen on the card, a decrypt-checked
+ 32. (run after 31) CCS8party and CCS16party: keygen on the card, a decrypt-checked
      `ccs.bootstrap` of 128 gates and a dependent one (2 k n + 2 k n natural
      NTT launches a bootstrap), the natural NTT's launches by shape with the
      time and bound at each, and at CCS16party the kernel against its plain
@@ -115,7 +115,7 @@ Phases, each printing one line; any failure exits non-zero:
      mx keys and the CGGI scheme saved (`utils.save`) and loaded back onto
      the card; `bootstrap_mx2` and `bootstrap_fused` on the loaded keys give
      phases 17's and 13's outputs bit for bit; the files phase 26 loads;
- 24. noise: `utils.noise.noise_report` on the outputs of phases 6, 13, 17,
+ 24. (run last, after 32) noise: `utils.noise.noise_report` on the outputs of phases 6, 13, 17,
      19, 20, 27-29 and 32 beside MARGINS.md's rows (margins.json); fails where
      an error reaches the margin;
  25. named ranges: one `bootstrap_mx3` (KMS8partyblock) and one
@@ -134,6 +134,22 @@ Phases, each printing one line; any failure exits non-zero:
      keys from disk: every output equal to the single-process
      `bootstrap_mx2` output and decrypt-checked, every rank's launches
      counted, its key bytes, bytes read, host and device memory printed;
+ 33. (inside the phases of each path, lines `[33 graph]`) every gate
+     bootstrap captured as one CUDA graph (`graphs.capture_bootstrap`) at
+     its path's preset and batch: `bootstrap_mx3` (KMS8partyblock,
+     KMS32partyblock), `kms.bootstrap` (KMS8partyblock), `bootstrap_mx2` and
+     `kms.bootstrap_bm` (KMS8party), CGGI's three engines, `lmss.bootstrap`
+     (Block), `ccs.bootstrap` (CCS2partyTight, CCS4partyTight, CCS8party,
+     and CCS16party as far as the time limit allows): the capture's eager
+     warm-up == the path's eager output, the graph's first replay == the
+     eager bootstrap of the same input, bit for bit, a replay's launches ==
+     the eager bootstrap's, a dependent chain of replays timed beside the
+     eager chain, every link decrypt-checked; one replay under
+     torch.profiler (busy and idle share, the hand kernels there); the
+     capture's seconds, nodes and pool bytes.  Every eager chain's
+     bootstraps run under set_sync_debug_mode("error"), or one eager
+     bootstrap of the path does here: no host read, no blocking copy.  Then
+     a summary (`[33 graphs]`) and its JSON line;
  22. print the kernels' JSON line, then the contract line last.
 
 Usage: python3 chip_smoke.py   (one CUDA card; no arguments)
@@ -155,7 +171,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mktfhe_tpu_torch import bridge
+from mktfhe_tpu_torch import bridge, graphs
 from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import ntt as kntt
@@ -209,10 +225,11 @@ TOLERANCE = 0  # exact integer arithmetic: bit-identical or wrong
 CHECK_STEPS = 4  # steps of the sweep / the CGGI step range in the kernel-vs-plain comparisons
 CGGI_BATCH = 256
 # the LMSS and CCS paths: LMSS at the CGGI batch, CCS at the KMS batch, each
-# timed over a dependent chain of GATE_CHAIN bootstraps after the first
+# timed over a dependent chain of GATE_CHAIN bootstraps after the first (one:
+# phase 33 times their graphs over a chain of its own)
 LMSS_BATCH = CGGI_BATCH
 CCS_BATCH = BATCH
-GATE_CHAIN = 3
+GATE_CHAIN = 1
 CPU_GATES = 4  # gates of each path also run through the CPU path, bit for bit
 # (npr, R, N, G), gate batch minor: the digit transforms of one batch-minor
 # CGGI step at G=256 (2 components x 3 digits), its inverse (2 components),
@@ -237,10 +254,23 @@ WIDE_GADGET = KmsParams(
 SIX_DIGITS = dataclasses.replace(KMS_32PARTY, n=CHECK_STEPS, k=2)
 SIX_DIGITS_PRIMES = 4
 
-# phases 27-29: the KMS presets beyond k = 8, each at full width and BATCH;
-# k = 32 timed over a dependent chain of PARTY_CHAIN bootstraps after the
-# first, the others over one
-PARTY_CHAIN = 3
+# phase 33: each path's bootstrap captured as one CUDA graph and replayed, a
+# dependent chain of GRAPH_CHAIN replays (one where a replay takes seconds);
+# one replay profiled where the graph holds at most PROFILE_NODES nodes (a
+# profile of 10^5 nodes and more takes 8-30 s, and the profiles after it lose
+# kernel records now and then); every chain timed by CUDA events too
+GRAPH_CHAIN = CHAIN
+PROFILE_NODES = 50_000
+# CCS16party's graph (about 70 s: warm-up, capture, instantiate, a replay of
+# 22 s) runs only if the script has run less than this many seconds when it
+# gets there: after it come only the noise line and the end, so the script
+# stays well inside its 1,200 s
+CCS16_GRAPH_BY_S = 950
+
+# phases 27-29: the KMS presets beyond k = 8, each at full width and BATCH,
+# timed over a dependent chain of PARTY_CHAIN bootstraps after the first
+# (phase 33 times k = 32's graph over a chain of its own)
+PARTY_CHAIN = 1
 OTHER_PARTIES = [
     ("KMS16partyblock", KMS_16PARTY_BLOCK), ("KMS16party", KMS_16PARTY),
     ("KMS4partyblock", KMS_4PARTY_BLOCK), ("KMS4party", KMS_4PARTY),
@@ -636,7 +666,9 @@ def checked_bootstrap(bootstrap, ct, want, scheme, params, decrypt, what: str):
 def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, chain: int) -> dict:
     """NAND bootstrap of a batch, decrypt-checked, then a timed chain of
     `chain` dependent bootstraps, every link decrypt-checked after the
-    timing."""
+    timing.  The links' bootstraps run under set_sync_debug_mode("error")
+    (`graphs.without_sync`): none may make a host read or a blocking copy
+    (the first bootstrap, outside the mode, has made the constant tables)."""
     nand = GATE_IDS["NAND"]
     want = ~(m1 & m2)
     t0 = time.time()
@@ -645,7 +677,7 @@ def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, chain: i
     links = []
     t0 = time.time()
     for _ in range(chain):
-        out = bootstrap(gate_affine(nand, out, c2), scheme, params)
+        out = graphs.without_sync(bootstrap, gate_affine(nand, out, c2), scheme, params)
         want = ~(want & m2)
         links.append((out, want))
     out.b.cpu()  # a hard device -> host read ends the timed chain
@@ -654,7 +686,7 @@ def bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, chain: i
         got = decrypt(out).cpu().numpy()
         if not np.array_equal(got, want):
             raise SystemExit(f"chain link {i + 1} decrypt mismatch: {int((got != want).sum())} of {len(want)} gates")
-    return {"first_s": first_s, "batch_s": dt, "first": first}
+    return {"first_s": first_s, "batch_s": dt, "first": first, "second": links[0][0] if links else None}
 
 
 def profile_bootstrap(bootstrap, ct, scheme, params, parts: dict, top: int = 6) -> dict:
@@ -686,6 +718,7 @@ def profile_bootstrap(bootstrap, ct, scheme, params, parts: dict, top: int = 6) 
     rows = sorted(((ms, count, key) for key, (ms, count) in by_name.items()), reverse=True)
     return {
         "wall_ms": wall_ms,
+        "events": sum(count for _, count, _ in rows),
         "device_ms": sum(ms for ms, _, _ in rows),
         "parts": {label: sum(ms for ms, _, key in rows if name in key) for label, name in parts.items()},
         "top": [f"{key[:60]} {ms:.2f} ms x{count}" for ms, count, key in rows[:top]],
@@ -722,6 +755,137 @@ def reset_launches() -> None:
     fused_mx3.reset_launches()
     fused_step.reset_launches()
     fused_mx2.reset_launches()
+
+
+def same_bits(x: Lwe, y: Lwe) -> bool:
+    return torch.equal(x.b, y.b) and torch.equal(x.a, y.a)
+
+
+def graph_path(state: dict, path: str, preset: str, bootstrap, scheme, params, ct, c2, m1, m2, decrypt,
+               eager: dict, parts: dict, smi: str, extra: tuple = (), chain: int = GRAPH_CHAIN) -> None:
+    """Phase 33 for one path: `bootstrap(ct, scheme, *extra, params)`
+    captured as one CUDA graph (`graphs.capture_bootstrap`) on the path's
+    ciphertext and replayed over a dependent chain of `chain`.  Held to the
+    eager run `eager`: "out", its output on `ct`; "next", its output on the
+    chain's first input NAND(out, c2) where its chain had one (else one
+    eager bootstrap of that input runs here under
+    set_sync_debug_mode("error") and gives "next" and "ms"); "ms", its ms a
+    batch, and "how" it was taken; "synced", how many of its bootstraps ran
+    under that mode; "busy_ms", its device busy time a bootstrap where it
+    was profiled.  The capture's eager warm-up must give "out" and the
+    chain's first link "next", bit for bit; the chain's launches must be
+    `chain` times the warm-up's, by wrapper and shape; every link is
+    decrypt-checked, and the chain timed on the host clock and by CUDA
+    events; one replay under torch.profiler (`parts`: the hand kernels that
+    must appear) where the graph holds at most PROFILE_NODES nodes.  Appends
+    the record to state["graphs"] and prints it."""
+    batch = ct.b.shape[0]
+    nand = GATE_IDS["NAND"]
+    what = f"{path} {preset}"
+    t_path = time.time()
+    first_input = gate_affine(nand, eager["out"], c2)
+    torch.cuda.synchronize()
+    if eager.get("next") is None:
+        t0 = time.time()
+        out = graphs.without_sync(bootstrap, first_input, scheme, *extra, params)
+        torch.cuda.synchronize()
+        eager = dict(eager, next=out, ms=(time.time() - t0) * 1e3, synced=1,
+                     how="one warm eager bootstrap, host clock to its end")
+
+    reset_launches()
+    graphed = graphs.capture_bootstrap(bootstrap, scheme, params, ct, *extra)
+    once = graphs.launch_counts()
+    if not same_bits(graphed.warmup_out, eager["out"]):
+        raise SystemExit(f"{what}: the capture's eager warm-up differs from the path's output")
+
+    want = ~(~(m1 & m2) & m2)
+    links = []
+    reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    out = graphed(first_input, scheme, *extra, params)
+    links.append((out, want))
+    for _ in range(chain - 1):
+        out = graphed(gate_affine(nand, out, c2), scheme, *extra, params)
+        want = ~(want & m2)
+        links.append((out, want))
+    end.record()
+    out.b.cpu()  # a hard device -> host read ends the timed chain
+    dt = (time.time() - t0) / chain
+    span_ms = start.elapsed_time(end) / chain
+    expect = {w: (chain * n, {k: chain * v for k, v in shapes.items()}) for w, (n, shapes) in once.items()}
+    if graphs.launch_counts() != expect:
+        raise SystemExit(f"{what}: {chain} replays counted {graphs.launch_counts()}, the eager bootstrap "
+                         f"{once} each")
+    if not same_bits(links[0][0], eager["next"]):
+        raise SystemExit(f"{what}: the graph's output differs from the eager output on the same ciphertext")
+    for i, (out, want) in enumerate(links):
+        got = decrypt(out).cpu().numpy()
+        if not np.array_equal(got, want):
+            raise SystemExit(f"{what}: graphed chain link {i + 1} decrypt mismatch: {int((got != want).sum())} "
+                             f"of {len(want)} gates")
+
+    rec = {
+        "path": path, "preset": preset, "batch": batch, "eager_ms": eager["ms"], "eager_how": eager["how"],
+        "eager_boots_per_s": batch / eager["ms"] * 1e3, "graph_ms": dt * 1e3, "graph_boots_per_s": batch / dt,
+        "chain": chain, "graph_span_ms": span_ms, "warmup_s": graphed.warmup_s, "capture_s": graphed.capture_s,
+        "instantiate_s": graphed.instantiate_s, "pool_bytes": graphed.pool_bytes, "key_bytes": graphed.key_bytes,
+        "pool_peak_bytes": graphed.pool_peak_bytes, "nodes": graphed.nodes, "launches": graphed.launches,
+        "sync_checked": eager["synced"],
+        "graph_busy_ms": span_ms, "graph_busy_from": "CUDA events around the chain", "events": None,
+    }
+    prof_note = (f"not profiled ({graphed.nodes} nodes > {PROFILE_NODES}): device busy from the CUDA events, which "
+                 f"also count the gaps between the graph's nodes")
+    if graphed.nodes <= PROFILE_NODES:
+        prof = profile_bootstrap(lambda x, s, p: graphed(x, s, *extra, p), ct, scheme, params, parts)
+        missing = [label for label, ms in prof["parts"].items() if ms <= 0]
+        if prof["events"] == 0:
+            prof_note = "the profiler recorded no device row of the replay: its kernels do not appear there"
+        else:
+            rec.update(graph_busy_ms=prof["device_ms"], graph_busy_from="torch.profiler", events=prof["events"],
+                       parts=prof["parts"], graph_idle_profiled=max(0.0, 1 - prof["device_ms"] / prof["wall_ms"]))
+            prof_note = (f"one replay under torch.profiler: {prof['events']} device rows, busy "
+                         f"{prof['device_ms']:.2f} ms of a profiled wall of {prof['wall_ms']:.2f} ms (idle share "
+                         f"{rec['graph_idle_profiled']:.3f}); "
+                         + ", ".join(f"{k} {v:.2f} ms" for k, v in prof["parts"].items())
+                         + (f"; MISSING from the profile: {missing}" if missing
+                            else "; every hand kernel of the path there"))
+    rec["graph_idle"] = max(0.0, 1 - rec["graph_busy_ms"] / (dt * 1e3))
+    # the eager bootstrap runs the graph's kernels: where it was not profiled, the graph's busy time stands in
+    rec["eager_busy_from"] = "its own profile" if eager.get("busy_ms") else f"the graph's ({rec['graph_busy_from']})"
+    rec["eager_idle"] = max(0.0, 1 - (eager.get("busy_ms") or rec["graph_busy_ms"]) / eager["ms"])
+    state["graphs"].append(rec)
+
+    print(
+        f"[33 graph] {what} NAND batch {batch}: captured as one CUDA graph (warm-up {graphed.warmup_s:.2f} s, "
+        f"capture {graphed.capture_s:.2f} s, instantiate {graphed.instantiate_s:.2f} s, {graphed.nodes} nodes, pool "
+        f"{graphed.pool_bytes / 1e9:.3f} GB reserved, {graphed.pool_peak_bytes / 1e9:.3f} GB its peak allocated, "
+        f"above {graphed.key_bytes / 1e9:.3f} GB of keys); warm-up == the eager output and the chain's first link "
+        f"== the eager bootstrap of the same input, bit for bit; a replay's launches == the eager bootstrap's "
+        f"({graphed.launches}); no sync in {eager['synced']} eager bootstrap(s) under "
+        f"set_sync_debug_mode('error'); graphed chain of {chain}, every link decrypted: {dt * 1e3:.2f} ms a batch "
+        f"= {batch / dt:.2f} boots/s ({span_ms:.2f} ms on the device's clock, CUDA events) against eager "
+        f"{eager['ms']:.2f} ms = {rec['eager_boots_per_s']:.2f} boots/s "
+        f"({eager['how']}), x{eager['ms'] / (dt * 1e3):.2f}; idle share a batch (1 - device busy / ms a batch) "
+        f"graphed {rec['graph_idle']:.3f} (busy from {rec['graph_busy_from']}), eager {rec['eager_idle']:.3f} (busy "
+        f"from {rec['eager_busy_from']}); {prof_note} ({smi})"
+    )
+    rec["s"] = time.time() - t_path
+    state["graph_s"] = state.get("graph_s", 0.0) + rec["s"]
+    del graphed, out, links
+    torch.cuda.empty_cache()
+
+
+def graphs_summary(state: dict, smi: str) -> None:
+    """Phase 33's table, one entry a path, and its JSON line."""
+    rows = [f"{r['path']} {r['preset']}: eager {r['eager_ms']:.1f} -> graph {r['graph_ms']:.1f} ms a batch "
+            f"(x{r['eager_ms'] / r['graph_ms']:.2f}), idle {r['eager_idle']:.3f} -> {r['graph_idle']:.3f}, capture "
+            f"{r['capture_s']:.1f} s + {r['instantiate_s']:.1f} s, {r['nodes']} nodes, pool "
+            f"{r['pool_bytes'] / 1e9:.2f} GB, {r['s']:.1f} s in all" for r in state["graphs"]]
+    print(f"[33 graphs] {len(rows)} paths graphed in {state.get('graph_s', 0.0):.1f} s of the script, every output "
+          f"== eager, every link decrypted: " + "; ".join(rows) + f" ({smi})")
+    print(json.dumps({"graphs": state["graphs"]}, default=str))
 
 
 def check_keyswitch(gen, params, scheme, gates: int = 4) -> None:
@@ -1047,6 +1211,10 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     for row, d in zip(ntt_rows, ("fwd", "inv")):
         row["launches_by_shape"] += [
             {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape]
+    graph_path(state, "bootstrap_mx2", "KMS8party", fused_mx2.bootstrap_mx2, lean, params, ct, c2, m1, m2, decrypt,
+               {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {CHAIN}", "synced": CHAIN,
+                "busy_ms": prof["device_ms"]},
+               {"mx sweep kernel": "mx_sweep_kernel", "NTT kernels": "ntt_nat_kernel"}, smi, extra=(mx_keys,))
 
     # 18. the KMS batch-minor engine on the same ciphertext: same bits
     t0 = time.time()
@@ -1075,6 +1243,10 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
         f"{bm_launches['inv_bm']}, natural NTT fwd {bm_launches['fwd']} inv {bm_launches['inv']} ({smi})"
     )
     profile_bm(gen, device, "18b", "kms.bootstrap_bm", bootstrap_bm, ct, lean, params, bm_shapes, bm_times, bm_rows, smi)
+    graph_path(state, "kms.bootstrap_bm", "KMS8party", kms.bootstrap_bm, lean, params, ct, c2, m1, m2, decrypt,
+               {"out": boot["first"], "synced": 0},
+               {"batch-minor NTT kernel": "ntt_bm_kernel", "NTT kernels": "ntt_nat_kernel"}, smi, extra=(bm_keys,),
+               chain=1)
     state["mx2"] = {"lean": lean, "mx_keys": mx_keys, "bm_keys": bm_keys, "out": boot["first"], "chain_s": dt}
     state["noise"].append(("bootstrap_mx2 [17]", "KMS8party", boot["first"], lwe_keys, ~(m1 & m2)))
 
@@ -1196,6 +1368,10 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
     print(profile_line("6b profile", "bootstrap_mx3", prof, smi))
     by_shape = ntt_by_shape("bootstrap_mx3", *shapes, 1 + CHAIN, time_ntt_shapes(gen, device, set(shapes[0]) | set(shapes[1])))
     print(by_shape_line("6c ntt by shape", by_shape, prof["parts"]["NTT kernels"], smi))
+    graph_path(state, "bootstrap_mx3", "KMS8partyblock", fused_mx3.bootstrap_mx3, scheme, params, ct, c2, m1, m2,
+               decrypt, {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {CHAIN}", "synced": CHAIN,
+                         "busy_ms": prof["device_ms"]},
+               {"sweep kernel": "phase1_sweep_kernel", "NTT kernels": "ntt_nat_kernel"}, smi)
 
     # 7. the earlier path, once, on the same ciphertext: same bits
     reset_launches()
@@ -1212,6 +1388,8 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
         f"(b and a); {ref_s:.2f} s incl. warm-up; NTT launches fwd {ref_launches['fwd']} "
         f"inv {ref_launches['inv']}, sweep {ref_launches['sweep']} ({smi})"
     )
+    graph_path(state, "kms.bootstrap", "KMS8partyblock", kms.bootstrap, scheme, params, ct, c2, m1, m2, decrypt,
+               {"out": ref, "synced": 0}, {"NTT kernels": "ntt_nat_kernel"}, smi, chain=1)
 
     # 8. the binary-key path
     bct, bc2, bm1, bm2 = gate_inputs(gen, KMS_8PARTY, bin_keys, BATCH)
@@ -1348,6 +1526,9 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tup
     )
     prof = profile_bootstrap(fused_step.bootstrap_fused, ct, bm, params, {"step kernel": "cggi_step_kernel"})
     print(profile_line("13b profile", "bootstrap_fused", prof, smi))
+    graph_path(state, "bootstrap_fused", "CGGI", fused_step.bootstrap_fused, bm, params, ct, c2, m1, m2, decrypt,
+               {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {CHAIN}", "synced": CHAIN,
+                "busy_ms": prof["device_ms"]}, {"step kernel": "cggi_step_kernel"}, smi)
     state["cggi"] = {"scheme": scheme, "ct": ct, "out": boot["first"]}
     state["noise"].append(("bootstrap_fused [13]", "CGGI", boot["first"], [lwe_key], ~(m1 & m2)))
 
@@ -1391,6 +1572,10 @@ def run_cggi(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tup
         row["launches_by_shape"] = []
     profile_bm(gen, device, "14b", "bootstrap_bm", batchminor.bootstrap_bm, ct, bm, params, shapes["bootstrap_bm"],
                ntt["times"], rows, smi)
+    for name, bootstrap, keys, kernel in (("bootstrap_bm", batchminor.bootstrap_bm, bm, "ntt_bm_kernel"),
+                                          ("cggi.bootstrap", cggi.bootstrap, scheme, "ntt_nat_kernel")):
+        graph_path(state, name, "CGGI", bootstrap, keys, params, ct, c2, m1, m2, decrypt,
+                   {"out": boot["first"], "synced": 0}, {"NTT kernels": kernel}, smi)
     rows.append(kernel_row(
         "cggi_step", "cggi_step.cu", "mktfhe_tpu/kernels/fused_step.py:86", launches["step"],
         step["err"], step["ms"], step["plain_ms"], step,
@@ -1448,8 +1633,9 @@ def ntt_bounds_note(by_shape: list[dict], rate: dict) -> str:
     return "; ".join(parts)
 
 
-def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, decrypt,
-             batch: int, per_bootstrap: int, times: dict, rate: dict, ntt_rows: list[dict], smi: str) -> Lwe:
+def ntt_path(tag: str, path: str, preset: str, bootstrap, ct, c2, m1, m2, scheme, params, decrypt,
+             batch: int, per_bootstrap: int, times: dict, rate: dict, ntt_rows: list[dict], smi: str,
+             state: dict) -> Lwe:
     """A path whose every NTT goes through the natural NTT kernel: a
     decrypt-checked bootstrap and a chain of GATE_CHAIN more (counts reset
     just before, read just after: `per_bootstrap` forward and as many inverse
@@ -1457,8 +1643,9 @@ def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, dec
     against the CPU path, one warm bootstrap under torch.profiler, and the
     kernel's launches by shape x the time at each (`times`, taken
     beforehand) against the profile, and each shape's time against its bound
-    (`ntt_bound`), added to its rows of the kernels line (`ntt_rows`).
-    Returns the first bootstrap's output."""
+    (`ntt_bound`), added to its rows of the kernels line (`ntt_rows`); then
+    the same bootstrap as a CUDA graph (phase 33, `graph_path`).  Returns
+    the first bootstrap's output."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1494,6 +1681,9 @@ def ntt_path(tag: str, path: str, bootstrap, ct, c2, m1, m2, scheme, params, dec
     for row, d in zip(ntt_rows, ("fwd", "inv")):
         row["launches_by_shape"] += [
             {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape if r[d]]
+    graph_path(state, path.removesuffix(f" {preset}"), preset, bootstrap, scheme, params, ct, c2, m1, m2, decrypt,
+               {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {GATE_CHAIN}", "synced": GATE_CHAIN,
+                "busy_ms": prof["device_ms"]}, {"NTT kernels": "ntt_nat_kernel"}, smi)
     return boot["first"]
 
 
@@ -1515,8 +1705,9 @@ def run_lmss(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state
         f"was held before {(torch.cuda.max_memory_allocated() - before) / 1e9:.3f} GB ({smi})"
     )
     ct, c2, m1, m2 = cggi_gate_inputs(gen, params, lwe_key, LMSS_BATCH)
-    out = ntt_path("19", "lmss.bootstrap", lmss.bootstrap, ct, c2, m1, m2, scheme, params,
-                   lambda out: lwe_decrypt_bit(out, lwe_key), LMSS_BATCH, params.d, times, rate, ntt_rows, smi)
+    out = ntt_path("19", "lmss.bootstrap", "Block", lmss.bootstrap, ct, c2, m1, m2, scheme, params,
+                   lambda out: lwe_decrypt_bit(out, lwe_key), LMSS_BATCH, params.d, times, rate, ntt_rows, smi,
+                   state)
     state["noise"].append(("lmss.bootstrap [19]", "Block", out, [lwe_key], ~(m1 & m2)))
 
 
@@ -1557,8 +1748,8 @@ def run_ccs(gen, smi: str, times: dict, rate: dict, ntt_rows: list[dict], state:
             return lwe_decrypt_bit_mk(out, lwe_keys)
 
         if params is not CCS_8PARTY_TIGHT:
-            out = ntt_path("20", f"ccs.bootstrap {name}", ccs.bootstrap, ct, c2, m1, m2, scheme,
-                           params, decrypt, batch, 2 * params.k * params.n, times, rate, ntt_rows, smi)
+            out = ntt_path("20", f"ccs.bootstrap {name}", name, ccs.bootstrap, ct, c2, m1, m2, scheme,
+                           params, decrypt, batch, 2 * params.k * params.n, times, rate, ntt_rows, smi, state)
             state["noise"].append(("ccs.bootstrap [20]", name, out, lwe_keys, ~(m1 & m2)))
             continue
         reset_launches()
@@ -1625,6 +1816,15 @@ def run_ccs_parties(gen, device, smi: str, times: dict, rate: dict, ntt_rows: li
                 {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]}
                 for r in by_shape if r[d]]
         state["noise"].append(("ccs.bootstrap [32]", name, boot["first"], lwe_keys, ~(m1 & m2)))
+        ran = time.time() - state["t_start"]
+        if params is CCS_16PARTY and ran > CCS16_GRAPH_BY_S:
+            print(f"[33 graph] ccs.bootstrap {name}: not graphed in this run, {ran:.0f} s into the script (more "
+                  f"than {CCS16_GRAPH_BY_S} s: the graph would take about 70 s more) ({smi})")
+        else:
+            graph_path(state, "ccs.bootstrap", name, ccs.bootstrap, scheme, params, ct, c2, m1, m2, decrypt,
+                       {"out": boot["first"], "next": boot["second"], "ms": boot["batch_s"] * 1e3,
+                        "how": "one dependent eager bootstrap", "synced": 1},
+                       {"NTT kernels": "ntt_nat_kernel"}, smi, chain=1)
         if params is CCS_16PARTY:
             big = max(shapes[0])
             ntt = check_ntt_at(gen, device, big, rate)
@@ -1832,6 +2032,10 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
     )
     print(f"[27d ntt by shape] B1 per KMS32partyblock bootstrap_mx3, [rows, npr, N]: "
           + nat_shapes_note(*shapes, runs) + f" ({smi})")
+    graph_path(state, "bootstrap_mx3", "KMS32partyblock", fused_mx3.bootstrap_mx3, scheme, params, ct, c2, m1, m2,
+               decrypt, {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {PARTY_CHAIN}",
+                         "synced": PARTY_CHAIN},
+               {"sweep kernel": "phase1_sweep_kernel", "NTT kernels": "ntt_nat_kernel"}, smi)
 
     reset_launches()
     t0 = time.time()
@@ -2292,20 +2496,27 @@ def run_noise(state: dict, smi: str) -> None:
     print("[24 noise] statistics of exact arithmetic, not speeds: " + "; ".join(parts) + f" ({smi})")
 
 
-def profile_phases(bootstrap, ct, scheme, params, logdir: str) -> dict:
+def profile_phases(bootstrap, ct, scheme, params, logdir: str, floor_ms: float = 0.0) -> dict:
     """Device ms by named range over one warm `bootstrap` under
-    `profiling.trace`; a profile with no device time is taken again, up to
-    PROFILE_TRIES times in all, then raises."""
+    `profiling.trace`; a profile with no device time, or with less than
+    `floor_ms` (the profiler loses kernel records now and then after a
+    profile of 10^5 events or more), is taken again, up to PROFILE_TRIES
+    times in all; the fullest is kept.  Raises if none has device time."""
+    best = {}
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profiling.trace(logdir) as prof:
             bootstrap(ct, scheme, params).b.cpu()
             torch.cuda.synchronize()
         ms = profiling.phase_device_ms(prof)
-        if sum(ms.values()) > 0:
-            return ms
+        if sum(ms.values()) > sum(best.values()):
+            best = ms
+        if sum(best.values()) > max(floor_ms, 0.0):
+            return best
         time.sleep(0.5)
-    raise SystemExit("torch.profiler recorded no device time in the named ranges' profile")
+    if not best:
+        raise SystemExit("torch.profiler recorded no device time in the named ranges' profile")
+    return best
 
 
 def run_named_ranges(state: dict, binary: dict, tmp: str, smi: str) -> None:
@@ -2322,7 +2533,9 @@ def run_named_ranges(state: dict, binary: dict, tmp: str, smi: str) -> None:
          binary["ct"], state["mx2"]["lean"], KMS_8PARTY, state["mx2"]["chain_s"]),
     )
     for what, bootstrap, ct, scheme, params, chain_s in cases:
-        ms = profile_phases(bootstrap, ct, scheme, params, os.path.join(tmp, f"trace_{what}"))
+        # the chain's wall bounds the device time from above, and its idle share is about 1%
+        ms = profile_phases(bootstrap, ct, scheme, params, os.path.join(tmp, f"trace_{what}"),
+                            floor_ms=0.9 * chain_s * 1e3)
         cost = profiling.kms_cost(params, "ref", params.ring_nprimes)
         # the JAX package's TPU operation model, not the port's arithmetic: its
         # utilization against the card's peak is left out (each kernel's own
@@ -2541,7 +2754,7 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     # what the later phases take from the earlier ones
-    state = {"noise": [], "shard_cases": []}
+    state = {"noise": [], "shard_cases": [], "graphs": [], "t_start": t_start}
     kernels, binary = run_kms(gen, device, smi, usage, rate, state)
     cggi_rows, bm_times = run_cggi(gen, device, smi, usage, rate, state)
     kernels += cggi_rows
@@ -2564,24 +2777,28 @@ def main() -> int:
         t_parties = time.time()
         kernels += run_parties(gen, device, smi, usage, rate, state)
         torch.cuda.empty_cache()
-        # 32: CCS8party and CCS16party
-        t_ccs = time.time()
-        kernels += run_ccs_parties(gen, device, smi, gate_times, rate, kernels[:2], state)
 
-        # 23-26 and 31: serialization, noise (with phases 27-32's outputs),
-        # named ranges, the sharded path at k = 8, 16 and 32
+        # 23, 25, 26 and 31: serialization, named ranges, the sharded path at
+        # k = 8, 16 and 32
         t_tools = time.time()
         paths = run_serialization(state, binary, tmp, device, smi)
-        run_noise(state, smi)
         run_named_ranges(state, binary, tmp, smi)
         run_sharded(state, binary, paths, smi)
         t_shards = time.time()
         run_sharded_parties(state, smi)
 
+    # 32: CCS8party and CCS16party, last: CCS16party's graph runs as far as
+    # the time limit allows; then 24, noise with the outputs of 27-32
+    t_ccs = time.time()
+    kernels += run_ccs_parties(gen, device, smi, gate_times, rate, kernels[:2], state)
+    run_noise(state, smi)
+    graphs_summary(state, smi)
+
     # 22. results
     print(f"[22 done] {time.time() - t_start:.1f} s in all: phases 1-18 {t_gates - t_start:.1f} s, 19-21 and 30a "
-          f"{t_parties - t_gates:.1f} s, 27-30 {t_ccs - t_parties:.1f} s, 32 {t_tools - t_ccs:.1f} s, 23-26 "
-          f"{t_shards - t_tools:.1f} s, 31 {time.time() - t_shards:.1f} s; {NO_LIBRARY_CALL}")
+          f"{t_parties - t_gates:.1f} s, 27-30 {t_tools - t_parties:.1f} s, 23, 25, 26 {t_shards - t_tools:.1f} s, "
+          f"31 {t_ccs - t_shards:.1f} s, 32 and 24 {time.time() - t_ccs:.1f} s; phase 33 (graphs) "
+          f"{state.get('graph_s', 0.0):.1f} s of these; {NO_LIBRARY_CALL}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

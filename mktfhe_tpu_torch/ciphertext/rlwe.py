@@ -7,6 +7,8 @@ RLEV is [..., l, k+1, N].
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ring.context import RingCtx
@@ -51,8 +53,11 @@ def rlwe_phase(ct: torch.Tensor, key: RingKey, ctx: RingCtx) -> torch.Tensor:
     return ct[..., 0, :] + from_crt(inv_ntt(acc.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
 
 
+@functools.lru_cache(maxsize=None)
 def gadget_gvec(l: int, log_b: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """g_j = 2^(T - (j+1) logB), j = 0..l-1, in the torus carrier."""
+    """g_j = 2^(T - (j+1) logB), j = 0..l-1, in the torus carrier; made once
+    per device (a copy from the host is a sync, which no CUDA graph of a
+    bootstrap can hold) and shared: read it, never write into it."""
     t = bits_of(dtype)
     vals = [signed(1 << (t - (j + 1) * log_b), t) for j in range(l)]
     return torch.tensor(vals, dtype=dtype, device=device)

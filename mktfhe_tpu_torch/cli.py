@@ -5,7 +5,9 @@ random gate chains evaluated homomorphically and in the clear, a whole
 batch of independent circuits per trial; a disagreement exits non-zero.
 Every scheme runs its reference engine (`cggi.bootstrap`,
 `lmss.bootstrap`, `ccs.bootstrap`, `kms.bootstrap`), each NTT through the
-NTT kernel on the card.
+NTT kernel on the card.  On the card the trials go through the bootstrap
+captured as one CUDA graph (graphs.py), as the JAX CLI's go through the
+jitted one; `--device cpu` runs it eagerly.
 
     python -m mktfhe_tpu_torch.cli --preset KMS2party --trials 2 --batch 8
     python -m mktfhe_tpu_torch.cli --preset TinyCGGI --device cpu --seed 1
@@ -49,21 +51,21 @@ def _sizeof(obj) -> str:
 
 
 def _keygen(params, device, keygen_gen, gen):
-    """(LWE keys, scheme, bootstrap closure, single_key) for `params`."""
+    """(LWE keys, scheme, the scheme's bootstrap, single_key) for `params`."""
     from .schemes import ccs, cggi, kms, lmss
     from .schemes.params import BlockParams, CcsParams, CggiParams
 
     if isinstance(params, CggiParams):
         lwe_key, _, scheme = cggi.setup(keygen_gen(cggi), params)
-        return [lwe_key], scheme, lambda ct: cggi.bootstrap(ct, scheme, params), True
+        return [lwe_key], scheme, cggi.bootstrap, True
     if isinstance(params, BlockParams):
         lwe_key, _, scheme = lmss.setup(keygen_gen(lmss), params)
-        return [lwe_key], scheme, lambda ct: lmss.bootstrap(ct, scheme, params), True
+        return [lwe_key], scheme, lmss.bootstrap, True
     mod = ccs if isinstance(params, CcsParams) else kms
     a = mod.crs(gen, params)
     parties = [mod.party_keygen(keygen_gen(mod), a, params) for _ in range(params.k)]
     scheme = mod.setup(a, [p[-1] for p in parties], params)
-    return [p[0] for p in parties], scheme, lambda ct: mod.bootstrap(ct, scheme, params), False
+    return [p[0] for p in parties], scheme, mod.bootstrap, False
 
 
 def main(argv=None) -> int:
@@ -135,7 +137,7 @@ def main(argv=None) -> int:
 
     print(f"KEY GENERATION ({args.preset}) on {device} ...")
     t0 = time.time()
-    lwe_keys, scheme, boot, single_key = _keygen(params, device, keygen_gen, gen)
+    lwe_keys, scheme, bootstrap, single_key = _keygen(params, device, keygen_gen, gen)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     print(f"keygen {time.time() - t0:.1f}s; scheme size {_sizeof(scheme)}")
@@ -144,6 +146,21 @@ def main(argv=None) -> int:
     chain = args.chain or max(k, 2)
     g = args.batch
     op_names = list(GATE_IDS)
+
+    from .ciphertext.lwe import Lwe
+    from .graphs import capture_bootstrap
+
+    # one batch of the trials' shape, the graph's example (on the CPU: the eager function)
+    width, dtype = lwe_keys[0].n * (1 if single_key else params.k), lwe_keys[0].key.dtype
+    example = Lwe(b=torch.zeros(g, dtype=dtype, device=device), a=torch.zeros((g, width), dtype=dtype, device=device))
+    graphed = capture_bootstrap(bootstrap, scheme, params, example)
+    if graphed.graph is not None:
+        print(f"bootstrap captured as one CUDA graph: warm-up {graphed.warmup_s:.2f}s, capture "
+              f"{graphed.capture_s:.2f}s, instantiate {graphed.instantiate_s:.2f}s, {graphed.nodes} nodes, "
+              f"pool {graphed.pool_bytes / 2**20:.1f} MiB")
+
+    def boot(ct):
+        return graphed(ct, scheme, params)
 
     def encrypt(m, i):
         m = torch.from_numpy(m).to(device)

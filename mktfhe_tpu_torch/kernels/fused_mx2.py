@@ -45,7 +45,7 @@ from ..ring.ntt import fwd_ntt
 from ..ring.torus import from_crt
 from ..schemes.params import KmsBlockParams, KmsParams
 from . import _build
-from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, phase1_init
+from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, check_tildea_range, phase1_init
 from .mx_ntt import NK, mx_eval_index, mx_fwd_ref, mx_inv_ref, mx_odd_exponents
 from .ntt import MAX_N, MAX_NPR, MIN_NPR, _kernel_tables
 
@@ -223,10 +223,6 @@ def _check(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0) -> None:
             raise ValueError(f"{name} lies on {t.device}, tildea on {tildea_p.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tildea_p.numel() > 0:  # the amounts index the 2N powers of psi
-        lo, hi = torch.aminmax(tildea_p)
-        if int(lo) < 0 or int(hi) >= 2 * n:
-            raise ValueError(f"tildea must lie in [0, {2 * n}), got [{int(lo)}, {int(hi)}]")
 
 
 def _launch(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0) -> torch.Tensor:
@@ -266,6 +262,18 @@ def mx_sweep(tildea_p, brk_mx_p, iter_rows: int, params: KmsParams, ctx_p: RingC
     keys only; tildea_p must be int32 and every tensor contiguous on one
     device."""
     _check(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0)
+    check_tildea_range(tildea_p, ctx_p.n)  # the amounts index the 2N powers of psi
+    return _run(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0)
+
+
+def _sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0=None) -> torch.Tensor:
+    """`mx_sweep` for a tildea from `mod_switch_2n`: every check but the
+    range read (`fused_mx3.check_tildea_range`)."""
+    _check(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0)
+    return _run(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0)
+
+
+def _run(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0) -> torch.Tensor:
     if tildea_p.device.type == "cpu":
         return mx_sweep_plain(tildea_p, brk_mx_p, iter_rows, params, ctx_p, acc0)
     if tildea_p.device.type != "cuda":
@@ -285,11 +293,12 @@ def kms_phase1_mx2(tildea_p, brk_mx_p, iter_rows: int, params: KmsParams, out_ct
     """Phase 1 for one party on mx-domain keys: the sweep over the key's
     primes (`brk_mx_p.shape[1]` of them), then the lev key in the NTT domain
     of the scheme's own prime basis `out_ctx`, [G, rows, 2, npr, N] int32.
-    Bit-identical to kms.phase1."""
+    Bit-identical to kms.phase1.  A step of the bootstrap: tildea_p comes
+    from `mod_switch_2n`, so its range is not read back."""
     from ..schemes.kms import levkey_lift  # kms imports the kernels package
 
     ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, brk_mx_p.shape[1])
-    return levkey_lift(mx_sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p), out_ctx)
+    return levkey_lift(_sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p), out_ctx)
 
 
 def bootstrap_mx2(ct: Lwe, scheme, mx_keys: MxKmsKeys, params: KmsParams) -> Lwe:

@@ -198,8 +198,17 @@ def _check(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> None:
             raise ValueError(f"{name} lies on {t.device}, tildea on {tildea_p.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tildea_p.numel() > 0:
-        lo, hi = torch.aminmax(tildea_p)
+
+
+def check_tildea_range(tildea: torch.Tensor, n: int) -> None:
+    """Refuse rotation amounts outside [0, 2N): they index the 2N monomial
+    images.  The check reads tildea's range back to the host, a sync that no
+    CUDA graph can hold, so only the public wrappers make it; the bootstrap
+    paths take tildea from `mod_switch_2n`, whose mask puts it in [0, 2N),
+    and call the wrappers' private forms, which skip this read and nothing
+    else."""
+    if tildea.numel() > 0:
+        lo, hi = torch.aminmax(tildea)
         if int(lo) < 0 or int(hi) >= 2 * n:
             raise ValueError(f"tildea must lie in [0, {2 * n}), got [{int(lo)}, {int(hi)}]")
 
@@ -241,6 +250,18 @@ def phase1_sweep(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ctx: Rin
     on CPU tensors.  Arguments as `phase1_sweep_plain`; tildea_p must be
     int32 and every tensor contiguous on one device."""
     _check(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
+    check_tildea_range(tildea_p, ctx.n)
+    return _run(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
+
+
+def _sweep(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0=None) -> torch.Tensor:
+    """`phase1_sweep` for a tildea from `mod_switch_2n`: every check but the
+    range read (`check_tildea_range`)."""
+    _check(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
+    return _run(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
+
+
+def _run(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> torch.Tensor:
     if tildea_p.device.type == "cpu":
         return phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
     if tildea_p.device.type != "cuda":
@@ -259,10 +280,11 @@ def reset_launches() -> None:
 def kms_phase1_mx3(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ctx: RingCtx) -> torch.Tensor:
     """Phase 1 for one party: the sweep, then the lev key in the NTT domain,
     [G, rows, 2, npr, N] int32.  Bit-identical to kms.phase1 /
-    kms.phase1_block."""
+    kms.phase1_block.  A step of the bootstrap: tildea_p comes from
+    `mod_switch_2n`, so its range is not read back (`check_tildea_range`)."""
     from ..schemes.kms import levkey_lift  # kms imports this module
 
-    return levkey_lift(phase1_sweep(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx), ctx)
+    return levkey_lift(_sweep(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx), ctx)
 
 
 def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:

@@ -46,7 +46,7 @@ from ..schemes.common import initial_acc, keyswitch_table, mod_switch_2n
 from ..schemes.params import CggiParams
 from . import _build
 from .batchminor import BmScheme
-from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts
+from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, check_tildea_range
 from .ntt import MAX_N, MAX_NPR, MIN_N, MIN_NPR, _kernel_tables
 
 SOURCE = _build.CSRC / "cggi_step.cu"
@@ -134,10 +134,6 @@ def _check(acc, tildea, brk_bm, mono_hat, params, ctx, i0, i1) -> None:
             raise ValueError(f"{name} lies on {t.device}, acc on {acc.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if tildea.numel() > 0:  # the amounts index the 2N monomial images
-        lo, hi = torch.aminmax(tildea)
-        if int(lo) < 0 or int(hi) >= 2 * n:
-            raise ValueError(f"tildea must lie in [0, {2 * n}), got [{int(lo)}, {int(hi)}]")
 
 
 def cggi_step(acc: torch.Tensor, tildea: torch.Tensor, brk_bm: torch.Tensor, mono_hat: torch.Tensor, params: CggiParams, ctx: RingCtx, i0: int = 0, i1: int | None = None) -> torch.Tensor:
@@ -152,6 +148,18 @@ def cggi_step(acc: torch.Tensor, tildea: torch.Tensor, brk_bm: torch.Tensor, mon
     """
     i1 = params.n if i1 is None else i1
     _check(acc, tildea, brk_bm, mono_hat, params, ctx, i0, i1)
+    check_tildea_range(tildea, ctx.n)  # the amounts index the 2N monomial images
+    return _run(acc, tildea, brk_bm, mono_hat, params, ctx, i0, i1)
+
+
+def _steps(acc, tildea, brk_bm, mono_hat, params: CggiParams, ctx: RingCtx) -> torch.Tensor:
+    """All n steps of `cggi_step` for a tildea from `mod_switch_2n`: every
+    check but the range read (`fused_mx3.check_tildea_range`)."""
+    _check(acc, tildea, brk_bm, mono_hat, params, ctx, 0, params.n)
+    return _run(acc, tildea, brk_bm, mono_hat, params, ctx, 0, params.n)
+
+
+def _run(acc, tildea, brk_bm, mono_hat, params, ctx, i0, i1) -> torch.Tensor:
     if acc.device.type == "cpu":
         for i in range(i0, i1):
             acc = cggi_step_plain(acc, brk_bm[i], tildea[:, i], mono_hat, params, ctx)
@@ -200,6 +208,6 @@ def bootstrap_fused(ct: Lwe, scheme: BmScheme, params: CggiParams) -> Lwe:
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
     with record_function("mktfhe/rotate"):
         acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, 2, N]
-        acc = cggi_step(acc, tildea.contiguous(), scheme.brk_bm, scheme.mono_hat, params, ctx)
+        acc = _steps(acc, tildea.contiguous(), scheme.brk_bm, scheme.mono_hat, params, ctx)
     with record_function("mktfhe/keyswitch"):
         return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

@@ -6,6 +6,8 @@ an affine combination, branchless over a per-gate opcode, then bootstrap.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ciphertext.keys import LweKey
@@ -73,14 +75,22 @@ def lwe_decrypt_bit_mk(ct: Lwe, keys: list[LweKey]) -> torch.Tensor:
     return ph >= 0
 
 
+@functools.lru_cache(maxsize=None)
+def _gate_table(device) -> torch.Tensor:
+    """The constants and signs by opcode, int64 [2, gates], made once per
+    device: a copy from the host is a sync, and a chain of gates through a
+    CUDA graph of the bootstrap (graphs.py) makes none."""
+    return torch.tensor([_CONSTS, _SIGNS], dtype=torch.int64, device=device)
+
+
 def gate_affine(op_id, ct1: Lwe, ct2: Lwe) -> Lwe:
     """Affine pre-bootstrap combination, branchless over a per-gate opcode
     (op_id: int or [G] integer tensor indexing GATE_IDS)."""
     dtype = ct1.b.dtype
     dev = ct1.b.device
-    op = torch.as_tensor(op_id, dtype=torch.int64, device=dev)
-    c = torch.tensor(_CONSTS, device=dev)[op] << (bits_of(dtype) - 3)
-    s = torch.tensor(_SIGNS, device=dev)[op]
+    op = op_id if isinstance(op_id, int) else torch.as_tensor(op_id, dtype=torch.int64, device=dev)
+    c, s = _gate_table(dev)[:, op]
+    c = c << (bits_of(dtype) - 3)
     b = c + s * (ct1.b.long() + ct2.b.long())
     a = s[..., None] * (ct1.a.long() + ct2.a.long())
     return Lwe(b=to_carrier(b, dtype), a=to_carrier(a, dtype))

@@ -13,7 +13,11 @@ not), step ranges and batch sizes; bit-exact (tolerance 0), plus the
 wrappers' contracts on CUDA tensors and each dispatcher's instance as ptxas
 built it.  Then LMSS, CCS, `utils.load`, `utils.noise` and the sharded
 bootstrap in two gloo ranks sharing the card, each against the CPU at the
-tiny sets.  Skips where there is no
+tiny sets.  Last, every engine's bootstrap captured as a CUDA graph
+(graphs.py) at a tiny set: graph == eager bit for bit, over a dependent
+chain too; the launch counts of replays == the eager call's; no
+synchronizing call in an eager bootstrap (`set_sync_debug_mode("error")`);
+the graph's refusals on the card.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -723,3 +727,125 @@ def test_sharded_two_gloo_ranks_on_one_card_equal_cpu(device, tmp_path):
     for (res,) in ranks:
         assert (res["b"] == bridge.to_numpy(want.b)).all() and (res["a"] == bridge.to_numpy(want.a)).all()
         assert res["launches"]["fwd"] > 0 and res["launches"]["inv"] > 0 and not res["jax"]
+
+
+# --- the bootstraps as CUDA graphs (graphs.py) --------------------------------
+
+from mktfhe_tpu_torch import graphs  # noqa: E402
+from test_torch_graphs import ENGINES, _messages, engine_case, refusals, run  # noqa: E402
+
+
+def _reset_counts() -> None:
+    kntt.reset_launches()
+    fused_mx3.reset_launches()
+    fused_mx2.reset_launches()
+    fused_step.reset_launches()
+
+
+def _same(x: Lwe, y: Lwe) -> bool:
+    return torch.equal(x.b, y.b) and torch.equal(x.a, y.a)
+
+
+@pytest.mark.parametrize("name", ENGINES)
+def test_graph_equals_eager(device, name):
+    """The graph's output == the eager bootstrap's on the capture's example,
+    and over a dependent chain of two more (each link's input the previous
+    link's output, NAND with c2); every link decrypts to the clear NAND."""
+    case = engine_case(name, device)
+    want = run(case)
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    assert graphed.graph is not None and graphed.nodes > 0 and graphed.pool_bytes >= 0
+    assert _same(graphed.warmup_out, want)
+    got = graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
+    assert _same(got, want)
+    m1, m2 = (m.to(device) for m in _messages(3))
+    clear = ~(m1 & m2)
+    assert torch.equal(case["decrypt"](got), clear)
+    nand = gates.GATE_IDS["NAND"]
+    x, y = got, want
+    for _ in range(2):
+        x = graphed(gates.gate_affine(nand, x, case["c2"]), case["scheme"], *case["extra"], case["params"])
+        y = run(case, gates.gate_affine(nand, y, case["c2"]))
+        clear = ~(clear & m2)
+        assert _same(x, y) and torch.equal(case["decrypt"](x), clear)
+    assert _same(got, want)  # a later replay does not write into an earlier output
+
+
+@pytest.mark.parametrize("name", ENGINES)
+def test_graph_counts_its_launches(device, name):
+    """The capture counts only its eager warm-up; three replays count three
+    times the eager bootstrap's launches, by wrapper and by shape."""
+    case = engine_case(name, device)
+    run(case)
+    _reset_counts()
+    run(case)
+    eager = graphs.launch_counts()
+    assert any(n for n, _ in eager.values())
+    _reset_counts()
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    assert graphs.launch_counts() == eager
+    assert graphed.launches == {w: n for w, (n, _) in eager.items() if n}
+    _reset_counts()
+    for _ in range(3):
+        graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
+    assert graphs.launch_counts() == {w: (3 * n, {k: 3 * v for k, v in shapes.items()}) for w, (n, shapes) in eager.items()}
+
+
+@pytest.mark.parametrize("name", ENGINES)
+def test_bootstrap_makes_no_sync(device, name):
+    """An eager bootstrap (after one that made the constant tables) under
+    set_sync_debug_mode("error"): no synchronizing call, the same bits.  The
+    public wrappers' range read is one, and the mode catches it."""
+    case = engine_case(name, device)
+    want = run(case)
+    assert _same(graphs.without_sync(run, case), want)
+    with pytest.raises(RuntimeError):
+        graphs.without_sync(lambda: torch.zeros(1, device=device).item())
+
+
+def test_public_wrappers_sync_on_the_range_read(device):
+    case = engine_case("fused_mx3.bootstrap_mx3", device)
+    params, scheme = case["params"], case["scheme"]
+    ta = torch.zeros((3, params.n), dtype=torch.int32, device=device)
+    args = (ta, scheme.brk_hat[0], 1, scheme.mono_hat, params, kms._ctx(params))
+    fused_mx3.phase1_sweep(*args)
+    with pytest.raises(RuntimeError):
+        graphs.without_sync(fused_mx3.phase1_sweep, *args)
+    assert torch.equal(graphs.without_sync(fused_mx3._sweep, *args), fused_mx3.phase1_sweep(*args))
+
+
+@pytest.mark.parametrize("name", ENGINES)
+def test_graph_refuses_on_the_card(device, name):
+    """Another batch, dtype or width, another scheme, key or parameter
+    object, and a CPU ciphertext: ValueError, nothing replayed."""
+    case = engine_case(name, device)
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    _reset_counts()
+    cases = refusals(case)
+    cases["device"] = (Lwe(b=case["ct"].b.cpu(), a=case["ct"].a.cpu()), case["scheme"],
+                       (*case["extra"], case["params"]))
+    for what, (ct, scheme, rest) in cases.items():
+        with pytest.raises(ValueError):
+            graphed(ct, scheme, *rest)
+    assert not any(n for n, _ in graphs.launch_counts().values())
+
+
+@pytest.mark.parametrize("name", ["fused_mx3.bootstrap_mx3", "fused_mx2.bootstrap_mx2", "cggi.bootstrap"])
+def test_graph_keeps_its_keys_alive(device, name):
+    """With every other reference to the scheme and keys gone (and the
+    scheme rebuilt by drop_brk where it has brk_hat) and their memory
+    offered to new tensors, the graph still gives the eager bits."""
+    import gc
+
+    case = engine_case(name, device)
+    want = run(case)
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    if isinstance(case["scheme"], kms.KmsScheme) and case["scheme"].brk_hat.numel():
+        case["scheme"] = kms.drop_brk(case["scheme"])
+    ct, params = case["ct"], case["params"]
+    del case
+    gc.collect()
+    torch.cuda.empty_cache()
+    filler = [torch.full((1 << 20,), -1, dtype=torch.int64, device=device) for _ in range(8)]
+    assert _same(graphed(ct, graphed.scheme, *graphed.extra, params), want)
+    del filler
