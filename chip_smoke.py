@@ -75,7 +75,9 @@ Phases, each printing one line; any failure exits non-zero:
      `lmss.bootstrap` of 256 NAND gates, decrypt-checked, and a timed
      data-dependent one more; the natural NTT kernel must have been
      launched 229 + 229 times a bootstrap and no other kernel; the first 4
-     gates through the CPU path, bit for bit; one more under torch.profiler,
+     gates through the CPU path, bit for bit (run in a thread beside phases
+     26 and 31, where the main process waits for ranks: line
+     `[19-20 cpu]`); one more under torch.profiler,
      and the natural NTT's launches by shape (19c);
  20. the CCS path, the same at CCS2partyTight and CCS4partyTight, 128 gates
      (2 k n + 2 k n launches a bootstrap; the multi-key decrypt), and one
@@ -91,7 +93,7 @@ Phases, each printing one line; any failure exits non-zero:
      version over all steps; a dependent chain of `bootstrap_mx3`, every link
      decrypt-checked, launches held to the count phase 2's chunks give;
      `kms.bootstrap` once on the same input, bit-identical; the named-range
-     split of 32 merges;
+     split of 32 merges by CUDA events, as in 25;
  28. KMS32party: both key images and the batch-minor image on the card; B2
      and B5 against their plain versions over all steps; `bootstrap_mx3` once,
      then a dependent chain of `bootstrap_mx2` on the scheme without
@@ -104,8 +106,9 @@ Phases, each printing one line; any failure exits non-zero:
      chain's first input, on the batch-minor image of the same party keys:
      bit-identical to `bootstrap_mx2`, decrypt-checked, the batch-minor NTT's
      launches counted by shape, times the time at each; at KMS16party one
-     warm bootstrap under the profiler split by named range; the files of
-     phase 31's ranks (each rank's share in a file of its own);
+     warm bootstrap under the profiler, split by named range with CUDA
+     events as in 25; the files of phase 31's ranks (each rank's share in a
+     file of its own);
  32. (run after 31) CCS8party and CCS16party: keygen on the card, a decrypt-checked
      `ccs.bootstrap` of 128 gates and a dependent one (2 k n + 2 k n natural
      NTT launches a bootstrap), the natural NTT's launches by shape with the
@@ -119,21 +122,30 @@ Phases, each printing one line; any failure exits non-zero:
      19, 20, 27-29 and 32 beside MARGINS.md's rows (margins.json); fails where
      an error reaches the margin;
  25. named ranges: one `bootstrap_mx3` (KMS8partyblock) and one
-     `bootstrap_mx2` (KMS8party) under `utils.profiling.trace`, the device ms
-     of each named phase range, which must hold 95% of the device busy time,
-     and the cost model's summary against the H100's peaks;
+     `bootstrap_mx2` (KMS8party) split by CUDA events at the named phase
+     ranges' edges (`utils.profiling.event_ranges`): the ranges must add up
+     to 0.90-1.02 of the bootstrap's event time, phase 1 to at least 0.95 of
+     the sweep kernels in the profile of 6b / 17b; beside it the kernel
+     records' total of one more under torch.profiler; and the cost model's
+     summary against the H100's peaks;
  26. the party-sharded bootstrap (`parallel/`) in ranks spawned after the
-     build, loading phase 23's files: NCCL, one rank, the mx2 engine; gloo,
-     two ranks sharing the card: mx2 with phase 2 replicated and with
-     shard_phase2, the batch-minor engine, `kms_bootstrap_sharded` and the
-     reference engine at KMS8partyblock; every output equal to the
-     single-process one and decrypt-checked, every rank's launches counted;
+     build, loading phase 23's files, each job eagerly and then replayed
+     from the rank's CUDA graphs (`graphs.capture_sharded`): NCCL, one rank,
+     the mx2 engine, the whole program one graph with its collectives,
+     replayed with no sync, and captured by segment too (the nodes the
+     collectives add); gloo, two ranks sharing the card, a graph a segment:
+     mx2 with phase 2 replicated and with shard_phase2, the batch-minor
+     engine, `kms_bootstrap_sharded` and the reference engine at
+     KMS8partyblock; every output, eager and graphed, equal to the
+     single-process one and decrypt-checked, every rank's launches counted
+     (a replay's too); the same two ranks then run phase 31's k = 16 jobs;
  31. the party-sharded bootstrap at k = 16 (two gloo ranks sharing the card:
      the batch-minor engine, and mx2 with shard_phase2) and at k = 32 (four
      ranks, mx2 with shard_phase2), each rank reading only its share of the
-     keys from disk: every output equal to the single-process
-     `bootstrap_mx2` output and decrypt-checked, every rank's launches
-     counted, its key bytes, bytes read, host and device memory printed;
+     keys from disk, eagerly and graphed as in 26: every output equal to the
+     single-process `bootstrap_mx2` output and decrypt-checked, every rank's
+     launches counted, its key bytes, bytes read, host and device memory
+     printed; then the graphed sharded jobs' JSON line;
  33. (inside the phases of each path, lines `[33 graph]`) every gate
      bootstrap captured as one CUDA graph (`graphs.capture_bootstrap`) at
      its path's preset and batch: `bootstrap_mx3` (KMS8partyblock,
@@ -165,6 +177,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -231,6 +244,7 @@ LMSS_BATCH = CGGI_BATCH
 CCS_BATCH = BATCH
 GATE_CHAIN = 1
 CPU_GATES = 4  # gates of each path also run through the CPU path, bit for bit
+CPU_CHECK_THREADS = 4  # of the host's 8 cores, the rest for phase 26's and 31's ranks
 # (npr, R, N, G), gate batch minor: the digit transforms of one batch-minor
 # CGGI step at G=256 (2 components x 3 digits), its inverse (2 components),
 # a small ragged batch (one short gate tile) at the kernel's lower limits, and
@@ -1247,7 +1261,8 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
                {"out": boot["first"], "synced": 0},
                {"batch-minor NTT kernel": "ntt_bm_kernel", "NTT kernels": "ntt_nat_kernel"}, smi, extra=(bm_keys,),
                chain=1)
-    state["mx2"] = {"lean": lean, "mx_keys": mx_keys, "bm_keys": bm_keys, "out": boot["first"], "chain_s": dt}
+    state["mx2"] = {"lean": lean, "mx_keys": mx_keys, "bm_keys": bm_keys, "out": boot["first"], "chain_s": dt,
+                    "sweeps_ms": prof["parts"]["mx sweep kernel"]}
     state["noise"].append(("bootstrap_mx2 [17]", "KMS8party", boot["first"], lwe_keys, ~(m1 & m2)))
 
     return [kernel_row(
@@ -1411,7 +1426,7 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
     )
 
     state["block"] = {"scheme": scheme, "lwe_keys": lwe_keys, "ct": ct, "out": boot["first"],
-                      "want": ~(m1 & m2), "chain_s": dt}
+                      "want": ~(m1 & m2), "chain_s": dt, "sweeps_ms": prof["parts"]["sweep kernel"]}
     state["noise"].append(("bootstrap_mx3 [6]", "KMS8partyblock", boot["first"], lwe_keys, ~(m1 & m2)))
 
     # 9. key switch on the card vs the CPU
@@ -1590,14 +1605,54 @@ def scheme_bytes(obj) -> int:
     return sum(t.numel() * t.element_size() for t in fields)
 
 
-def check_cpu_path(bootstrap, ct, out, scheme, params, what: str) -> None:
-    """The first CPU_GATES gates of `ct` bootstrapped on the CPU (every kernel
-    wrapper runs its plain version there) give the card's bits."""
+def check_cpu_path(bootstrap, ct, out, scheme, params, what: str, state: dict) -> None:
+    """Queue the check that the first CPU_GATES gates of `ct` bootstrapped on
+    the CPU (every kernel wrapper runs its plain version there) give the
+    card's bits `out`: the gates, the scheme and those bits are copied to
+    the host now; `cpu_checks_beside` runs the CPU bootstraps while the main
+    process only waits for the ranks of phases 26 and 31."""
     cpu_scheme = dataclasses.replace(scheme, **{f.name: getattr(scheme, f.name).cpu()
                                                 for f in dataclasses.fields(scheme)})
-    want = bootstrap(Lwe(b=ct.b[:CPU_GATES].cpu(), a=ct.a[:CPU_GATES].cpu()), cpu_scheme, params)
-    if not (torch.equal(out.b[:CPU_GATES].cpu(), want.b) and torch.equal(out.a[:CPU_GATES].cpu(), want.a)):
-        raise SystemExit(f"{what}: the card's first {CPU_GATES} gates differ from the CPU path's")
+    state["cpu_checks"].append((what, bootstrap, Lwe(b=ct.b[:CPU_GATES].cpu(), a=ct.a[:CPU_GATES].cpu()),
+                                Lwe(b=out.b[:CPU_GATES].cpu(), a=out.a[:CPU_GATES].cpu()), cpu_scheme, params))
+
+
+def cpu_checks_beside(state: dict, run, smi: str) -> None:
+    """run() with the queued CPU-path checks (`check_cpu_path`) in a thread of
+    CPU_CHECK_THREADS beside it, then their line; fails if a card's bits
+    differ from the CPU path's or a check raised.  run() is phases 26 and 31,
+    where the main process waits for its ranks: their host time is shared
+    with these checks, and their ms are bits and wiring, not scaling
+    numbers, as their lines say."""
+    done, errors = [], []
+
+    def checks():
+        try:
+            for what, bootstrap, ct, want, scheme, params in state["cpu_checks"]:
+                t0 = time.time()
+                got = bootstrap(ct, scheme, params)
+                done.append((what, torch.equal(got.b, want.b) and torch.equal(got.a, want.a), time.time() - t0))
+        except BaseException as err:  # raised again below, in the main thread
+            errors.append(err)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    thread = threading.Thread(target=checks)
+    t0 = time.time()
+    thread.start()
+    try:
+        run()
+    finally:
+        thread.join()
+        torch.set_num_threads(threads)
+    if errors:
+        raise SystemExit(f"a CPU-path check raised: {errors[0]!r}")
+    differ = [what for what, same, _ in done if not same]
+    if differ or len(done) != len(state["cpu_checks"]):
+        raise SystemExit(f"the card's first {CPU_GATES} gates differ from the CPU path's: {differ}")
+    print(f"[19-20 cpu] the first {CPU_GATES} gates of each path bootstrapped on the CPU (the plain versions), beside "
+          f"phases 26 and 31 ({CPU_CHECK_THREADS} threads, done {time.time() - t0:.1f} s after they started): == the "
+          f"card's, bit for bit: " + ", ".join(f"{what} ({s:.1f} s)" for what, _, s in done) + f" ({smi})")
 
 
 def gate_path_ntt_shapes() -> set[tuple]:
@@ -1658,15 +1713,13 @@ def ntt_path(tag: str, path: str, preset: str, bootstrap, ct, c2, m1, m2, scheme
     if launches["fwd"] != runs * per_bootstrap or launches["inv"] != runs * per_bootstrap or others:
         raise SystemExit(f"{path}: expected {per_bootstrap} + {per_bootstrap} natural NTT launches a bootstrap and no "
                          f"other kernel, got {launches} in {runs} bootstraps")
-    t0 = time.time()
-    check_cpu_path(bootstrap, ct, boot["first"], scheme, params, path)
-    cpu_s = time.time() - t0
+    check_cpu_path(bootstrap, ct, boot["first"], scheme, params, path, state)
     dt = boot["batch_s"]
     print(
         f"[{tag}] {path} NAND batch {batch}: decrypt OK x{runs}; first {boot['first_s'] * 1e3:.1f} ms; "
         f"chain {dt * 1e3:.1f} ms/batch = {batch / dt:.2f} boots/s; peak allocated {peak / 1e9:.3f} GB; "
         f"natural NTT launches in {runs} bootstraps fwd {launches['fwd']} inv {launches['inv']}; first "
-        f"{CPU_GATES} gates == the CPU path's, bit for bit ({cpu_s:.1f} s on the CPU) ({smi})"
+        f"{CPU_GATES} gates against the CPU path's in line [19-20 cpu] ({smi})"
     )
     missing = (set(shapes[0]) | set(shapes[1])) - set(times)
     if missing:
@@ -2053,9 +2106,10 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
     )
     del ref
 
-    with tempfile.TemporaryDirectory() as tmp:
-        ms = profile_phases(fused_mx3.bootstrap_mx3, ct, scheme, params, os.path.join(tmp, "trace_k32"))
-    print(ranges_line("27f named ranges", "bootstrap_mx3 KMS32partyblock", params, ms) + f" ({smi})")
+    timed = timed_ranges(lambda: fused_mx3.bootstrap_mx3(ct, scheme, params))
+    prof = profile_bootstrap(fused_mx3.bootstrap_mx3, ct, scheme, params, {"sweep kernel": "phase1_sweep_kernel"})
+    print(ranges_line("27f named ranges", "bootstrap_mx3 KMS32partyblock", params, timed, prof,
+                      (prof["parts"]["sweep kernel"], "the sweep kernels of the same profile")) + f" ({smi})")
     state["noise"].append(("bootstrap_mx3 [27]", "KMS32partyblock", boot["first"], lwe_keys, ~(m1 & m2)))
     state["parties"].append(
         preset_record("KMS32partyblock", "bootstrap_mx3", keys, dt * 1e3, above, served_by(params)))
@@ -2066,21 +2120,51 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
     return [row]
 
 
-def ranges_line(tag: str, what: str, params, ms: dict) -> str:
-    """Device ms by named range (`profiling.phase_device_ms`) of one warm
-    bootstrap; fails if the ranges hold less than RANGE_COVERAGE of it."""
-    busy = sum(ms.values())
-    covered = 1 - ms[profiling.OUTSIDE] / busy
-    if covered < RANGE_COVERAGE:
-        raise SystemExit(f"{what}: the named ranges hold {covered:.3f} of the device time: {ms}")
+def timed_ranges(run) -> dict:
+    """run() (one bootstrap) with its named ranges timed by CUDA events
+    (`profiling.event_ranges`): "ranges", ms by name between each range's
+    edges less the ranges inside it; "total_ms", the bootstrap's event ms
+    from end to end around them; "out", run()'s result."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profiling.event_ranges() as ms:
+        start.record()
+        out = run()
+        end.record()
+    return {"ranges": ms, "total_ms": start.elapsed_time(end), "out": out}
+
+
+def ranges_line(tag: str, what: str, params, timed: dict, prof: dict, sweeps: tuple | None = None) -> str:
+    """The split of one warm bootstrap by named range (`timed_ranges`); fails
+    unless the ranges add up to RANGE_SHARE of the bootstrap's event ms from
+    end to end, and, given `sweeps` (ms, where from), unless phase 1 holds
+    PHASE1_OF_SWEEPS of the sweep kernels' profiled ms.  `prof`: a profile of
+    the same path (`profile_bootstrap`, `profile_split`): its kernel records'
+    total is printed beside, so that a profile that lost records shows as a
+    number."""
+    ms, total = timed["ranges"], timed["total_ms"]
+    share = sum(ms.values()) / total
+    if not RANGE_SHARE[0] <= share <= RANGE_SHARE[1]:
+        raise SystemExit(f"{what}: the named ranges hold {share:.3f} of the bootstrap's {total:.2f} ms, outside "
+                         f"{RANGE_SHARE}: {ms}")
     phase1 = sum(v for k, v in ms.items() if k.startswith("mktfhe/phase1/"))
     merges = [v for k, v in ms.items() if k.startswith("mktfhe/phase2/")]
+    check = ""
+    if sweeps is not None:
+        if phase1 < PHASE1_OF_SWEEPS * sweeps[0]:
+            raise SystemExit(f"{what}: phase 1 reads {phase1:.2f} ms by events, under {PHASE1_OF_SWEEPS} of "
+                             f"{sweeps[1]}'s {sweeps[0]:.2f} ms")
+        check = f" ({phase1 / sweeps[0]:.3f} of {sweeps[1]}'s {sweeps[0]:.2f} ms)"
+    idle = max(0.0, 1 - prof["device_ms"] / prof["wall_ms"])
     return (
-        f"[{tag}] {what} batch {BATCH}, one warm bootstrap, device busy {busy:.2f} ms: mod_switch "
-        f"{ms['mktfhe/mod_switch']:.3f} ms, phase 1 (sweeps, {params.k} parties) {phase1:.2f} ms, levkey_lift "
-        f"{ms['mktfhe/levkey_lift']:.3f} ms, phase 2 {sum(merges):.2f} ms (merges 1..{params.k}: "
-        + ", ".join(f"{v:.2f}" for v in merges) + f"), keyswitch {ms['mktfhe/keyswitch']:.3f} ms, outside every "
-        f"range {ms[profiling.OUTSIDE]:.3f} ms; the ranges hold {covered:.2%}"
+        f"[{tag}] {what} batch {BATCH}, one warm bootstrap, {total:.2f} ms by CUDA events from end to end, split by "
+        f"CUDA events at the named ranges' edges (a range's ms hold the card's idle gaps inside it: on a "
+        f"device-bound path, as here, few): mod_switch {ms['mktfhe/mod_switch']:.3f} ms, phase 1 (sweeps, "
+        f"{params.k} parties) {phase1:.2f} ms{check}, levkey_lift {ms['mktfhe/levkey_lift']:.3f} ms, phase 2 "
+        f"{sum(merges):.2f} ms (merges 1..{params.k}: " + ", ".join(f"{v:.2f}" for v in merges)
+        + f"), keyswitch {ms['mktfhe/keyswitch']:.3f} ms, outside every range {total - sum(ms.values()):.3f} ms; "
+        f"the ranges hold {share:.2%}; torch.profiler's kernel records of a bootstrap of the same path "
+        f"{prof['device_ms']:.2f} ms (its wall {prof['wall_ms']:.2f} ms, idle share {idle:.3f})"
     )
 
 
@@ -2252,13 +2336,13 @@ def save_shard_case(state: dict, name: str, params, keys: dict, ct, want, clear,
     ct_path = os.path.join(state["tmp"], f"{tag}_ct.npz")
     save(ct_path, ct)
     jobs = [Job("mx2 shard_phase2", params, shares["scheme"], ct_path, mesh=(world, 1), phase1_keys=shares["mx"],
-                shard_phase2=True, reps=SHARD_REPS)]
+                shard_phase2=True, reps=SHARD_REPS, graphed=True)]
     if bm_keys is not None:
         whole = os.path.join(state["tmp"], f"{tag}_scheme.npz")
         save(whole, lean)
-        jobs.insert(0, Job("bm", params, whole, ct_path, mesh=(world, 1), phase1_keys=shares["bm"]))
+        jobs.insert(0, Job("bm", params, whole, ct_path, mesh=(world, 1), phase1_keys=shares["bm"], graphed=True))
     state["shard_cases"].append({"name": name, "params": params, "want": want, "lwe_keys": keys["lwe_keys"],
-                                 "clear": clear, "mx_bytes": scheme_bytes(mx_keys), "jobs": jobs})
+                                 "clear": clear, "mx_bytes": scheme_bytes(mx_keys), "jobs": jobs, "world": world})
 
 
 def run_parties(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
@@ -2317,10 +2401,11 @@ def check_bm_parties(gen, device, usage: dict, rate: dict, smi: str) -> dict:
 
 def profile_split(bootstrap, ct, scheme, params, kernel: str) -> dict:
     """One warm `bootstrap` under torch.profiler, without a trace file (a
-    batch-minor or CCS bootstrap makes 10^5-10^6 events): device ms by named
-    range (`profiling.phase_device_ms`), the device ms of the kernels whose
-    names hold `kernel`, device busy and wall; taken again, up to
-    PROFILE_TRIES times in all, if it recorded no device time."""
+    batch-minor or CCS bootstrap makes 10^5-10^6 events), its named ranges
+    timed by CUDA events ("timed", `timed_ranges`: the bootstrap alone, not
+    the reading of the profile): the device ms of the kernels whose names
+    hold `kernel`, device busy (every kernel record) and wall; taken again,
+    up to PROFILE_TRIES times in all, if it recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     on_device = torch.autograd.DeviceType.CUDA
@@ -2328,15 +2413,13 @@ def profile_split(bootstrap, ct, scheme, params, kernel: str) -> dict:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            bootstrap(ct, scheme, params).b.cpu()
-            torch.cuda.synchronize()
+            timed = timed_ranges(lambda: bootstrap(ct, scheme, params))  # synchronises at its end
             wall_ms = (time.time() - t0) * 1e3
-        ms = profiling.phase_device_ms(prof)
-        if sum(ms.values()) > 0:
-            kernel_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                            if e.device_type() == on_device and not e.is_user_annotation()
-                            and kernel in e.name()) / 1e6
-            return {"ranges": ms, "kernel_ms": kernel_ms, "device_ms": sum(ms.values()), "wall_ms": wall_ms}
+        rows = [e for e in prof.profiler.kineto_results.events()
+                if e.device_type() == on_device and not e.is_user_annotation() and e.duration_ns() > 0]
+        if rows:
+            return {"kernel_ms": sum(e.duration_ns() for e in rows if kernel in e.name()) / 1e6,
+                    "device_ms": sum(e.duration_ns() for e in rows) / 1e6, "wall_ms": wall_ms, "timed": timed}
         time.sleep(0.5)
     raise SystemExit("torch.profiler recorded no device time in the named ranges' profile")
 
@@ -2387,9 +2470,9 @@ def run_bootstrap_bm(name: str, params, keys: dict, ct, want, clear, decrypt, bm
     by_shape = ntt_by_shape(f"kms.bootstrap_bm {name}", *shapes, 1, times)
     if profiled:
         prof = profile_split(bootstrap, ct, lean, params, "ntt_bm_kernel")
-        print(ranges_line("30b named ranges", f"kms.bootstrap_bm {name}", params, prof["ranges"])
-              + f"; wall {prof['wall_ms']:.1f} ms under the profiler (idle share "
-              f"{max(0.0, 1 - prof['device_ms'] / prof['wall_ms']):.3f}), B4 {prof['kernel_ms']:.2f} ms ({smi})")
+        print(ranges_line("30b named ranges", f"kms.bootstrap_bm {name} (under the profiler)", params, prof["timed"],
+                          prof)
+              + f"; B4 {prof['kernel_ms']:.2f} ms in the profile ({smi})")
         print(by_shape_line("30c ntt batch-minor by shape", by_shape, prof["kernel_ms"], smi,
                             "batch-minor NTT kernel", "[npr, R, N, G]"))
     else:
@@ -2420,7 +2503,10 @@ def save_shares(tmp: str, tag: str, n_party: int, objs: dict) -> dict:
 FP64_TENSOR_MACS_PER_S = 33.5e12
 H100_PEAKS = {"peak_vpu": INT32_OPS_PER_S, "peak_mxu": FP64_TENSOR_MACS_PER_S, "peak_hbm": HBM_BYTES_PER_S}
 PROFILE_TRIES = 3
-RANGE_COVERAGE = 0.95  # the share of device busy time the named ranges must hold
+# the named ranges' event ms over the bootstrap's event ms from end to end
+RANGE_SHARE = (0.90, 1.02)
+# phase 1's event ms over the same path's sweep kernels in a profile (6b, 17b)
+PHASE1_OF_SWEEPS = 0.95
 SHARD_REPS = 2  # bootstraps of each mx2 job in the ranks: the first warms, the last is timed
 
 
@@ -2496,80 +2582,93 @@ def run_noise(state: dict, smi: str) -> None:
     print("[24 noise] statistics of exact arithmetic, not speeds: " + "; ".join(parts) + f" ({smi})")
 
 
-def profile_phases(bootstrap, ct, scheme, params, logdir: str, floor_ms: float = 0.0) -> dict:
-    """Device ms by named range over one warm `bootstrap` under
-    `profiling.trace`; a profile with no device time, or with less than
-    `floor_ms` (the profiler loses kernel records now and then after a
-    profile of 10^5 events or more), is taken again, up to PROFILE_TRIES
-    times in all; the fullest is kept.  Raises if none has device time."""
-    best = {}
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profiling.trace(logdir) as prof:
-            bootstrap(ct, scheme, params).b.cpu()
-            torch.cuda.synchronize()
-        ms = profiling.phase_device_ms(prof)
-        if sum(ms.values()) > sum(best.values()):
-            best = ms
-        if sum(best.values()) > max(floor_ms, 0.0):
-            return best
-        time.sleep(0.5)
-    if not best:
-        raise SystemExit("torch.profiler recorded no device time in the named ranges' profile")
-    return best
-
-
-def run_named_ranges(state: dict, binary: dict, tmp: str, smi: str) -> None:
+def run_named_ranges(state: dict, binary: dict, smi: str) -> None:
     """Phase 25: one warm `bootstrap_mx3` (KMS8partyblock) and one
-    `bootstrap_mx2` (KMS8party) under `profiling.trace`, the device ms of each
-    named range (`phase_device_ms`), which must hold RANGE_COVERAGE of the
-    device busy time; then the cost model's summary against the H100's peaks
-    at the chains' times of phases 6 and 17."""
+    `bootstrap_mx2` (KMS8party) split by named range with CUDA events
+    (`ranges_line`: the ranges must hold RANGE_SHARE of the bootstrap, phase 1
+    PHASE1_OF_SWEEPS of the sweeps in 6b / 17b), beside the kernel records'
+    total of one more under torch.profiler; then the cost model's summary
+    against the H100's peaks at the chains' times of phases 6 and 17."""
     mx_keys = state["mx2"]["mx_keys"]
     cases = (
         ("bootstrap_mx3", fused_mx3.bootstrap_mx3, state["block"]["ct"], state["block"]["scheme"],
-         KMS_8PARTY_BLOCK, state["block"]["chain_s"]),
+         KMS_8PARTY_BLOCK, state["block"], "6b"),
         ("bootstrap_mx2", lambda ct, scheme, params: fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params),
-         binary["ct"], state["mx2"]["lean"], KMS_8PARTY, state["mx2"]["chain_s"]),
+         binary["ct"], state["mx2"]["lean"], KMS_8PARTY, state["mx2"], "17b"),
     )
-    for what, bootstrap, ct, scheme, params, chain_s in cases:
-        # the chain's wall bounds the device time from above, and its idle share is about 1%
-        ms = profile_phases(bootstrap, ct, scheme, params, os.path.join(tmp, f"trace_{what}"),
-                            floor_ms=0.9 * chain_s * 1e3)
+    for what, bootstrap, ct, scheme, params, path, tag in cases:
+        timed = timed_ranges(lambda: bootstrap(ct, scheme, params))
+        prof = profile_bootstrap(bootstrap, ct, scheme, params, {})
         cost = profiling.kms_cost(params, "ref", params.ring_nprimes)
         # the JAX package's TPU operation model, not the port's arithmetic: its
         # utilization against the card's peak is left out (each kernel's own
         # bound is in the kernels line)
-        summary = cost.summary(BATCH, chain_s, **H100_PEAKS)
+        summary = cost.summary(BATCH, path["chain_s"], **H100_PEAKS)
         del summary["vpu_utilization"]
         preset = "KMS8partyblock" if params is KMS_8PARTY_BLOCK else "KMS8party"
         print(
-            ranges_line("25 named ranges", f"{what} {preset}", params, ms)
+            ranges_line("25 named ranges", f"{what} {preset}", params, timed, prof,
+                        (path["sweeps_ms"], f"{tag}'s sweep kernels"))
             + f"; bounds of the JAX TPU op model, not the port's arithmetic (the JAX package's count, engine "
             f"'ref', {params.ring_nprimes} primes) against the H100's peaks (int32 {INT32_OPS_PER_S / 1e12:.1f} "
             f"T ops/s, fp64 tensor {FP64_TENSOR_MACS_PER_S / 1e12:.1f} T MAC/s, {HBM_BYTES_PER_S / 1e12:.2f} "
-            f"TB/s) at the chain's {chain_s * 1e3:.1f} ms a batch: "
+            f"TB/s) at the chain's {path['chain_s'] * 1e3:.1f} ms a batch: "
             + ", ".join(f"{k} {v:.4g}" for k, v in summary.items()) + f" ({smi})"
         )
 
 
 def check_rank_results(job: str, ranks: list[list[dict]], index: int, want: Lwe, keys, clear, expect: dict) -> dict:
     """Every rank's output of job `index` equals `want` and decrypts to
-    `clear`; every rank launched exactly `expect`'s kernels (the others not
-    at all) and imported no jax.  Returns the slowest rank's result."""
+    `clear`, eagerly and, for a graphed job, replayed from its graphs (and
+    captured by segment where the capture was whole); every rank launched
+    exactly `expect`'s kernels (the others not at all) in an eager bootstrap
+    and in a replay, and imported no jax.  Returns the slowest rank's result
+    (by eager ms)."""
     for rank, results in enumerate(ranks):
         res = results[index]
-        out = Lwe(b=bridge.from_numpy(res["b"], want.b.device), a=bridge.from_numpy(res["a"], want.a.device))
-        if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
-            raise SystemExit(f"{job}: rank {rank}'s output differs from the single-process output")
-        if not np.array_equal(lwe_decrypt_bit_mk(out, keys).cpu().numpy(), clear):
-            raise SystemExit(f"{job}: rank {rank}'s output does not decrypt to the clear NAND")
-        got = res["launches"] = {k: v for k, v in res["launches"].items() if v}
-        if got != expect:
-            raise SystemExit(f"{job}: rank {rank} launched {got}, expected {expect}")
+        outs = {"eager": res}
+        if "graph" in res:
+            outs["graphed"] = res["graph"]
+            if "by_segment" in res["graph"]:
+                outs["graphed by segment"] = res["graph"]["by_segment"]
+        for how, got in outs.items():
+            out = Lwe(b=bridge.from_numpy(got["b"], want.b.device), a=bridge.from_numpy(got["a"], want.a.device))
+            if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
+                raise SystemExit(f"{job}: rank {rank}'s {how} output differs from the single-process output")
+            if not np.array_equal(lwe_decrypt_bit_mk(out, keys).cpu().numpy(), clear):
+                raise SystemExit(f"{job}: rank {rank}'s {how} output does not decrypt to the clear NAND")
+        for how, got in {"eager": res, **({"a replay": res["graph"]} if "graph" in res else {})}.items():
+            launched = got["launches"] = {k: v for k, v in got["launches"].items() if v}
+            if launched != expect:
+                raise SystemExit(f"{job}: rank {rank} launched {launched} in {how}, expected {expect}")
         if res["jax"] or res["mktfhe_tpu"]:
             raise SystemExit(f"{job}: rank {rank} imported jax or the JAX package")
     return max((results[index] for results in ranks), key=lambda r: r["ms"])
+
+
+def graph_note(ranks: list[list[dict]], index: int) -> str:
+    """The graphed replay of job `index` beside its eager bootstrap: the
+    slowest rank's ms, and each rank's graphs, nodes, capture and pool."""
+    results = [r[index] for r in ranks]
+    g = max((r["graph"] for r in results), key=lambda x: x["ms"])
+    per_rank = "; ".join(
+        f"rank {rank} {r['graph']['segments']} graph(s), {r['graph']['nodes']} nodes, capture "
+        f"{r['graph']['capture_s']:.2f} s + instantiate {r['graph']['instantiate_s']:.2f} s, pool "
+        f"{r['graph']['pool_bytes'] / 1e9:.3f} GB reserved / {r['graph']['pool_peak_bytes'] / 1e9:.3f} GB peak"
+        for rank, r in enumerate(results))
+    return f"graphed {g['ms']:.1f} ms a replay (slowest rank), launches a replay == eager ({per_rank})"
+
+
+def sharded_record(state: dict, name: str, preset: str, world: int, backend: str, ranks, index: int) -> None:
+    """One graphed sharded job for the JSON line of `sharded_summary`."""
+    results = [r[index] for r in ranks]
+    state["sharded"].append({
+        "job": name, "preset": preset, "ranks": world, "backend": backend,
+        "eager_ms": max(r["ms"] for r in results), "graph_ms": max(r["graph"]["ms"] for r in results),
+        **{key: [r["graph"][key] for r in results]
+           for key in ("segments", "nodes", "capture_s", "instantiate_s", "pool_bytes", "pool_peak_bytes")},
+        "device_peak_bytes": [r["device_peak_bytes"] for r in results],
+    })
 
 
 def merge_launches(params, g: int) -> tuple[int, int]:
@@ -2598,58 +2697,87 @@ def shard_launches(params, kp: int, engine: str) -> dict:
 def run_sharded(state: dict, binary: dict, paths: dict, smi: str) -> None:
     """Phase 26: the party-sharded bootstrap in ranks that load their keys
     from phase 23's files (parallel/launch.py:bootstrap_jobs), the kernels
-    built by phase 2: (a) NCCL, one rank, a (1, 1) mesh, the mx2 engine at
-    KMS8party; (b) gloo, two ranks sharing cuda:0, a (party 2, batch 1) mesh:
-    mx2 with phase 2 replicated and with shard_phase2, the batch-minor
-    engine, `kms_bootstrap_sharded` and the reference engine at
-    KMS8partyblock.  Every output must equal the single-process output of
-    the same ciphertext and decrypt to the clear NAND; every rank's kernel
-    launches are held against `shard_launches`."""
+    built by phase 2, each job eagerly and then replayed from the rank's
+    CUDA graphs (`graphs.capture_sharded`; the capture's warm-up is the
+    job's last eager bootstrap): (a) NCCL, one rank, a (1, 1) mesh, the mx2
+    engine at KMS8party, the whole program one graph with its collectives
+    (one-rank NCCL collectives are issued, copies on the card), replayed
+    with every synchronizing call an error, and captured by segment too: the
+    nodes its collectives add; (b) gloo, two ranks sharing cuda:0, a (party
+    2, batch 1) mesh, a graph a segment: mx2 with phase 2 replicated and with
+    shard_phase2, the batch-minor engine, `kms_bootstrap_sharded` and the
+    reference engine at KMS8partyblock; the same two ranks then run phase
+    31's k = 16 jobs (their lines print in phase 31).  Every output must
+    equal the single-process output of the same ciphertext and decrypt to
+    the clear NAND; every rank's launches, eager and a replay, are held
+    against `shard_launches`."""
     p8, pb = KMS_8PARTY, KMS_8PARTY_BLOCK
     mx2 = dict(params=p8, scheme=paths["kms8party_scheme"], ct=paths["kms8party_ct"],
-               phase1_keys=paths["kms8party_mx_keys"], reps=SHARD_REPS)
-    block = dict(params=pb, scheme=paths["kms8partyblock_scheme"], ct=paths["kms8partyblock_ct"])
+               phase1_keys=paths["kms8party_mx_keys"], reps=SHARD_REPS, graphed=True)
+    block = dict(params=pb, scheme=paths["kms8partyblock_scheme"], ct=paths["kms8partyblock_ct"], graphed=True)
     bin_want, bin_keys, bin_clear = state["mx2"]["out"], binary["lwe_keys"], ~(binary["m1"] & binary["m2"])
     blk_want, blk_keys, blk_clear = state["block"]["out"], state["block"]["lwe_keys"], state["block"]["want"]
 
     t0 = time.time()
     ranks = run_ranks(bootstrap_jobs, 1, "nccl", ([Job("mx2", mesh=(1, 1), **mx2)],), "cuda")
     res = check_rank_results("(a) nccl mx2", ranks, 0, bin_want, bin_keys, bin_clear, shard_launches(p8, p8.k, "mx2"))
+    g = res["graph"]
+    seg = g.get("by_segment", {"segments": 0, "nodes": g["nodes"]})
+    if not g["whole"] or g["segments"] != 1 or g["nodes"] <= seg["nodes"]:
+        raise SystemExit(f"(a) nccl mx2: expected one whole graph holding more nodes than its segments' graphs "
+                         f"(its collectives), got {g['segments']} graph(s), {g['nodes']} nodes against "
+                         f"{seg['segments']} graphs of {seg['nodes']} nodes")
+    sharded_record(state, "mx2", "KMS8party", 1, "nccl", ranks, 0)
     print(
         f"[26a sharded, nccl] kms_bootstrap_shardmap, 1 rank, mesh (1, 1), mx2 engine, KMS8party NAND batch "
-        f"{BATCH}: == bootstrap_mx2 of phase 17 bit for bit, decrypt OK, launches {res['launches']}; "
-        f"{res['ms']:.1f} ms a bootstrap (warm); {time.time() - t0:.1f} s with the rank's start and key load ({smi})"
+        f"{BATCH}: eager and graphed == bootstrap_mx2 of phase 17 bit for bit, decrypt OK, launches "
+        f"{res['launches']} eager and a replay; eager {res['ms']:.1f} ms a bootstrap (warm); the whole program "
+        f"one CUDA graph, collectives included: {g['nodes']} nodes, capture {g['capture_s']:.2f} s + instantiate "
+        f"{g['instantiate_s']:.2f} s, pool {g['pool_bytes'] / 1e9:.3f} GB reserved / "
+        f"{g['pool_peak_bytes'] / 1e9:.3f} GB peak; replayed under set_sync_debug_mode('error'), no sync, "
+        f"{g['ms']:.1f} ms a replay (the last of {SHARD_REPS}); captured by segment, its collectives eager: "
+        f"{seg['segments']} graphs of {seg['nodes']} nodes, == too: the one-rank NCCL collectives add "
+        f"{g['nodes'] - seg['nodes']} nodes; {time.time() - t0:.1f} s with the rank's start and key load ({smi})"
     )
 
     jobs = [
         Job("mx2", mesh=(2, 1), **mx2),
         Job("mx2 shard_phase2", mesh=(2, 1), shard_phase2=True, **mx2),
         Job("bm", params=p8, scheme=paths["kms8party_scheme"], ct=paths["kms8party_ct"],
-            phase1_keys=paths["kms8party_bm_keys"], mesh=(2, 1)),
+            phase1_keys=paths["kms8party_bm_keys"], mesh=(2, 1), graphed=True),
         Job("kms_bootstrap_sharded", mesh=(2, 1), sharded=True, **block),
         Job("ref", mesh=(2, 1), **block),
     ]
     cases = [(bin_want, bin_keys, bin_clear, p8, "mx2"), (bin_want, bin_keys, bin_clear, p8, "mx2"),
              (bin_want, bin_keys, bin_clear, p8, "bm"), (blk_want, blk_keys, blk_clear, pb, "ref"),
              (blk_want, blk_keys, blk_clear, pb, "ref")]
+    # phase 31's two-rank jobs share these ranks: one start, one process a rank
+    k16 = [case for case in state["shard_cases"] if case["world"] == 2]
     t0 = time.time()
-    ranks = run_ranks(bootstrap_jobs, 2, "gloo", (jobs,), "cuda")
+    ranks = run_ranks(bootstrap_jobs, 2, "gloo", (jobs + [job for case in k16 for job in case["jobs"]],), "cuda")
     wall = time.time() - t0
+    at = len(jobs)
+    for case in k16:  # each case's results, for phase 31
+        case["ranks"], case["wall"] = [r[at : at + len(case["jobs"])] for r in ranks], wall
+        at += len(case["jobs"])
     parts = []
     for index, (job, (want, keys, clear, params, engine)) in enumerate(zip(jobs, cases)):
         res = check_rank_results(f"(b) gloo {job.name}", ranks, index, want, keys, clear,
                                  shard_launches(params, params.k // 2, engine))
+        preset = "KMS8partyblock" if params is pb else "KMS8party"
+        sharded_record(state, job.name, preset, 2, "gloo", ranks, index)
         held = max(results[index]["key_bytes"] for results in ranks)
         whole = sum(os.path.getsize(path) for path in (job.scheme, job.phase1_keys) if path)
-        parts.append(f"{job.name} ({'KMS8partyblock' if params is pb else 'KMS8party'}): {res['ms']:.1f} ms"
-                     f"{' (warm)' if job.reps > 1 else ''}, launches a rank {res['launches']}, keys a rank "
+        parts.append(f"{job.name} ({preset}): eager {res['ms']:.1f} ms{' (warm)' if job.reps > 1 else ''}, "
+                     f"{graph_note(ranks, index)}, launches a rank {res['launches']}, keys a rank "
                      f"{held / 1e9:.3f} GB of {whole / 1e9:.3f} GB")
     print(
         f"[26b sharded, gloo] 2 ranks sharing cuda:0 (their SMs shared: a check of bits and wiring, not a "
-        f"scaling number), mesh (party 2, batch 1), batch {BATCH}, every output == the single-process output "
-        f"of the same ciphertext (phases 17 and 6) bit for bit on both ranks, decrypt OK; per job the slowest "
-        f"rank's ms a bootstrap: " + "; ".join(parts) + f"; {wall:.1f} s with the ranks' start and key loads "
-        f"({smi})"
+        f"scaling number), mesh (party 2, batch 1), batch {BATCH}, every output, eager and replayed from the "
+        f"rank's graphs (a graph a segment, the gloo collectives between them), == the single-process output of "
+        f"the same ciphertext (phases 17 and 6) bit for bit on both ranks, decrypt OK; per job the slowest "
+        f"rank's ms a bootstrap: " + "; ".join(parts) + f"; {wall:.1f} s with the ranks' start and key loads, "
+        f"phase 31's k = 16 jobs included ({smi})"
     )
 
 
@@ -2662,37 +2790,44 @@ def file_bytes(paths) -> int:
 
 def run_sharded_parties(state: dict, smi: str) -> None:
     """Phase 31: the party-sharded bootstrap at k = 16 and k = 32 in gloo
-    ranks sharing cuda:0, on the files phases 28 and 29 saved: KMS16party in
-    two ranks, mesh (party 2, batch 1), the batch-minor engine (phase 2
-    replicated, its gates split) and the mx2 engine with shard_phase2;
-    KMS32party in four ranks, mesh (party 4, batch 1), mx2 with
-    shard_phase2 (PARALLEL.md's k = 32 residency: 8 parties a rank, the
-    phase-2 keys party-sharded).  Every rank reads only its share of the
-    party-sharded keys from disk.  Every output must equal the
-    single-process `bootstrap_mx2` output of the same ciphertext (phases 29
-    and 28) and decrypt to the clear NAND; every rank's launches are held
-    against `shard_launches`."""
+    ranks sharing cuda:0, on the files phases 28 and 29 saved, each job
+    eagerly and replayed from the rank's graphs (a graph a segment; at
+    k = 32 with shard_phase2 about 34 of them a rank, in one memory pool):
+    KMS32party in four ranks, mesh (party 4, batch 1), mx2 with shard_phase2
+    (PARALLEL.md's k = 32 residency: 8 parties a rank, the phase-2 keys
+    party-sharded); KMS16party in two ranks, mesh (party 2, batch 1), the
+    batch-minor engine (phase 2 replicated, its gates split) and the mx2
+    engine with shard_phase2, run in phase 26's two ranks.  Every rank reads
+    only its share of the party-sharded keys from disk.  Every output must
+    equal the single-process `bootstrap_mx2` output of the same ciphertext
+    (phases 29 and 28) and decrypt to the clear NAND; every rank's launches,
+    eager and a replay, are held against `shard_launches`."""
     for case in state["shard_cases"]:
-        params, jobs = case["params"], case["jobs"]
-        world = jobs[0].mesh[0]
-        t0 = time.time()
-        ranks = run_ranks(bootstrap_jobs, world, "gloo", (jobs,), "cuda")
-        wall = time.time() - t0
+        params, jobs, world = case["params"], case["jobs"], case["world"]
+        if world == 2:
+            ranks = case["ranks"]
+            how = (f"run in phase 26's two ranks ({case['wall']:.1f} s with their start and key loads, phase 26b's "
+                   f"jobs included)")
+        else:
+            t0 = time.time()
+            ranks = run_ranks(bootstrap_jobs, world, "gloo", (jobs,), "cuda")
+            how = f"{time.time() - t0:.1f} s with the ranks' start and key loads"
         parts = []
         for index, job in enumerate(jobs):
             engine = "bm" if job.name == "bm" else "mx2"
             res = check_rank_results(f"(31) {case['name']} gloo {job.name}", ranks, index, case["want"],
                                      case["lwe_keys"], case["clear"], shard_launches(params, params.k // world, engine))
+            sharded_record(state, job.name, case["name"], world, "gloo", ranks, index)
             results = [r[index] for r in ranks]
             host, dev = (", ".join(f"{r[key] / 1e9:.2f}" for r in results)
                          for key in ("host_rss_bytes", "device_peak_bytes"))
             parts.append(
-                f"{job.name}: {res['ms']:.1f} ms{' (warm)' if job.reps > 1 else ''}, launches a rank "
-                f"{res['launches']}, keys a rank (max) {max(r['key_bytes'] for r in results) / 1e9:.3f} GB of "
-                f"{(file_bytes(job.scheme) + file_bytes(job.phase1_keys)) / 1e9:.3f} GB in the whole files, read "
-                f"from disk a rank (max) {max(r['loaded_bytes'] for r in results) / 1e9:.3f} GB, host resident "
+                f"{job.name}: eager {res['ms']:.1f} ms{' (warm)' if job.reps > 1 else ''}, {graph_note(ranks, index)}, "
+                f"launches a rank {res['launches']}, keys a rank (max) {max(r['key_bytes'] for r in results) / 1e9:.3f} "
+                f"GB of {(file_bytes(job.scheme) + file_bytes(job.phase1_keys)) / 1e9:.3f} GB in the whole files, "
+                f"read from disk a rank (max) {max(r['loaded_bytes'] for r in results) / 1e9:.3f} GB, host resident "
                 f"a rank (sampled with the keys loaded and after the bootstraps) {host} GB, device peak a rank "
-                f"{dev} GB")
+                f"(eager and graphs) {dev} GB")
         note = ""
         if world == 4:
             note = (f"; the brk_mx share a rank {case['mx_bytes'] / world / 1e9:.3f} GB (a quarter of "
@@ -2701,10 +2836,16 @@ def run_sharded_parties(state: dict, smi: str) -> None:
         print(
             f"[31 sharded, k={params.k}] {case['name']} NAND batch {BATCH}, {world} gloo ranks sharing cuda:0 "
             f"(their SMs shared: a check of bits and wiring, not a scaling number), mesh (party {world}, batch 1), "
-            f"{params.k // world} parties a rank; every rank's output == the single-process bootstrap_mx2 output "
-            f"bit for bit, decrypt OK; per job the slowest rank's ms a bootstrap: " + "; ".join(parts) + note
-            + f"; {wall:.1f} s with the ranks' start and key loads ({smi})"
+            f"{params.k // world} parties a rank; every rank's output, eager and replayed from its graphs, == the "
+            f"single-process bootstrap_mx2 output bit for bit, decrypt OK; per job the slowest rank's ms a "
+            f"bootstrap: " + "; ".join(parts) + note + f"; {how} ({smi})"
         )
+
+
+def sharded_summary(state: dict, smi: str) -> None:
+    """The graphed sharded jobs of phases 26 and 31 as one JSON line."""
+    print(f"[26-31 sharded graphs] {len(state['sharded'])} jobs, every replay == eager == single-process ({smi})")
+    print(json.dumps({"sharded_graphs": state["sharded"]}))
 
 
 def main() -> int:
@@ -2754,7 +2895,7 @@ def main() -> int:
 
     gen = torch.Generator(device=device).manual_seed(SEED)
     # what the later phases take from the earlier ones
-    state = {"noise": [], "shard_cases": [], "graphs": [], "t_start": t_start}
+    state = {"noise": [], "shard_cases": [], "graphs": [], "sharded": [], "cpu_checks": [], "t_start": t_start}
     kernels, binary = run_kms(gen, device, smi, usage, rate, state)
     cggi_rows, bm_times = run_cggi(gen, device, smi, usage, rate, state)
     kernels += cggi_rows
@@ -2782,10 +2923,23 @@ def main() -> int:
         # k = 8, 16 and 32
         t_tools = time.time()
         paths = run_serialization(state, binary, tmp, device, smi)
-        run_named_ranges(state, binary, tmp, smi)
-        run_sharded(state, binary, paths, smi)
-        t_shards = time.time()
-        run_sharded_parties(state, smi)
+        run_named_ranges(state, binary, smi)
+
+        def sharded():
+            run_sharded(state, binary, paths, smi)
+            # no later phase reads the keys of phases 4-21: their device memory
+            # goes to phase 31's four ranks, which hold graph pools beside keys
+            for held, names in ((binary, ("scheme", "party_keys", "wide_party_keys")), (state["block"], ("scheme",)),
+                                (state["mx2"], ("lean", "mx_keys", "bm_keys")), (state["cggi"], ("scheme",))):
+                for name in names:
+                    del held[name]
+            torch.cuda.empty_cache()
+            state["t_shards"] = time.time()
+            run_sharded_parties(state, smi)
+
+        # the main process only waits for the ranks there: the CPU checks of 19-20 run beside them
+        cpu_checks_beside(state, sharded, smi)
+        t_shards = state["t_shards"]
 
     # 32: CCS8party and CCS16party, last: CCS16party's graph runs as far as
     # the time limit allows; then 24, noise with the outputs of 27-32
@@ -2793,6 +2947,7 @@ def main() -> int:
     kernels += run_ccs_parties(gen, device, smi, gate_times, rate, kernels[:2], state)
     run_noise(state, smi)
     graphs_summary(state, smi)
+    sharded_summary(state, smi)
 
     # 22. results
     print(f"[22 done] {time.time() - t_start:.1f} s in all: phases 1-18 {t_gates - t_start:.1f} s, 19-21 and 30a "

@@ -194,7 +194,8 @@ cggi_step_kernel(uint32_t* __restrict__ acc_g, const int32_t* __restrict__ tilde
 
     const size_t row_stride = static_cast<size_t>(terms) * 2 * n;  // one prime's key rows
     for (int step = s.i0; step < s.i1; ++step) {
-        const uint32_t a = static_cast<uint32_t>(ta[step]);
+        // X^(a + 2N) = X^a: any int32 amount, reduced mod 2N on its bits
+        const uint32_t a = static_cast<uint32_t>(ta[step]) & (2u * n - 1u);
         for (int q = 0; q < npr; ++q) {
             const uint32_t p = static_cast<uint32_t>(sc[q * kConstCols + kColP]);
             const uint64_t mu = sc[q * kConstCols + kColMu];

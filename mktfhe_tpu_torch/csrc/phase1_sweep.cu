@@ -200,7 +200,8 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
                     const uint32_t e0 = barrett_reduce(s0, mu, p);
                     const uint32_t e1 = barrett_reduce(s1, mu, p);
                     if (kBlock) {
-                        const uint32_t a = static_cast<uint32_t>(ta[step * ell + m]);
+                        // X^(a + 2N) = X^a: any int32 amount, reduced mod 2N on its bits
+                        const uint32_t a = static_cast<uint32_t>(ta[step * ell + m]) & (2u * n - 1u);
                         const uint64_t mon = mono[(static_cast<size_t>(a) * npr + q) * n + i];
                         u0 = barrett_reduce(u0 + e0 * mon, mu, p);
                         u1 = barrett_reduce(u1 + e1 * mon, mu, p);

@@ -33,15 +33,27 @@ that launches nothing.  So `capture_bootstrap` takes back what the capture
 added to the counts, and each replay adds it again: the counts stay those
 of the kernels that ran.  The named phase ranges (utils/profiling.py) are
 host annotations and do not appear on a replay.
+
+`capture_sharded` does the same for a rank of the party-sharded bootstrap
+(parallel/shardmap.py), the counterpart of the JAX package's `jax.jit` over
+its sharded programs.  The rank's program is a list of segments and the
+collectives between them.  Over NCCL the whole program, collectives
+included, is one graph.  Over gloo, whose collectives stage through the
+host and cannot be captured, each run of segments between two collectives
+is a graph of its own, and a replay runs the collectives between them,
+from and into the buffers the graphs hold.  All graphs of one capture share
+one memory pool, captured in the order they replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from .ciphertext.lwe import Lwe
 from .kernels import fused_mx2, fused_mx3, fused_step
@@ -111,29 +123,28 @@ def _graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
     return count.value
 
 
-@dataclasses.dataclass(eq=False)
-class GraphedBootstrap:
-    """`bootstrap(ct, scheme, *extra, params)` as one CUDA graph; called as
-    the eager function is.  `graph` is None on the CPU.  The capture's
-    numbers: `warmup_s` (the eager warm-up call, to its end on the card),
-    `capture_s`, `instantiate_s`, `pool_bytes` (device memory the graph's own
-    pool reserved: its intermediates and outputs, above the keys),
-    `pool_peak_bytes` (the most of it allocated at once during the capture),
-    `nodes` (the graph's nodes), `launches` (each counted wrapper's launches a
-    replay: name -> count) and `warmup_out` (the warm-up's eager output)."""
+@dataclasses.dataclass(eq=False, kw_only=True)
+class _Graphed:
+    """What a capture holds and measured.  `batch`: (b's shape, a's shape,
+    dtype, device) of the ciphertexts it takes; `keys`: every tensor of the
+    scheme and the key objects (kept alive); `inputs` / `output`: the
+    graphs' static ciphertexts; `change`: each counted wrapper's launches a
+    replay.  The capture's numbers: `warmup_s` (the eager warm-up call, to
+    its end on the card), `warmup_peak_bytes` (the device's allocation peak
+    up to the warm-up's end), `capture_s`, `instantiate_s`, `pool_bytes`
+    (device memory the capture reserved above what was held: the graphs'
+    intermediates and outputs), `pool_peak_bytes` (the most of it allocated
+    at once during the capture), `nodes` (of all its graphs) and
+    `warmup_out` (the warm-up's eager output)."""
 
-    bootstrap: object
-    scheme: object
-    extra: tuple
-    params: object
-    batch: tuple  # (b's shape, a's shape, dtype, device)
+    batch: tuple
     keys: tuple = ()
-    graph: torch.cuda.CUDAGraph | None = None
     inputs: tuple = ()
     output: Lwe | None = None
     change: dict = dataclasses.field(default_factory=dict)
     warmup_out: Lwe | None = None
     warmup_s: float = 0.0
+    warmup_peak_bytes: int = 0
     capture_s: float = 0.0
     instantiate_s: float = 0.0
     pool_bytes: int = 0
@@ -148,12 +159,13 @@ class GraphedBootstrap:
     def launches(self) -> dict:
         return {w.__name__: n for w, (n, _) in self.change.items()}
 
-    def _refuse(self, ct: Lwe, scheme, rest: tuple) -> None:
+    def _refuse(self, ct: Lwe, scheme, rest: tuple, held: tuple) -> None:
+        """Refuse a call whose scheme or other arguments are not the captured
+        objects, or whose ciphertext has another shape, dtype or device."""
         if scheme is not self.scheme:
             raise ValueError("this graph was captured with another scheme object")
-        held = (*self.extra, self.params)
         if len(rest) != len(held) or any(x is not y for x, y in zip(rest, held)):
-            raise ValueError("this graph was captured with other keys or parameters")
+            raise ValueError("this graph was captured with other keys, parameters or mesh")
         b_shape, a_shape, dtype, device = self.batch
         got = (tuple(ct.b.shape), tuple(ct.a.shape), ct.b.dtype, ct.b.device)
         if got != self.batch or ct.a.dtype != dtype or ct.a.device != device:
@@ -161,16 +173,79 @@ class GraphedBootstrap:
                              f"{device}; got b {list(got[0])}, a {list(got[1])} of {ct.b.dtype} / {ct.a.dtype} "
                              f"on {ct.b.device}")
 
-    def __call__(self, ct: Lwe, scheme, *rest) -> Lwe:
-        self._refuse(ct, scheme, rest)
-        if self.graph is None:
-            return self.bootstrap(ct, scheme, *rest)
+    def _replayed(self, ct: Lwe, replay) -> Lwe:
+        """ct copied into the static inputs, replay(), the launch counts
+        added, and a fresh copy of the static output."""
         b_in, a_in = self.inputs
         b_in.copy_(ct.b)
         a_in.copy_(ct.a)
-        self.graph.replay()
+        replay()
         _add(self.change)
         return Lwe(b=self.output.b.clone(), a=self.output.a.clone())
+
+    @contextlib.contextmanager
+    def _capturing(self, example_ct: Lwe, warmup, side: torch.cuda.Stream):
+        """The frame of a capture on the card: warmup() on the side stream,
+        timed to its end; the static inputs; the device's memory baseline
+        (its peak statistics reset, the cache emptied); yields a list for
+        the graphs the block captures and a memory pool for them; then takes
+        back what the capture counted, instantiates the graphs and takes
+        their numbers."""
+        device = example_ct.b.device
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):  # the stream the capture runs on (its cuBLAS workspace)
+            self.warmup_out = warmup()
+        torch.cuda.synchronize(device)
+        self.warmup_s = time.perf_counter() - t0
+        self.warmup_peak_bytes = torch.cuda.max_memory_allocated(device)
+        self.inputs = (example_ct.b.clone(), example_ct.a.clone())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reserved, allocated = torch.cuda.memory_reserved(device), torch.cuda.memory_allocated(device)
+        graphs = []
+        before = _counts()
+        t0 = time.perf_counter()
+        try:
+            yield graphs, torch.cuda.graph_pool_handle()
+        finally:  # nothing ran: take back what the wrappers counted
+            self.change = _change(before, _counts())
+            _add(self.change, -1)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_peak_bytes = torch.cuda.max_memory_allocated(device) - allocated
+        t0 = time.perf_counter()
+        for graph in graphs:
+            graph.instantiate()
+        torch.cuda.synchronize(device)
+        self.instantiate_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.nodes = sum(_graph_nodes(graph) for graph in graphs)
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    """A new stream on `device` that waits for the current one's work."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    return side
+
+
+@dataclasses.dataclass(eq=False, kw_only=True)
+class GraphedBootstrap(_Graphed):
+    """`bootstrap(ct, scheme, *extra, params)` as one CUDA graph; called as
+    the eager function is.  `graph` is None on the CPU.  The numbers: those
+    of `_Graphed`; `launches` (each counted wrapper's launches a replay:
+    name -> count)."""
+
+    bootstrap: object
+    scheme: object
+    extra: tuple
+    params: object
+    graph: torch.cuda.CUDAGraph | None = None
+
+    def __call__(self, ct: Lwe, scheme, *rest) -> Lwe:
+        self._refuse(ct, scheme, rest, (*self.extra, self.params))
+        if self.graph is None:
+            return self.bootstrap(ct, scheme, *rest)
+        return self._replayed(ct, self.graph.replay)
 
 
 def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra) -> GraphedBootstrap:
@@ -191,35 +266,120 @@ def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra) -> Gra
     if device.type != "cuda":
         raise ValueError(f"no graph for device {device}")
     with torch.cuda.device(device):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):  # the stream the capture runs on (its cuBLAS workspace)
-            graphed.warmup_out = bootstrap(example_ct, scheme, *extra, params)
-        torch.cuda.synchronize(device)
-        graphed.warmup_s = time.perf_counter() - t0
-        graphed.inputs = (example_ct.b.clone(), example_ct.a.clone())
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(device)
-        reserved, allocated = torch.cuda.memory_reserved(device), torch.cuda.memory_allocated(device)
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        before = _counts()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, stream=side):
+        side = _side_stream(device)
+        with graphed._capturing(example_ct, lambda: bootstrap(example_ct, scheme, *extra, params), side) as (
+                graphs, pool):
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=pool, stream=side):
                 graphed.output = bootstrap(Lwe(*graphed.inputs), scheme, *extra, params)
-        finally:  # nothing ran: take back what the wrappers counted
-            graphed.change = _change(before, _counts())
-            _add(graphed.change, -1)
-        graphed.capture_s = time.perf_counter() - t0
-        graphed.pool_peak_bytes = torch.cuda.max_memory_allocated(device) - allocated
-        t0 = time.perf_counter()
-        graph.instantiate()
-        torch.cuda.synchronize(device)
-        graphed.instantiate_s = time.perf_counter() - t0
-        graphed.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        graphed.nodes = _graph_nodes(graph)
+            graphs.append(graph)
         graphed.graph = graph
+    return graphed
+
+
+@dataclasses.dataclass(eq=False, kw_only=True)
+class GraphedSharded(_Graphed):
+    """A rank's sharded bootstrap, `program(scheme, params, mesh, gates,
+    *extra)`'s steps (parallel/shardmap.py), as CUDA graphs; called as the
+    eager entry point is: (ct, scheme, params, mesh, *extra).  `replay`: in
+    order, each graph and each collective between them (the collective, the
+    state it read at the capture, the buffer it writes); `graphs`: the
+    graphs alone (empty on the CPU, where a call runs `steps` eagerly);
+    `whole`: one graph holds the whole program, collectives included (NCCL).
+    The numbers: those of `_Graphed`."""
+
+    program: object
+    scheme: object
+    params: object
+    mesh: object
+    extra: tuple
+    steps: list
+    whole: bool = False
+    replay: list = dataclasses.field(default_factory=list)
+
+    @property
+    def graphs(self) -> list:
+        return [item for item in self.replay if isinstance(item, torch.cuda.CUDAGraph)]
+
+    def _run(self) -> None:
+        for item in self.replay:
+            if isinstance(item, torch.cuda.CUDAGraph):
+                item.replay()
+            else:
+                step, state, out = item
+                step.fn(state, out)
+
+    def __call__(self, ct: Lwe, scheme, *rest) -> Lwe:
+        from .parallel.shardmap import run_program
+
+        self._refuse(ct, scheme, rest, (self.params, self.mesh, *self.extra))
+        if not self.replay:
+            return run_program(self.steps, ct)
+        return self._replayed(ct, self._run)
+
+
+def capture_sharded(program, example_ct: Lwe, scheme, params, mesh, *extra,
+                    by_segment: bool | None = None) -> GraphedSharded:
+    """A rank's sharded bootstrap for ciphertexts shaped as `example_ct`:
+    `program(scheme, params, mesh, gates, *extra)` (`shardmap_program` or
+    `sharded_program`) captured after one eager warm-up run, on a side
+    stream, into one memory pool.  Every rank of the mesh calls it at the
+    same point, as it would the eager bootstrap.  by_segment: None by the
+    backend (NCCL: the whole program as one graph, its collectives
+    included; gloo: a graph per run of segments, the collectives eager
+    between them); True takes the segments' graphs over NCCL too (the
+    collectives then run eagerly between them); gloo refuses False.  A
+    capture that fails raises.  On a CPU ciphertext: no graph, the warm-up
+    run all the same (its output and seconds), and calls run the eager
+    program behind the same refusals."""
+    from .parallel.shardmap import Collective, program_input, program_output, run_program, run_steps
+
+    device = example_ct.b.device
+    steps = program(scheme, params, mesh, example_ct.b.shape[0], *extra)
+    graphed = GraphedSharded(
+        program=program, scheme=scheme, params=params, mesh=mesh, extra=tuple(extra), steps=steps,
+        batch=(tuple(example_ct.b.shape), tuple(example_ct.a.shape), example_ct.b.dtype, device),
+        keys=tuple(t for obj in (scheme, *extra) for t in _tensors(obj)),
+    )
+    if device.type == "cpu":
+        t0 = time.perf_counter()
+        graphed.warmup_out = run_program(steps, example_ct)
+        graphed.warmup_s = time.perf_counter() - t0
+        return graphed
+    if device.type != "cuda":
+        raise ValueError(f"no graph for device {device}")
+    nccl = dist.get_backend() == "nccl"
+    if by_segment is False and not nccl:
+        raise ValueError("gloo's collectives stage through the host and cannot be captured: by_segment")
+    graphed.whole = nccl and not by_segment
+    with torch.cuda.device(device):
+        side = _side_stream(device)
+        # the warm-up also makes every communicator the program uses, before any capture
+        with graphed._capturing(example_ct, lambda: run_program(steps, example_ct), side) as (graphs, pool):
+            state = program_input(Lwe(*graphed.inputs))
+            if graphed.whole:
+                runs = [steps]
+            else:  # the steps cut at the collectives: runs of segments, and the collectives alone
+                runs = []
+                for step in steps:
+                    if isinstance(step, Collective) or not runs or isinstance(runs[-1], Collective):
+                        runs.append(step if isinstance(step, Collective) else [step])
+                    else:
+                        runs[-1].append(step)
+            with torch.cuda.stream(side):
+                for run in runs:
+                    if isinstance(run, Collective):  # eager: its buffer is the one every replay writes
+                        out = run.fn(state, None)
+                        graphed.replay.append((run, dict(state), out))
+                        state[run.name] = out
+                        continue
+                    graph = torch.cuda.CUDAGraph(keep_graph=True)
+                    # thread_local: NCCL's watchdog thread may query its events meanwhile
+                    with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+                        state = run_steps(run, state)
+                    graphs.append(graph)
+                    graphed.replay.append(graph)
+        graphed.output = program_output(state)
     return graphed
 
 

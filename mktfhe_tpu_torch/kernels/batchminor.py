@@ -27,7 +27,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch.profiler import record_function
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.lwe import Lwe
@@ -40,6 +39,7 @@ from ..schemes.cggi import CggiScheme, _ctx
 from ..schemes.common import initial_acc, keyswitch_table, mod_switch_2n
 from ..schemes.kms import levkey_lift, monomial_table, phase1_key_image
 from ..schemes.params import CggiParams, KmsParams
+from ..utils.profiling import phase_range
 from .ntt import fwd_ntt_bm, inv_ntt_bm
 
 
@@ -124,12 +124,12 @@ def bootstrap_bm(ct: Lwe, scheme: BmScheme, params: CggiParams) -> Lwe:
     schemes.cggi.bootstrap (the monomial table and the negacyclic roll
     compute the same exact integers)."""
     ctx = _ctx(params)
-    with record_function("mktfhe/mod_switch"):
+    with phase_range("mktfhe/mod_switch"):
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    with record_function("mktfhe/rotate"):
+    with phase_range("mktfhe/rotate"):
         acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, k+1, N]
         acc = blind_rotate_bm(acc.permute(1, 2, 0).contiguous(), tildea, scheme, params, ctx)
-    with record_function("mktfhe/keyswitch"):
+    with phase_range("mktfhe/keyswitch"):
         return keyswitch_table(acc.permute(2, 0, 1), scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)
 
 

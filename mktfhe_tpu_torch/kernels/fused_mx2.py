@@ -110,7 +110,7 @@ def _odd_exponents_on(n: int, device) -> torch.Tensor:
 
 def mx_mono_rows(a: torch.Tensor, n: int, nprimes: int) -> torch.Tensor:
     """Images of X^a - 1 in the mx evaluation order, from the power table:
-    a [...] integer amounts in [0, 2N) -> int64 residues [..., npr, N],
+    a [...] integer amounts, taken mod 2N -> int64 residues [..., npr, N],
     psi^(a o mod 2N) - 1 mod p at the position of odd exponent o."""
     dev = a.device
     expo = (a.long()[..., None] * _odd_exponents_on(n, dev)) % (2 * n)  # [..., N]

@@ -62,7 +62,8 @@ def phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ct
                        acc0: torch.Tensor | None = None, ntt=(fwd_ntt, inv_ntt)) -> torch.Tensor:
     """The plain PyTorch version of the sweep kernel.
 
-    tildea_p: [G, n] rotation amounts in [0, 2N); brk_hat_p:
+    tildea_p: [G, n] integer rotation amounts, taken mod 2N (X^(a+2N) =
+    X^a; the kernel reduces an int32 amount so too); brk_hat_p:
     [n, 2, l, 2, npr, N] int32 (one party's `KmsScheme.brk_hat`); mono_hat:
     [2N, npr, N] (block parameters; unused otherwise).  Returns the torus
     accumulator [G, rows, 2, N] int64 after all steps, starting from `acc0`
@@ -96,7 +97,7 @@ def phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ct
         raise ValueError(f"ell = {ell} member products would overflow int64 before the reduction")
     p = prime_column(ctx.nprimes, tildea_p.device)
     brk = brk_hat_p.reshape(d, ell, *brk_hat_p.shape[1:])
-    ta = tildea_p.long().reshape(g, d, ell)
+    ta = torch.remainder(tildea_p.long(), 2 * ctx.n).reshape(g, d, ell)
     for blk in range(d):
         dhat = decomp_hat(acc)
         tacc = 0

@@ -33,7 +33,6 @@ import ctypes
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from ..ciphertext.gsw import rlwe_decomp_hat
 from ..ciphertext.lwe import Lwe
@@ -44,6 +43,7 @@ from ..ring.torus import from_crt
 from ..schemes.cggi import _ctx
 from ..schemes.common import initial_acc, keyswitch_table, mod_switch_2n
 from ..schemes.params import CggiParams
+from ..utils.profiling import phase_range
 from . import _build
 from .batchminor import BmScheme
 from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, check_tildea_range
@@ -56,7 +56,8 @@ def cggi_step_plain(acc: torch.Tensor, brk_i: torch.Tensor, ta_i: torch.Tensor, 
     """The plain PyTorch version of one step of the kernel.
 
     acc: [G, 2, N] int32 torus; brk_i: [npr, 2l, 2, N] int32 (one step of
-    `BmScheme.brk_bm`); ta_i: [G] rotation amounts in [0, 2N); mono_hat:
+    `BmScheme.brk_bm`); ta_i: [G] integer rotation amounts, taken mod 2N
+    (X^(a+2N) = X^a; the kernel reduces an int32 amount so too); mono_hat:
     [2N, npr, N].  Returns acc + Garner(INTT(mono(ta_i) * sum_j brk_i[j] *
     NTT(digits_j(acc)))), [G, 2, N] int32.
     """
@@ -65,7 +66,7 @@ def cggi_step_plain(acc: torch.Tensor, brk_i: torch.Tensor, ta_i: torch.Tensor, 
     dhat = rlwe_decomp_hat(acc, params.l_gsw, params.log_b_gsw, ctx, fwd_ntt)  # [G, 2, l, npr, N]
     x = dhat.reshape(g, 2 * params.l_gsw, 1, ctx.nprimes, ctx.n)
     ehat = mulsum_mod(x, brk_i.permute(1, 2, 0, 3), 1, p)  # [G, 2, npr, N]
-    weighted = torch.remainder(ehat * mono_hat[ta_i.long()][:, None], p)
+    weighted = torch.remainder(ehat * mono_hat[torch.remainder(ta_i.long(), 2 * ctx.n)][:, None], p)
     return acc + from_crt(inv_ntt(weighted.to(torch.int32), ctx.plan), ctx.crt, ctx.dtype)
 
 
@@ -204,10 +205,10 @@ def bootstrap_fused(ct: Lwe, scheme: BmScheme, params: CggiParams) -> Lwe:
     rotation in one launch.  scheme: kernels.batchminor.BmScheme.
     Bit-identical to the other engines."""
     ctx = _ctx(params)
-    with record_function("mktfhe/mod_switch"):
+    with phase_range("mktfhe/mod_switch"):
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    with record_function("mktfhe/rotate"):
+    with phase_range("mktfhe/rotate"):
         acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)  # [G, 2, N]
         acc = _steps(acc, tildea.contiguous(), scheme.brk_bm, scheme.mono_hat, params, ctx)
-    with record_function("mktfhe/keyswitch"):
+    with phase_range("mktfhe/keyswitch"):
         return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

@@ -21,7 +21,10 @@ do) and keeps its parties' share (`shard_scheme`), or loads only its share
 from a file of its own (`mesh.party_share`, saved by the parent: at k = 32
 a whole file is 13 GB, which four ranks on one host would each read),
 bootstraps, and reports the output, the kernel launches, the time, the
-bytes of keys it held and read, and its host and device memory.
+bytes of keys it held and read, and its host and device memory.  A graphed
+job also captures the rank's program as CUDA graphs
+(`graphs.capture_sharded`, whose eager warm-up is the job's last eager
+bootstrap) and replays it, in the same process on the same keys.
 
 On a card, two ranks sharing cuda:0 over gloo (`main`):
     python -m mktfhe_tpu_torch.parallel --preset TinyKMS2party --world 2 --backend gloo
@@ -32,6 +35,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import functools
 import os
 import pickle
 import sys
@@ -112,7 +116,9 @@ class Job:
     it); mesh: (n_party, n_batch), n_batch None for a party-only mesh;
     sharded: `kms_bootstrap_sharded` instead of `kms_bootstrap_shardmap`;
     reps: bootstraps run (the output is the first's, time and launches the
-    last's)."""
+    last's); graphed: the last of them is the warm-up of
+    `graphs.capture_sharded`, then the graphs replay reps times (output,
+    time and launches as for the eager runs)."""
 
     name: str
     params: object
@@ -123,6 +129,7 @@ class Job:
     shard_phase2: bool = False
     sharded: bool = False
     reps: int = 1
+    graphed: bool = False
 
 
 def _launches() -> dict:
@@ -166,6 +173,50 @@ def _host_rss_bytes() -> int:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
+def _files(job: Job) -> list[str]:
+    """Every .npz path a job names."""
+    return [path for field in (job.scheme, job.ct, job.phase1_keys) if field is not None
+            for path in ((field,) if isinstance(field, str) else field)]
+
+
+def _timed(fn, reps: int, device: torch.device) -> tuple:
+    """fn() run reps times, each from a barrier to its end on the device:
+    (the first output, the last's ms, the last's kernel launches)."""
+    first, ms = None, 0.0
+    for rep in range(reps):
+        _reset_launches()
+        dist.barrier()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        if rep == 0:
+            first = res
+    return first, ms, _launches()
+
+
+def _replays(graphed, args: tuple, reps: int, device: torch.device) -> dict:
+    """`graphed(*args)` replayed as `_timed` runs the eager bootstraps, a
+    whole graph's (NCCL) with every synchronizing call an error: its output,
+    ms and launches, and the capture's numbers."""
+    from ..graphs import without_sync
+
+    def replay():
+        return without_sync(graphed, *args) if graphed.whole else graphed(*args)
+
+    got, ms, launches = _timed(replay, reps, device)
+    return {"b": got.b, "a": got.a, "ms": ms, "launches": launches, **_graph_record(graphed)}
+
+
+def _graph_record(graphed) -> dict:
+    return {"nodes": graphed.nodes, "segments": len(graphed.graphs), "whole": graphed.whole,
+            "capture_s": graphed.capture_s, "instantiate_s": graphed.instantiate_s,
+            "pool_bytes": graphed.pool_bytes, "pool_peak_bytes": graphed.pool_peak_bytes}
+
+
 def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
     """The rank program: each job's sharded bootstrap on this rank's share
     of the keys.  Per job: the output ("b", "a": the whole batch), the
@@ -175,10 +226,18 @@ def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
     the whole files it cut its share from, and the ciphertext), its
     resident host memory (the larger of two samples: with the job's keys
     loaded, and after its bootstraps), its device memory peak in the job
-    (0 on the CPU), and whether jax or the JAX package were imported here."""
+    (0 on the CPU), and whether jax or the JAX package were imported here.
+    A graphed job adds under "graph" the replays' output, ms and launches
+    (counted as the eager ones), the capture's numbers (`_graph_record`),
+    and where one graph holds the whole program (NCCL) the same program
+    captured by segment, its collectives eager ("by_segment": its output,
+    nodes and graphs): the nodes the collectives add; a whole graph's
+    replays run with every synchronizing call an error
+    (`graphs.without_sync`)."""
+    from ..graphs import capture_sharded
     from ..utils.serialization import load
-    from .mesh import axis, kms_bootstrap_sharded, make_mesh, shard_scheme
-    from .shardmap import kms_bootstrap_shardmap
+    from .mesh import axis, make_mesh, shard_scheme
+    from .shardmap import run_program, sharded_program, shardmap_program
 
     files, meshes, out = {}, {}, []
 
@@ -197,7 +256,7 @@ def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
             return shard_scheme(loaded(path), mesh, shard_phase2)
         return loaded(own(path, mesh))
 
-    for job in jobs:
+    for index, job in enumerate(jobs):
         if job.mesh not in meshes:
             meshes[job.mesh] = make_mesh(*job.mesh, device.type)
         mesh = meshes[job.mesh]
@@ -207,38 +266,51 @@ def bootstrap_jobs(device: torch.device, jobs: list[Job]) -> list[dict]:
         keys = None if job.phase1_keys is None else _on(share(job.phase1_keys, mesh), device)
         ct = _on(loaded(job.ct), device)
         rss = _host_rss_bytes()
-        for rep in range(job.reps):
-            _reset_launches()
-            dist.barrier()
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t0 = time.perf_counter()
-            if job.sharded:
-                res = kms_bootstrap_sharded(ct, scheme, job.params, mesh)
-            else:
-                res = kms_bootstrap_shardmap(ct, scheme, job.params, mesh, keys, job.shard_phase2)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            ms = (time.perf_counter() - t0) * 1e3
-            if rep == 0:
-                first = res
-        out.append({
-            "name": job.name, "b": first.b, "a": first.a, "launches": _launches(), "ms": ms,
+        program, extra = (sharded_program, ()) if job.sharded else (shardmap_program, (keys, job.shard_phase2))
+
+        def eager():
+            return run_program(program(scheme, job.params, mesh, ct.b.shape[0], *extra), ct)
+
+        eager_reps = job.reps - job.graphed
+        first, ms, launches = _timed(eager, eager_reps, device)
+        record, peak = {"name": job.name}, 0
+        if job.graphed:
+            graphed, _, launches = _timed(
+                lambda: capture_sharded(program, ct, scheme, job.params, mesh, *extra), 1, device)
+            first = graphed.warmup_out if first is None else first
+            ms, peak = graphed.warmup_s * 1e3, graphed.warmup_peak_bytes
+            record["graph"] = _replays(graphed, (ct, scheme, job.params, mesh, *extra), job.reps, device)
+            del graphed  # its pool goes before the next capture's
+            if record["graph"]["whole"]:
+                by_segment, _, _ = _timed(lambda: capture_sharded(
+                    program, ct, scheme, job.params, mesh, *extra, by_segment=True), 1, device)
+                got = by_segment(ct, scheme, job.params, mesh, *extra)
+                record["graph"]["by_segment"] = {"b": got.b, "a": got.a, **_graph_record(by_segment)}
+                del by_segment
+        record.update({
+            "b": first.b, "a": first.a, "launches": launches, "ms": ms,
             "key_bytes": _bytes(scheme) + (0 if keys is None else _bytes(keys)),
             "loaded_bytes": sum(_bytes(loaded(own(path, mesh))) for path in (job.scheme, job.phase1_keys, job.ct)
                                 if path is not None),
             "host_rss_bytes": max(rss, _host_rss_bytes()),
-            "device_peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0,
+            "device_peak_bytes": max(peak, torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0,
             "jax": "jax" in sys.modules, "mktfhe_tpu": "mktfhe_tpu" in sys.modules,
         })
+        out.append(record)
         del scheme, keys
+        later = {path for j in jobs[index + 1 :] for path in _files(j)}
+        for path in [path for path in files if path not in later]:  # read by no later job
+            del files[path]
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
     return out
 
 
 def main(argv=None) -> int:
     """Keygen on the card for a KMS preset, one bootstrap of a NAND batch in
     this process, and the same batch through `kms_bootstrap_shardmap` in
-    `--world` ranks on a (world, 1) mesh: the outputs must agree bit for bit."""
+    `--world` ranks on a (world, 1) mesh, eagerly and replayed from the
+    rank's captured graphs: the outputs must agree bit for bit."""
     from ..schemes import kms
     from ..schemes.gates import GATE_IDS, gate_affine, lwe_ith_encrypt_bit
     from ..schemes.presets import ALL_PRESETS
@@ -271,13 +343,16 @@ def main(argv=None) -> int:
         paths = [os.path.join(tmp, f"{name}.npz") for name in ("scheme", "ct")]
         save(paths[0], scheme)
         save(paths[1], ct)
-        job = Job("shardmap", params, *paths, mesh=(args.world, 1))
+        job = Job("shardmap", params, *paths, mesh=(args.world, 1), graphed=True)
         ranks = run_ranks(bootstrap_jobs, args.world, args.backend, ([job],), args.device)
     for rank, (res,) in enumerate(ranks):
-        same = np.array_equal(res["b"], to_numpy(want.b)) and np.array_equal(res["a"], to_numpy(want.a))
-        print(f"rank {rank}: {'==' if same else '!='} kms.bootstrap; one cold bootstrap {res['ms']:.1f} ms, "
-              f"launches {res['launches']}")
-        if not same:
+        graph = res["graph"]
+        same = all(np.array_equal(out["b"], to_numpy(want.b)) and np.array_equal(out["a"], to_numpy(want.a))
+                   for out in (res, graph))
+        print(f"rank {rank}: eager and graphed {'==' if same else '!='} kms.bootstrap; one cold bootstrap "
+              f"{res['ms']:.1f} ms, a replay {graph['ms']:.1f} ms ({graph['segments']} graphs, {graph['nodes']} "
+              f"nodes), launches {res['launches']} eager, {graph['launches']} a replay")
+        if not same or graph["launches"] != res["launches"]:
             return 1
     print("OK")
     return 0

@@ -97,18 +97,42 @@ def shard_scheme(obj, mesh: DeviceMesh, shard_phase2: bool = False):
     return party_share(obj, pidx, n_party, shard_phase2)
 
 
-def all_gather(x: torch.Tensor, mesh: DeviceMesh, name: str, dim: int = 0) -> torch.Tensor:
-    """x of every rank along mesh axis `name`, concatenated along `dim` in
-    the axis' order (the list form of `dist.all_gather`; every rank's x has
-    the same shape).  Gloo takes CUDA tensors itself, staging them through
-    host memory; the compute stays on the card."""
-    _, size = axis(mesh, name)
-    if size == 1:
-        return x
+def _issued(mesh: DeviceMesh, name: str) -> bool:
+    """Whether a collective over mesh axis `name` is issued: not where the
+    mesh has no such axis, nor over one rank of gloo (its collectives stage
+    through the host: a one-rank one is a round trip for nothing); over one
+    rank of NCCL it is, a copy on the card, so that a one-card run holds the
+    collectives a run across cards makes, in its CUDA graph too."""
+    if name not in mesh.mesh_dim_names:
+        return False
+    return axis(mesh, name)[1] > 1 or dist.get_backend(mesh.get_group(name)) == "nccl"
+
+
+def gather(x: torch.Tensor, mesh: DeviceMesh, name: str, out: torch.Tensor | None = None) -> torch.Tensor:
+    """x of every rank along mesh axis `name`, stacked in the axis' order:
+    [size, *x.shape] (every rank's x has x's shape).  Written into `out` if
+    given (what a CUDA graph's replay reads), else into a new tensor;
+    NCCL: `all_gather_into_tensor`; gloo: the list form, which takes CUDA
+    tensors itself, staging them through host memory (the compute stays on
+    the card).  Where no collective is issued (`_issued`), a view of x."""
+    if not _issued(mesh, name):
+        return x.unsqueeze(0)
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(size)]
-    dist.all_gather(parts, x, group=mesh.get_group(name))
-    return torch.cat(parts, dim)
+    if out is None:
+        out = x.new_empty((axis(mesh, name)[1], *x.shape))
+    group = mesh.get_group(name)
+    if dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(out, x, group=group)
+    else:
+        dist.all_gather(list(out.unbind(0)), x, group=group)
+    return out
+
+
+def all_reduce(x: torch.Tensor, mesh: DeviceMesh, name: str) -> torch.Tensor:
+    """x summed over mesh axis `name`, in place; returns x."""
+    if _issued(mesh, name):
+        dist.all_reduce(x, group=mesh.get_group(name))
+    return x
 
 
 def kms_bootstrap_sharded(ct: Lwe, scheme: KmsScheme, params, mesh: DeviceMesh) -> Lwe:
@@ -117,8 +141,8 @@ def kms_bootstrap_sharded(ct: Lwe, scheme: KmsScheme, params, mesh: DeviceMesh) 
     (the reference engine, on `scheme.brk_hat`), phase 2 and the key switch
     on the batch axis, replicated along the party axis.  PyTorch has no
     partitioner, so this is `kms_bootstrap_shardmap`'s program with the
-    phase-2 gate split turned off.  ct: the whole batch on every rank; every
-    rank returns the whole Lwe."""
-    from .shardmap import bootstrap_program  # shardmap imports this module
+    phase-2 gate split turned off (`shardmap.sharded_program`).  ct: the
+    whole batch on every rank; every rank returns the whole Lwe."""
+    from .shardmap import run_program, sharded_program  # shardmap imports this module
 
-    return bootstrap_program(ct, scheme, params, mesh, None, split_gates=False, shard_phase2=False)
+    return run_program(sharded_program(scheme, params, mesh), ct)

@@ -30,7 +30,6 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.gsw import rlwe_decomp_hat
@@ -43,6 +42,7 @@ from ..ring.modring import addmod, mulsum_mod, negmod, prime_column
 from ..ring.ntt import fwd_ntt
 from ..ring.sampler import rng_streams
 from ..ring.torus import lift, negacyclic_roll
+from ..utils.profiling import phase_range
 from .common import build_ksk, initial_acc, inv_to_torus, keyswitch_per_party, mod_switch_2n
 from .params import CcsParams
 
@@ -153,12 +153,12 @@ def bootstrap(ct: Lwe, scheme: CcsScheme, params: CcsParams) -> Lwe:
     switch, initial accumulator, k parties' rotations, per-party key
     switch."""
     ctx = _ctx(params)
-    with record_function("mktfhe/mod_switch"):
+    with phase_range("mktfhe/mod_switch"):
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    with record_function("mktfhe/rotate"):
+    with phase_range("mktfhe/rotate"):
         acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
         tild = tildea.reshape(tildea.shape[0], params.k, params.n)
         for p1 in range(1, params.k + 1):
             _hybrid_rotate_party(acc, tild[:, p1 - 1], p1, scheme, params, ctx)
-    with record_function("mktfhe/keyswitch"):
+    with phase_range("mktfhe/keyswitch"):
         return keyswitch_per_party(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

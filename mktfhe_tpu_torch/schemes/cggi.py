@@ -18,7 +18,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch.profiler import record_function
 
 from ..ciphertext.gsw import external_product_hat, rgsw_encrypt, rgsw_to_hat, rlwe_decomp_hat
 from ..ciphertext.keys import LweKey, RingKey, binary_lwe_key, binary_ring_key
@@ -27,6 +26,7 @@ from ..kernels.ntt import fwd_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
 from ..ring.sampler import rng_streams
 from ..ring.torus import negacyclic_roll
+from ..utils.profiling import phase_range
 from .common import build_ksk, initial_acc, inv_to_torus, keyswitch_table, mod_switch_2n
 from .params import CggiParams
 
@@ -83,10 +83,10 @@ def bootstrap(ct: Lwe, scheme: CggiScheme, params: CggiParams) -> Lwe:
     """Gate bootstrap of a batch of LWE ciphertexts.  ct: Lwe with b [G],
     a [G, n]."""
     ctx = _ctx(params)
-    with record_function("mktfhe/mod_switch"):
+    with phase_range("mktfhe/mod_switch"):
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    with record_function("mktfhe/rotate"):
+    with phase_range("mktfhe/rotate"):
         acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
         acc = blind_rotate(acc, tildea, scheme, params, ctx)
-    with record_function("mktfhe/keyswitch"):
+    with phase_range("mktfhe/keyswitch"):
         return keyswitch_table(acc, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

@@ -37,7 +37,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ciphertext.decomp import balanced_decomp
 from ..ciphertext.gsw import rgsw_encrypt, rlwe_decomp_hat
@@ -56,6 +55,7 @@ from ..ring.modring import addmod, mulsum_mod, prime_column
 from ..ring.sampler import rng_streams
 from ..ring.ntt import fwd_ntt
 from ..ring.torus import lift, wrap_i32
+from ..utils.profiling import phase_range
 from .common import (
     build_ksk,
     initial_acc,
@@ -229,7 +229,7 @@ def levkey_lift(acc: torch.Tensor, ctx: RingCtx) -> torch.Tensor:
     into `ctx`'s primes and forward-transformed by the NTT kernel,
     [G, rows, 2, npr, N] int32 (the named range mktfhe/levkey_lift).  Every
     phase-1 engine ends with it."""
-    with record_function("mktfhe/levkey_lift"):
+    with phase_range("mktfhe/levkey_lift"):
         return fwd_ntt_nat(lift(acc, ctx.crt), ctx.plan)
 
 
@@ -331,7 +331,7 @@ def _phase2(tildeb: torch.Tensor, levkeys: list[torch.Tensor], scheme: KmsScheme
     is party i+1's lev key [G, rows, 2, npr, N].  Returns acc [G, k+1, N]."""
     acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
     for p1 in range(1, params.k + 1):
-        with record_function(f"mktfhe/phase2/merge{p1}"):
+        with phase_range(f"mktfhe/phase2/merge{p1}"):
             acc = _phase2_party(acc, levkeys[p1 - 1], p1, scheme, params, ctx)
     return acc
 
@@ -365,7 +365,7 @@ def _levkeys(tildea: torch.Tensor, engine: str, scheme: KmsScheme, params: AnyKm
     tild = tildea.reshape(tildea.shape[0], params.k, params.n)
     levkeys = []
     for party in range(params.k):
-        with record_function(f"mktfhe/phase1/party{party}"):
+        with phase_range(f"mktfhe/phase1/party{party}"):
             rows = 1 if party == 0 else params.l_lev
             levkeys.append(phase1_levkey(engine, party, tild[:, party].contiguous(), rows, scheme, params, ctx,
                                          phase1_keys))
@@ -433,10 +433,10 @@ def bootstrap_with_phase1(ct: Lwe, scheme: KmsScheme, params: AnyKmsParams, engi
     """The gate bootstrap around a phase-1 engine (`phase1_levkey`): modulus
     switch, phase 1 per party, phase 2, key switch."""
     ctx = _ctx(params)
-    with record_function("mktfhe/mod_switch"):
+    with phase_range("mktfhe/mod_switch"):
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
     acc = _phase2(tildeb, _levkeys(tildea, engine, scheme, params, ctx, phase1_keys), scheme, params, ctx)
-    with record_function("mktfhe/keyswitch"):
+    with phase_range("mktfhe/keyswitch"):
         return _keyswitch(acc, scheme, params)
 
 

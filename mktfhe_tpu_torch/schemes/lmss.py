@@ -24,7 +24,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-from torch.profiler import record_function
 
 from ..ciphertext.gsw import external_product_hat, rgsw_encrypt, rgsw_to_hat, rlwe_decomp_hat
 from ..ciphertext.keys import LweKey, RingKey, block_binary_lwe_key, partial_ring_key
@@ -33,6 +32,7 @@ from ..kernels.ntt import fwd_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
 from ..ring.modring import mulsum_mod, prime_column
 from ..ring.sampler import rng_streams
+from ..utils.profiling import phase_range
 from .common import build_ksk, initial_acc, inv_to_torus, keyswitch_partial, mod_switch_2n
 from .kms import monomial_table
 from .params import BlockParams
@@ -104,10 +104,10 @@ def bootstrap(ct: Lwe, scheme: LmssScheme, params: BlockParams) -> Lwe:
     a [G, n]: modulus switch, initial accumulator, blind rotation, partial
     key switch."""
     ctx = _ctx(params)
-    with record_function("mktfhe/mod_switch"):
+    with phase_range("mktfhe/mod_switch"):
         tildeb, tildea = mod_switch_2n(ct, params.big_n)
-    with record_function("mktfhe/rotate"):
+    with phase_range("mktfhe/rotate"):
         acc = initial_acc(tildeb, params.big_n, params.k, ctx.dtype)
         acc = blind_rotate(acc, tildea, scheme, params, ctx)
-    with record_function("mktfhe/keyswitch"):
+    with phase_range("mktfhe/keyswitch"):
         return keyswitch_partial(acc, params.n, scheme.ksk_b, scheme.ksk_a, params.f, params.log_d)

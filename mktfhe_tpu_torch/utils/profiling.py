@@ -1,11 +1,14 @@
-"""Profiling: a torch.profiler trace with named phase ranges, the device
-time of each range, and the static cost model of a bootstrap.
+"""Profiling: named phase ranges, the device time of each range (from CUDA
+events at the ranges' edges, or from a torch.profiler trace), and the
+static cost model of a bootstrap.
 
 Port of mktfhe_tpu/utils/profiling.py.
 
-Named ranges.  The bootstraps mark their phases with
-`torch.profiler.record_function` ranges, host-side only (no
-synchronisation, no device work, nothing per CMux step):
+Named ranges.  The bootstraps mark their phases with `phase_range`: a
+`torch.profiler.record_function` range, host-side only (no
+synchronisation, no device work, nothing per CMux step), and, while an
+`event_ranges` recorder is active, a pair of CUDA events on the current
+stream at its edges:
 
   mktfhe/mod_switch           modulus switch of the input to Z_2N
   mktfhe/phase1/party{i}      KMS phase 1 of party i (0-based)
@@ -14,8 +17,15 @@ synchronisation, no device work, nothing per CMux step):
   mktfhe/rotate               the blind rotation of CGGI, LMSS and CCS
   mktfhe/keyswitch            modulus switch to 2^32 (KMS) and key switch
 
-`phase_device_ms` charges each device kernel to the innermost range that
-was open on the host when the kernel was launched.
+`event_ranges` gives each range's device time between its edges, less the
+ranges opened inside it, after one synchronisation at its end.  The time
+between two events holds the gaps where the card idled too, so its sum
+equals the bootstrap's device time only on a path the host does not hold
+back.  No events are recorded while a CUDA graph is captured (they would
+become nodes of the graph) or where there is no card.
+
+`phase_device_ms` charges each device kernel of a torch.profiler trace to
+the innermost range that was open on the host when the kernel was launched.
 """
 
 from __future__ import annotations
@@ -27,9 +37,89 @@ import os
 import tempfile
 
 import torch
+from torch.profiler import record_function
 
 PREFIX = "mktfhe/"
 OUTSIDE = "(outside every range)"
+
+
+class _Recorder:
+    """The CUDA events of the ranges opened while `event_ranges` is active:
+    per range its name, its edges and the range it was opened in."""
+
+    def __init__(self):
+        self.ranges = []  # [name, start event, end event, index of the enclosing range or None]
+        self.open = []  # indices of the ranges open now, innermost last
+
+    def enter(self, name: str) -> None:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.ranges.append([name, start, None, self.open[-1] if self.open else None])
+        self.open.append(len(self.ranges) - 1)
+
+    def exit(self) -> None:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.ranges[self.open.pop()][2] = end
+
+    def exclusive_ms(self) -> dict[str, float]:
+        """ms by name of each range less the ranges opened inside it, names
+        in order of first opening (the events must have completed)."""
+        own = [start.elapsed_time(end) for _, start, end, _ in self.ranges]
+        excl = list(own)
+        for i, (_, _, _, parent) in enumerate(self.ranges):
+            if parent is not None:
+                excl[parent] -= own[i]
+        out = {}
+        for (name, *_), ms in zip(self.ranges, excl):
+            out[name] = out.get(name, 0.0) + ms
+        return out
+
+
+_recorder: _Recorder | None = None  # the active `event_ranges`, read by every `phase_range`
+
+
+@contextlib.contextmanager
+def phase_range(name: str):
+    """A named phase range around the block: a `record_function` range, and
+    while `event_ranges` is active a CUDA event on the current stream at
+    each edge (none while the stream is being captured into a CUDA graph)."""
+    with record_function(name):
+        rec = _recorder
+        if rec is None or torch.cuda.is_current_stream_capturing():
+            yield
+            return
+        rec.enter(name)
+        try:
+            yield
+        finally:
+            rec.exit()
+
+
+@contextlib.contextmanager
+def event_ranges():
+    """Time the named ranges opened in the block by CUDA events: yields a
+    dict that holds, after the block, the ms of each range name between its
+    edges, less the ranges opened inside it (so the values add up to the
+    time inside the outermost ranges), after one synchronisation.  Where
+    there is no card it records nothing and the dict stays empty.  Does not
+    nest."""
+    global _recorder
+    ms = {}
+    if not torch.cuda.is_available():
+        yield ms
+        return
+    if _recorder is not None:
+        raise RuntimeError("event_ranges is active already")
+    rec = _recorder = _Recorder()
+    try:
+        yield ms
+    finally:
+        _recorder = None
+    if rec.open:
+        raise RuntimeError(f"ranges still open at the end of event_ranges: {[rec.ranges[i][0] for i in rec.open]}")
+    torch.cuda.synchronize()
+    ms.update(rec.exclusive_ms())
 
 
 @contextlib.contextmanager

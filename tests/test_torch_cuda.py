@@ -13,11 +13,18 @@ not), step ranges and batch sizes; bit-exact (tolerance 0), plus the
 wrappers' contracts on CUDA tensors and each dispatcher's instance as ptxas
 built it.  Then LMSS, CCS, `utils.load`, `utils.noise` and the sharded
 bootstrap in two gloo ranks sharing the card, each against the CPU at the
-tiny sets.  Last, every engine's bootstrap captured as a CUDA graph
+tiny sets.  Then every engine's bootstrap captured as a CUDA graph
 (graphs.py) at a tiny set: graph == eager bit for bit, over a dependent
 chain too; the launch counts of replays == the eager call's; no
 synchronizing call in an eager bootstrap (`set_sync_debug_mode("error")`);
-the graph's refusals on the card.  Skips where there is no
+the graph's refusals on the card.  Then the block sweep and the CGGI step at
+rotation amounts outside [0, 2N) (== their plain versions at the amounts
+mod 2N); the sharded bootstrap captured (`graphs.capture_sharded`) in one
+NCCL rank (one graph, collectives included, replayed with no sync) and in
+two gloo ranks (a graph a segment): graph == eager == `kms.bootstrap`,
+launches equal; and the named ranges timed by CUDA events
+(`profiling.event_ranges`): they add up to the bootstrap's event time, and
+a capture records none.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -849,3 +856,165 @@ def test_graph_keeps_its_keys_alive(device, name):
     filler = [torch.full((1 << 20,), -1, dtype=torch.int64, device=device) for _ in range(8)]
     assert _same(graphed(ct, graphed.scheme, *graphed.extra, params), want)
     del filler
+
+
+# --- rotation amounts outside [0, 2N) ----------------------------------------
+
+
+def _outside(n: int, g: int, steps: int, device) -> torch.Tensor:
+    """[g, steps] int32 rotation amounts: 2N, 2N + 5, 4N - 1, -1, -2N and
+    both ends of int32 first, random int32 ones after them."""
+    odd = [2 * n, 2 * n + 5, 4 * n - 1, -1, -2 * n, -(1 << 31), -(1 << 31) + 7, (1 << 31) - 1, (1 << 31) - 5]
+    gen = torch.Generator(device=device).manual_seed(n + g)
+    ta = torch.randint(-(1 << 31), (1 << 31) - 1, (g, steps), generator=gen, device=device, dtype=torch.int32)
+    ta.view(-1)[: len(odd)] = torch.tensor(odd, dtype=torch.int32, device=device)
+    return ta
+
+
+def _mod_2n(ta: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.remainder(ta.long(), 2 * n).to(torch.int32)
+
+
+@pytest.mark.parametrize("shape", [(64, 3, 3, 2, 3, 8, 4), (2048, 4, 3, 3, 4, 9, 4), (2048, 3, 1, 3, 4, 9, 4)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_sweep_kernel_takes_amounts_mod_2n(device, shape):
+    """The sweep's private form (the bootstrap steps', which skips the range
+    read) at amounts outside [0, 2N) == the plain version at the amounts
+    mod 2N: block keys index the 2N monomial images with the reduced
+    amount, binary keys roll by it."""
+    n, npr, ell, rows, l, log_b, g = shape
+    params, ctx, _, brk, mono, acc0 = _sweep_inputs(*shape, device)
+    ta = _outside(n, g, params.n, device)
+    got = fused_mx3._sweep(ta, brk, rows, mono, params, ctx, acc0)
+    assert torch.equal(got, fused_mx3.phase1_sweep_plain(_mod_2n(ta, n), brk, rows, mono, params, ctx, acc0=acc0))
+
+
+@pytest.mark.parametrize("shape", [(64, 2, 3, 9, 4, 4), (1024, 2, 3, 9, 4, 4)], ids=lambda c: "-".join(map(str, c)))
+def test_step_kernel_takes_amounts_mod_2n(device, shape):
+    """All steps of the CGGI step kernel in one launch (the form
+    `bootstrap_fused` calls) at amounts outside [0, 2N) == the plain steps
+    at the amounts mod 2N."""
+    n, npr, l, log_b, steps, g = shape
+    params, ctx, _, brk, mono, acc = _step_inputs(n, npr, l, log_b, steps, g, device)
+    ta = _outside(n, g, steps, device)
+    got = fused_step._steps(acc, ta, brk, mono, params, ctx)
+    want = acc
+    for i in range(steps):
+        want = fused_step.cggi_step_plain(want, brk[i], _mod_2n(ta, n)[:, i], mono, params, ctx)
+    assert torch.equal(got, want)
+
+
+# --- the sharded bootstrap as CUDA graphs -------------------------------------
+
+
+def _same_numpy(res: dict, want: Lwe) -> bool:
+    return (res["b"] == bridge.to_numpy(want.b)).all() and (res["a"] == bridge.to_numpy(want.a)).all()
+
+
+def test_shard_graph_one_nccl_rank(device, tmp_path):
+    """One NCCL rank, mesh (1, 1): the whole program one graph, its one-rank
+    collectives in it (more nodes than the same program's segments'
+    graphs), replayed with no sync (the rank runs the replays under
+    set_sync_debug_mode("error")); eager == graph == by segment ==
+    `kms.bootstrap`, a replay's launches == eager."""
+    params, lwe_keys, scheme, ct, clear = _tiny_kms(53)
+    paths = [str(tmp_path / f) for f in ("scheme.npz", "ct.npz")]
+    save(paths[0], scheme)
+    save(paths[1], ct)
+    job = Job("ref", params, *paths, mesh=(1, 1), reps=2, graphed=True)
+    ((res,),) = run_ranks(bootstrap_jobs, 1, "nccl", ([job],), "cuda")
+    want = kms.bootstrap(ct, scheme, params)
+    graph = res["graph"]
+    assert graph["whole"] and graph["segments"] == 1 and graph["nodes"] > graph["by_segment"]["nodes"] > 0
+    assert all(_same_numpy(out, want) for out in (res, graph, graph["by_segment"]))
+    assert graph["launches"] == res["launches"] and res["launches"]["fwd"] > 0
+    assert gates.lwe_decrypt_bit_mk(want, lwe_keys).tolist() == clear.tolist()
+
+
+@pytest.mark.parametrize("shard_phase2", [False, True], ids=["replicated", "shard_phase2"])
+def test_shard_graph_two_gloo_ranks(device, tmp_path, shard_phase2):
+    """Two gloo ranks sharing cuda:0, mesh (party 2, batch 1): a graph a
+    segment, the collectives eager between the replays; eager == graph ==
+    `kms.bootstrap` on both ranks, a replay's launches == eager."""
+    params, _, scheme, ct, _ = _tiny_kms(59)
+    paths = [str(tmp_path / f) for f in ("scheme.npz", "ct.npz")]
+    save(paths[0], scheme)
+    save(paths[1], ct)
+    job = Job("ref", params, *paths, mesh=(2, 1), shard_phase2=shard_phase2, reps=2, graphed=True)
+    ranks = run_ranks(bootstrap_jobs, 2, "gloo", ([job],), "cuda")
+    want = kms.bootstrap(ct, scheme, params)
+    for (res,) in ranks:
+        graph = res["graph"]
+        assert not graph["whole"] and graph["segments"] >= 2 and "by_segment" not in graph
+        assert _same_numpy(res, want) and _same_numpy(graph, want)
+        assert graph["launches"] == res["launches"] and res["launches"]["fwd"] > 0
+
+
+# --- the named ranges timed by CUDA events ------------------------------------
+
+from mktfhe_tpu_torch.utils import profiling  # noqa: E402
+
+
+def _event_split(bootstrap):
+    """bootstrap() with its named ranges timed by CUDA events: (its
+    output, ms by range, the bootstrap's event ms from end to end)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profiling.event_ranges() as ms:
+        start.record()
+        out = bootstrap()
+        end.record()
+    return out, ms, start.elapsed_time(end)
+
+
+@pytest.mark.parametrize("name", ["fused_mx3.bootstrap_mx3", "kms.bootstrap", "cggi.bootstrap"])
+def test_event_ranges_name_the_profilers_ranges(device, name, tmp_path):
+    """At a tiny set: the ranges timed by CUDA events are the profiler's,
+    in order of first opening, and lie inside the bootstrap (a tiny
+    bootstrap waits on the host, which spends a tenth of its time outside
+    the ranges: the sum is held from below at a device-bound one)."""
+    case = engine_case(name, device)
+    want = run(case)
+    got, ms, total = _event_split(lambda: run(case))
+    assert _same(got, want)
+    assert all(v >= 0 for v in ms.values()) and 0 < sum(ms.values()) <= 1.02 * total, (ms, total)
+    with profiling.trace(str(tmp_path)) as prof:
+        run(case)
+    names = [n for _, n in sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                                  if e.is_user_annotation() and e.name().startswith(profiling.PREFIX))]
+    assert list(ms) == list(dict.fromkeys(names))
+
+
+def test_event_ranges_add_up_to_a_device_bound_bootstrap(device):
+    """`bootstrap_mx3` at KMS2partyblock, batch 128 (its sweeps keep the
+    card busy): the ranges' event ms add up to 0.90-1.02 of the
+    bootstrap's, phase 1 is most of them, and the bits are the untimed
+    bootstrap's."""
+    params = presets.KMS_2PARTY_BLOCK
+    gen = torch.Generator(device=device).manual_seed(61)
+    a = kms.crs(gen, params)
+    parties = [kms.party_keygen(gen, a, params) for _ in range(params.k)]
+    scheme = kms.setup(a, [p[3] for p in parties], params)
+    m1, m2 = (torch.randint(0, 2, (128,), generator=gen, device=device).bool() for _ in range(2))
+    ct = gates.gate_affine(gates.GATE_IDS["NAND"], *(
+        gates.lwe_ith_encrypt_bit(gen, m, i, parties[i][0], params.alpha, params.k, (128,))
+        for i, m in enumerate((m1, m2))))
+    want = fused_mx3.bootstrap_mx3(ct, scheme, params)
+    got, ms, total = _event_split(lambda: fused_mx3.bootstrap_mx3(ct, scheme, params))
+    assert _same(got, want)
+    assert 0.90 <= sum(ms.values()) / total <= 1.02, (ms, total)
+    phase1 = sum(v for k, v in ms.items() if k.startswith("mktfhe/phase1/"))
+    assert phase1 > 0.5 * total, (ms, total)
+
+
+def test_event_ranges_skip_a_capture(device):
+    """A capture records no event (they would be nodes of the graph): under
+    `event_ranges` the capture's eager warm-up is timed, its replays add
+    no range."""
+    case = engine_case("fused_mx3.bootstrap_mx3", device)
+    with profiling.event_ranges() as warm:
+        graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"],
+                                           *case["extra"])
+    with profiling.event_ranges() as replay:
+        graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
+    assert warm and all(k.startswith(profiling.PREFIX) for k in warm) and replay == {}
