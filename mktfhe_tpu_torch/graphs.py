@@ -31,8 +31,18 @@ tensors.
 The kernel wrappers count launches when they are called; during a capture
 that launches nothing.  So `capture_bootstrap` takes back what the capture
 added to the counts, and each replay adds it again: the counts stay those
-of the kernels that ran.  The named phase ranges (utils/profiling.py) are
-host annotations and do not appear on a replay.
+of the kernels that ran.
+
+The named phase ranges (utils/profiling.py) are host annotations, which a
+replay does not open, and `event_ranges` records no event during a capture.
+`capture_bootstrap(..., ranges=True)` captures the bootstrap with an
+external recorder active instead: each range's edges become event-record
+nodes of the graph, every replay records them, and
+`GraphedBootstrap.range_ms()` reads the last replay's split by range name,
+as `event_ranges` reads an eager one's.  Without it the graph holds no
+event node.  A replay opens the host spans `mktfhe/graph/inputs`,
+`mktfhe/graph/launch` and `mktfhe/graph/outputs` (profiling.host_span)
+around its copies, its launch and its output's clones.
 
 `capture_sharded` does the same for a rank of the party-sharded bootstrap
 (parallel/shardmap.py), the counterpart of the JAX package's `jax.jit` over
@@ -58,6 +68,7 @@ import torch.distributed as dist
 from .ciphertext.lwe import Lwe
 from .kernels import fused_mx2, fused_mx3, fused_step
 from .kernels import ntt as kntt
+from .utils import profiling
 
 # the kernel wrappers whose `launches` (and, for the NTTs, `shapes`) count
 _COUNTED = (fused_mx3.phase1_sweep, fused_mx2.mx_sweep, fused_step.cggi_step,
@@ -177,11 +188,14 @@ class _Graphed:
         """ct copied into the static inputs, replay(), the launch counts
         added, and a fresh copy of the static output."""
         b_in, a_in = self.inputs
-        b_in.copy_(ct.b)
-        a_in.copy_(ct.a)
-        replay()
-        _add(self.change)
-        return Lwe(b=self.output.b.clone(), a=self.output.a.clone())
+        with profiling.host_span("mktfhe/graph/inputs"):
+            b_in.copy_(ct.b)
+            a_in.copy_(ct.a)
+        with profiling.host_span("mktfhe/graph/launch"):
+            replay()
+            _add(self.change)
+        with profiling.host_span("mktfhe/graph/outputs"):
+            return Lwe(b=self.output.b.clone(), a=self.output.a.clone())
 
     @contextlib.contextmanager
     def _capturing(self, example_ct: Lwe, warmup, side: torch.cuda.Stream):
@@ -231,15 +245,17 @@ def _side_stream(device) -> torch.cuda.Stream:
 @dataclasses.dataclass(eq=False, kw_only=True)
 class GraphedBootstrap(_Graphed):
     """`bootstrap(ct, scheme, *extra, params)` as one CUDA graph; called as
-    the eager function is.  `graph` is None on the CPU.  The numbers: those
-    of `_Graphed`; `launches` (each counted wrapper's launches a replay:
-    name -> count)."""
+    the eager function is.  `graph` is None on the CPU; `recorder` holds the
+    graph's range events (captured with ranges=True), else None.  The
+    numbers: those of `_Graphed`; `launches` (each counted wrapper's
+    launches a replay: name -> count)."""
 
     bootstrap: object
     scheme: object
     extra: tuple
     params: object
     graph: torch.cuda.CUDAGraph | None = None
+    recorder: profiling._Recorder | None = None
 
     def __call__(self, ct: Lwe, scheme, *rest) -> Lwe:
         self._refuse(ct, scheme, rest, (*self.extra, self.params))
@@ -247,14 +263,27 @@ class GraphedBootstrap(_Graphed):
             return self.bootstrap(ct, scheme, *rest)
         return self._replayed(ct, self.graph.replay)
 
+    def range_ms(self) -> dict[str, float]:
+        """The last replay's device ms by range name, each range less the
+        ranges opened inside it, once its last event is complete; called
+        after a replay.  Empty where the graph holds no ranges (captured
+        without them, or on the CPU)."""
+        rec = self.recorder
+        if rec is None or rec.last is None:
+            return {}
+        rec.last.synchronize()
+        return rec.exclusive_ms()
 
-def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra) -> GraphedBootstrap:
+
+def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra, ranges: bool = False) -> GraphedBootstrap:
     """`bootstrap(ct, scheme, *extra, params)` for ciphertexts shaped as
     `example_ct`, captured into one CUDA graph after one eager warm-up call
     (which builds the kernels and their constant tables), on a side stream,
     into the graph's own memory pool (the device's peak-memory statistics
-    are reset to measure it).  On a CPU ciphertext: no graph, the eager
-    function behind the same refusals."""
+    are reset to measure it).  ranges: the capture (not the warm-up) runs
+    with an external recorder active, so the graph holds a timing-event
+    pair at the edges of every named range (`range_ms`).  On a CPU
+    ciphertext: no graph, the eager function behind the same refusals."""
     device = example_ct.b.device
     graphed = GraphedBootstrap(
         bootstrap=bootstrap, scheme=scheme, extra=tuple(extra), params=params,
@@ -270,9 +299,12 @@ def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra) -> Gra
         with graphed._capturing(example_ct, lambda: bootstrap(example_ct, scheme, *extra, params), side) as (
                 graphs, pool):
             graph = torch.cuda.CUDAGraph(keep_graph=True)
+            rec = profiling._Recorder(external=True) if ranges else None
             with torch.cuda.graph(graph, pool=pool, stream=side):
-                graphed.output = bootstrap(Lwe(*graphed.inputs), scheme, *extra, params)
+                with profiling.recording(rec) if ranges else contextlib.nullcontext():
+                    graphed.output = bootstrap(Lwe(*graphed.inputs), scheme, *extra, params)
             graphs.append(graph)
+            graphed.recorder = rec
         graphed.graph = graph
     return graphed
 

@@ -13,6 +13,7 @@ import torch
 from ..ciphertext.keys import LweKey
 from ..ciphertext.lwe import Lwe, lwe_sample, wrap_dot
 from ..ring.torus import bits_of, divbits, to_carrier
+from ..utils.profiling import host_span
 
 # opcode -> (constant in eighths of the torus, sign, scale)
 GATE_TABLE = {
@@ -106,8 +107,13 @@ def gate(op, ct1: Lwe, ct2: Lwe, bootstrap_fn) -> Lwe:
 
     op: gate name, opcode int, or per-gate [G] opcode tensor.
     bootstrap_fn: the scheme's bootstrap closure (e.g. cggi.bootstrap
-    partially applied with scheme and params).
+    partially applied with scheme and params).  Opens the host spans
+    `mktfhe/gate` around it all and `mktfhe/gate/affine` around the affine
+    (utils/profiling.py).
     """
     if isinstance(op, str):
         op = GATE_IDS[op]
-    return bootstrap_fn(gate_affine(op, ct1, ct2))
+    with host_span("mktfhe/gate"):
+        with host_span("mktfhe/gate/affine"):
+            ct = gate_affine(op, ct1, ct2)
+        return bootstrap_fn(ct)

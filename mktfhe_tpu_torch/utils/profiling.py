@@ -1,6 +1,7 @@
 """Profiling: named phase ranges, the device time of each range (from CUDA
-events at the ranges' edges, or from a torch.profiler trace), and the
-static cost model of a bootstrap.
+events at the ranges' edges, eager or inside a captured graph), host spans
+on the gate path, the device's idle gaps by the span open at their start,
+and the static cost model of a bootstrap.
 
 Port of mktfhe_tpu/utils/profiling.py.
 
@@ -21,11 +22,26 @@ stream at its edges:
 ranges opened inside it, after one synchronisation at its end.  The time
 between two events holds the gaps where the card idled too, so its sum
 equals the bootstrap's device time only on a path the host does not hold
-back.  No events are recorded while a CUDA graph is captured (they would
-become nodes of the graph) or where there is no card.
+back.  It records no event while a CUDA graph is captured, or where there
+is no card.  A graph captured with ranges (graphs.capture_bootstrap(...,
+ranges=True)) holds its ranges' events instead: an external recorder
+(`_Recorder(external=True)`) is active during the capture, its events
+become event-record nodes of the graph, and every replay records them
+anew.
 
-`phase_device_ms` charges each device kernel of a torch.profiler trace to
-the innermost range that was open on the host when the kernel was launched.
+Host spans.  `host_span` is a bare `record_function` range (no CUDA
+event) on the gate path, around what the host does between two
+bootstraps:
+
+  mktfhe/gate                 schemes.gates.gate: the affine, then the bootstrap
+  mktfhe/gate/affine          its affine combination
+  mktfhe/graph/inputs         a replay's copies into the graph's static inputs
+  mktfhe/graph/launch         the replay's launch and its launch counts
+  mktfhe/graph/outputs        the clones of the graph's static output
+
+Their timestamps are on the profiler's clock, the clock of a trace's
+device rows: `idle_by_span` charges each idle gap of the device to the
+innermost span open on the host when it began.
 """
 
 from __future__ import annotations
@@ -40,27 +56,32 @@ import torch
 from torch.profiler import record_function
 
 PREFIX = "mktfhe/"
-OUTSIDE = "(outside every range)"
+NO_SPAN = "host outside every span"
 
 
 class _Recorder:
-    """The CUDA events of the ranges opened while `event_ranges` is active:
-    per range its name, its edges and the range it was opened in."""
+    """The CUDA events of the ranges opened while the recorder is active:
+    per range its name, its edges and the range it was opened in.
+    `external`: events a graph's capture turns into event-record nodes,
+    which every replay records again."""
 
-    def __init__(self):
+    def __init__(self, external: bool = False):
+        self.external = external
         self.ranges = []  # [name, start event, end event, index of the enclosing range or None]
         self.open = []  # indices of the ranges open now, innermost last
+        self.last = None  # the end event recorded last
+
+    def _event(self) -> torch.cuda.Event:
+        event = torch.cuda.Event(enable_timing=True, external=self.external)
+        event.record()
+        return event
 
     def enter(self, name: str) -> None:
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        self.ranges.append([name, start, None, self.open[-1] if self.open else None])
+        self.ranges.append([name, self._event(), None, self.open[-1] if self.open else None])
         self.open.append(len(self.ranges) - 1)
 
     def exit(self) -> None:
-        end = torch.cuda.Event(enable_timing=True)
-        end.record()
-        self.ranges[self.open.pop()][2] = end
+        self.last = self.ranges[self.open.pop()][2] = self._event()
 
     def exclusive_ms(self) -> dict[str, float]:
         """ms by name of each range less the ranges opened inside it, names
@@ -76,17 +97,18 @@ class _Recorder:
         return out
 
 
-_recorder: _Recorder | None = None  # the active `event_ranges`, read by every `phase_range`
+_recorder: _Recorder | None = None  # the active recorder, read by every `phase_range`
 
 
 @contextlib.contextmanager
 def phase_range(name: str):
     """A named phase range around the block: a `record_function` range, and
-    while `event_ranges` is active a CUDA event on the current stream at
-    each edge (none while the stream is being captured into a CUDA graph)."""
+    while a recorder is active a CUDA event on the current stream at each
+    edge (while the stream is being captured into a CUDA graph, only an
+    external recorder's)."""
     with record_function(name):
         rec = _recorder
-        if rec is None or torch.cuda.is_current_stream_capturing():
+        if rec is None or (not rec.external and torch.cuda.is_current_stream_capturing()):
             yield
             return
         rec.enter(name)
@@ -97,6 +119,20 @@ def phase_range(name: str):
 
 
 @contextlib.contextmanager
+def recording(rec: _Recorder):
+    """`rec` the active recorder in the block, the one active before it
+    after."""
+    global _recorder
+    before, _recorder = _recorder, rec
+    try:
+        yield rec
+    finally:
+        _recorder = before
+    if rec.open:
+        raise RuntimeError(f"ranges still open at the end of the recording: {[rec.ranges[i][0] for i in rec.open]}")
+
+
+@contextlib.contextmanager
 def event_ranges():
     """Time the named ranges opened in the block by CUDA events: yields a
     dict that holds, after the block, the ms of each range name between its
@@ -104,22 +140,23 @@ def event_ranges():
     time inside the outermost ranges), after one synchronisation.  Where
     there is no card it records nothing and the dict stays empty.  Does not
     nest."""
-    global _recorder
     ms = {}
     if not torch.cuda.is_available():
         yield ms
         return
     if _recorder is not None:
         raise RuntimeError("event_ranges is active already")
-    rec = _recorder = _Recorder()
-    try:
+    with recording(_Recorder()) as rec:
         yield ms
-    finally:
-        _recorder = None
-    if rec.open:
-        raise RuntimeError(f"ranges still open at the end of event_ranges: {[rec.ranges[i][0] for i in rec.open]}")
     torch.cuda.synchronize()
     ms.update(rec.exclusive_ms())
+
+
+def host_span(name: str):
+    """A named span of host work on the gate path: a bare `record_function`
+    range, which records no CUDA event (so `event_ranges` does not see it)
+    and costs a few microseconds without a profiler."""
+    return record_function(name)
 
 
 @contextlib.contextmanager
@@ -140,47 +177,62 @@ def trace(logdir: str | None = None):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def attribute(ranges, launches, kernels) -> dict[str, float]:
-    """Charge device time to host ranges.  ranges: (start_ns, end_ns, name)
-    on the host; launches: {correlation id: host ns of the launch call};
-    kernels: (correlation id, device ns).  A kernel goes to the innermost
-    range open at its launch (the latest-opened one containing it), else to
-    OUTSIDE.  Returns ms by name, ranges in order of opening, OUTSIDE last."""
-    ranges = sorted(ranges)
-    out = {name: 0.0 for _, _, name in ranges}
-    out[OUTSIDE] = 0.0
-    for corr, ns in kernels:
-        at = launches.get(corr)
-        name = OUTSIDE
-        if at is not None:
-            for start, end, rname in ranges:
-                if start > at:
-                    break
-                if at <= end:
-                    name = rname
-        out[name] += ns / 1e6
+def charge_gaps(gaps, spans) -> dict[str, float]:
+    """Seconds of idle gaps by the host span open at each gap's start.
+    gaps: (start_ns, end_ns); spans: (start_ns, end_ns, name), on one
+    clock.  A gap goes to the innermost span open at its start (the
+    latest-opened one containing it), else to NO_SPAN; the values add up to
+    the gaps' total.  One pass over both in order of their starts."""
+    spans = sorted(spans, key=lambda span: (span[0], -span[1]))  # of two opened at once, the outer first
+    out, opened, i = {}, [], 0
+    for g0, g1 in sorted(gaps):
+        while i < len(spans) and spans[i][0] <= g0:
+            opened.append(spans[i])
+            i += 1
+        while opened and opened[-1][1] < g0:  # the spans above the innermost open one have closed
+            opened.pop()
+        name = opened[-1][2] if opened else NO_SPAN
+        out[name] = out.get(name, 0.0) + (g1 - g0) / 1e9
     return out
 
 
-def phase_device_ms(prof) -> dict[str, float]:
-    """Device ms of the kernels (and copies, fills) launched inside each
-    named range of a torch.profiler profile, read from the profiler's own
-    records (its operator tree is not built); `OUTSIDE` holds what was
-    launched outside every range.  A device kernel is tied to its launch
-    call on the host by the CUDA correlation id; the device rows of the
-    ranges themselves are not kernels and are skipped."""
-    cpu, device = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    ranges, launches, kernels = [], {}, []
+def idle_by_span(prof, prefixes=(PREFIX,), window: str | None = None) -> dict[str, float]:
+    """The device's idle seconds in a torch.profiler profile by the host
+    span open at the start of each gap (`charge_gaps`), over the spans
+    whose names start with one of `prefixes`.  The idle time is what lies
+    outside the union of the device rows (kernels, copies, fills; the
+    ranges' own device rows are skipped), from the first row to the last;
+    with `window`, the name of a host range (not itself a span), from that
+    range's start to its end, the rows clipped to it.  Empty without device
+    rows."""
+    cpu = torch.autograd.DeviceType.CPU
+    spans, rows, edges = [], [], None
     for e in prof.profiler.kineto_results.events():
         if e.is_user_annotation():
-            if e.device_type() == cpu and e.name().startswith(PREFIX):
-                ranges.append((e.start_ns(), e.end_ns(), e.name()))
-        elif e.device_type() == device:
-            if e.duration_ns() > 0:
-                kernels.append((e.correlation_id(), e.duration_ns()))
-        elif e.name().startswith("cu"):  # the CUDA API calls (cudaLaunchKernel, cuLaunchKernel, ...) that launch them
-            launches[e.correlation_id()] = e.start_ns()
-    return attribute(ranges, launches, kernels)
+            if e.device_type() != cpu:
+                continue
+            if e.name() == window:
+                edges = (e.start_ns(), e.end_ns())
+            elif e.name().startswith(tuple(prefixes)):
+                spans.append((e.start_ns(), e.end_ns(), e.name()))
+        elif e.device_type() != cpu and e.duration_ns() > 0:
+            rows.append((e.start_ns(), e.start_ns() + e.duration_ns()))
+    if window is not None:
+        if edges is None:
+            return {}
+        rows = [(max(s, edges[0]), min(e, edges[1])) for s, e in rows if e > edges[0] and s < edges[1]]
+    if not rows:
+        return {}
+    rows.sort()
+    start, end = (rows[0][0], rows[-1][1]) if edges is None else edges
+    gaps, cur = [], start
+    for s, e in rows:
+        if s > cur:
+            gaps.append((cur, s))
+        cur = max(cur, e)
+    if end > cur:
+        gaps.append((cur, end))
+    return charge_gaps(gaps, spans)
 
 
 def _digit_split(log_b: int) -> int:

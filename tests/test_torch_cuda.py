@@ -24,7 +24,11 @@ NCCL rank (one graph, collectives included, replayed with no sync) and in
 two gloo ranks (a graph a segment): graph == eager == `kms.bootstrap`,
 launches equal; and the named ranges timed by CUDA events
 (`profiling.event_ranges`): they add up to the bootstrap's event time, and
-a capture records none.  Skips where there is no
+a capture records none.  Then the ranges inside a graph captured with
+ranges=True: an external event pair times a B1 launch as eager events do,
+`range_ms()` names the eager ranges and adds up to the replay's event time,
+the bits are those of the graph without ranges, which holds no event node;
+and a replay's host spans.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -32,6 +36,7 @@ without the repository's conftest:
 """
 
 import dataclasses
+import statistics
 
 import pytest
 import torch
@@ -985,11 +990,9 @@ def test_event_ranges_name_the_profilers_ranges(device, name, tmp_path):
     assert list(ms) == list(dict.fromkeys(names))
 
 
-def test_event_ranges_add_up_to_a_device_bound_bootstrap(device):
-    """`bootstrap_mx3` at KMS2partyblock, batch 128 (its sweeps keep the
-    card busy): the ranges' event ms add up to 0.90-1.02 of the
-    bootstrap's, phase 1 is most of them, and the bits are the untimed
-    bootstrap's."""
+def _device_bound_case(device):
+    """`bootstrap_mx3`'s inputs at KMS2partyblock, batch 128 (its sweeps
+    keep the card busy): (ct, scheme, params)."""
     params = presets.KMS_2PARTY_BLOCK
     gen = torch.Generator(device=device).manual_seed(61)
     a = kms.crs(gen, params)
@@ -999,6 +1002,15 @@ def test_event_ranges_add_up_to_a_device_bound_bootstrap(device):
     ct = gates.gate_affine(gates.GATE_IDS["NAND"], *(
         gates.lwe_ith_encrypt_bit(gen, m, i, parties[i][0], params.alpha, params.k, (128,))
         for i, m in enumerate((m1, m2))))
+    return ct, scheme, params
+
+
+def test_event_ranges_add_up_to_a_device_bound_bootstrap(device):
+    """`bootstrap_mx3` at KMS2partyblock, batch 128 (its sweeps keep the
+    card busy): the ranges' event ms add up to 0.90-1.02 of the
+    bootstrap's, phase 1 is most of them, and the bits are the untimed
+    bootstrap's."""
+    ct, scheme, params = _device_bound_case(device)
     want = fused_mx3.bootstrap_mx3(ct, scheme, params)
     got, ms, total = _event_split(lambda: fused_mx3.bootstrap_mx3(ct, scheme, params))
     assert _same(got, want)
@@ -1018,3 +1030,122 @@ def test_event_ranges_skip_a_capture(device):
     with profiling.event_ranges() as replay:
         graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
     assert warm and all(k.startswith(profiling.PREFIX) for k in warm) and replay == {}
+
+
+# --- the named ranges inside a captured graph, the host spans of a replay ----
+
+
+def test_external_events_in_a_graph_time_a_launch_as_eager(device):
+    """An external timing-event pair captured around one B1 launch
+    ([8192, 4, 2048]) reads on replay, in the median of 20, within 10% of
+    that launch's eager event time (taken behind a device-side sleep, so
+    that the host's launch does not lie between the events); the replay
+    computes the eager bits."""
+    plan = make_plan(2048, 4)
+    x = _residues((8192,), 4, 2048, device, seed=8)
+    want = kntt.fwd_ntt_nat(x, plan)  # also makes the tables, once per device
+
+    def timed(start, end):
+        start.record()
+        out = kntt.fwd_ntt_nat(x, plan)
+        end.record()
+        return out
+
+    eager = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        timed(start, end)
+        torch.cuda.synchronize()
+        eager.append(start.elapsed_time(end))
+    graph = torch.cuda.CUDAGraph()
+    start, end = (torch.cuda.Event(enable_timing=True, external=True) for _ in range(2))
+    with torch.cuda.graph(graph):
+        got = timed(start, end)
+    replayed = []
+    for _ in range(20):
+        graph.replay()
+        end.synchronize()
+        replayed.append(start.elapsed_time(end))
+    assert torch.equal(got, want)
+    ratio = statistics.median(replayed) / statistics.median(eager)
+    assert 0.9 <= ratio <= 1.1, (replayed, eager)
+
+
+def test_graph_ranges_split_a_device_bound_replay(device):
+    """`bootstrap_mx3` at KMS2partyblock, batch 128, captured with ranges:
+    `range_ms()` names the eager ranges in the same order and adds up to
+    0.95-1.02 of the replay's event time; the graph holds two event nodes
+    a range more than the one without ranges, and both compute the eager
+    bits."""
+    ct, scheme, params = _device_bound_case(device)
+    bootstrap = fused_mx3.bootstrap_mx3
+    want, eager, _ = _event_split(lambda: bootstrap(ct, scheme, params))
+    plain = graphs.capture_bootstrap(bootstrap, scheme, params, ct)
+    graphed = graphs.capture_bootstrap(bootstrap, scheme, params, ct, ranges=True)
+    assert plain.recorder is None and plain.range_ms() == {}
+    assert graphed.nodes == plain.nodes + 2 * len(graphed.recorder.ranges)
+    for _ in range(2):
+        got, _, total = _event_split(lambda: graphed(ct, scheme, params))
+        ms = graphed.range_ms()
+        assert _same(got, want) and _same(plain(ct, scheme, params), want)
+        assert list(ms) == list(eager) and all(v >= 0 for v in ms.values())
+        assert 0.95 <= sum(ms.values()) / total <= 1.02, (ms, total)
+
+
+@pytest.mark.parametrize("name", ["fused_mx3.bootstrap_mx3", "kms.bootstrap", "cggi.bootstrap"])
+def test_graph_ranges_leave_the_bits(device, name):
+    """At a tiny set: the graph captured with ranges computes the bits of
+    the one captured without, over a dependent chain, and reads the eager
+    ranges' names in order after every replay."""
+    case = engine_case(name, device)
+    want = run(case)
+    _, eager, _ = _event_split(lambda: run(case))
+    args = (case["scheme"], *case["extra"], case["params"])
+    plain = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"],
+                                       *case["extra"], ranges=True)
+    nand = gates.GATE_IDS["NAND"]
+    x, y = case["ct"], case["ct"]
+    for _ in range(3):
+        x, y = graphed(x, *args), plain(y, *args)
+        assert _same(x, y) and list(graphed.range_ms()) == list(eager)
+        x, y = gates.gate_affine(nand, x, case["c2"]), gates.gate_affine(nand, y, case["c2"])
+    assert _same(graphed(case["ct"], *args), want)
+
+
+def test_graph_without_ranges_holds_no_event_node(device):
+    """A capture without ranges inside `event_ranges` has the node count of
+    one outside any recorder, and its replay records no range there."""
+    case = engine_case("fused_mx3.bootstrap_mx3", device)
+    args = (case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    outside = graphs.capture_bootstrap(*args)
+    with profiling.event_ranges() as warm:
+        inside = graphs.capture_bootstrap(*args)
+    assert warm and inside.nodes == outside.nodes and inside.recorder is None
+    with profiling.event_ranges() as replay:
+        inside(case["ct"], case["scheme"], *case["extra"], case["params"])
+    assert replay == {}
+
+
+def test_replay_opens_its_host_spans(device, tmp_path):
+    """Under the profiler a gate through a graph opens `mktfhe/gate`, its
+    affine's span, then the replay's three spans in order, all inside the
+    gate's; a graph with ranges opens no bootstrap range on the host."""
+    case = engine_case("fused_mx3.bootstrap_mx3", device)
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"],
+                                       *case["extra"], ranges=True)
+
+    def boot(ct):
+        return graphed(ct, case["scheme"], *case["extra"], case["params"])
+
+    with profiling.trace(str(tmp_path)) as prof:
+        gates.gate("NAND", case["ct"], case["c2"], boot)
+    spans = sorted(((e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                    if e.is_user_annotation() and e.device_type() == torch.autograd.DeviceType.CPU
+                    and e.name().startswith(profiling.PREFIX)), key=lambda span: (span[0], -span[1]))
+    assert [n for _, _, n in spans] == ["mktfhe/gate", "mktfhe/gate/affine", "mktfhe/graph/inputs",
+                                        "mktfhe/graph/launch", "mktfhe/graph/outputs"]
+    g0, g1 = spans[0][:2]
+    assert all(g0 <= s0 <= s1 <= g1 for s0, s1, _ in spans[1:])
+    assert all(spans[i][1] <= spans[i + 1][0] for i in range(1, 4))
