@@ -88,10 +88,11 @@ Phases, each printing one line; any failure exits non-zero:
      version at every shape `kms.bootstrap_bm` launches at KMS16party and
      KMS32party, each through its instance, timed against its bound;
  27. (run after 21, before 23) KMS32partyblock at full width, NAND batch 128:
-     the natural NTT kernel against its plain version at the largest shape the
-     path launches; keygen on the card; one party's sweep against its plain
+     the hybrid product kernel against its plain version at merge 32 (and at
+     KMS8partyblock's merge 8, batches 128 and 8), bit-exact, timed against
+     its bound; keygen on the card; one party's sweep against its plain
      version over all steps; a dependent chain of `bootstrap_mx3`, every link
-     decrypt-checked, launches held to the count phase 2's chunks give;
+     decrypt-checked, launches held to one hybrid product a merge;
      `kms.bootstrap` once on the same input, bit-identical; the named-range
      split of 32 merges by CUDA events, as in 25;
  28. KMS32party: both key images and the batch-minor image on the card; B2
@@ -187,6 +188,7 @@ import torch
 from mktfhe_tpu_torch import bridge, graphs
 from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import _build, batchminor, fused_mx2, fused_mx3, fused_step
+from mktfhe_tpu_torch.kernels import hybrid_product as khybrid
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.parallel.launch import Job, bootstrap_jobs, run_ranks
 from mktfhe_tpu_torch.parallel.mesh import party_share
@@ -761,11 +763,13 @@ def read_launches() -> dict:
         "inv_bm": kntt.inv_ntt_bm.launches,
         "step": fused_step.cggi_step.launches,
         "mx": fused_mx2.mx_sweep.launches,
+        "hybrid": khybrid.hybrid_product.launches,
     }
 
 
 def reset_launches() -> None:
     kntt.reset_launches()
+    khybrid.reset_launches()
     fused_mx3.reset_launches()
     fused_step.reset_launches()
     fused_mx2.reset_launches()
@@ -2000,6 +2004,67 @@ def nat_shapes_note(fwd: dict, inv: dict, runs: int) -> str:
     return "; ".join(parts)
 
 
+# phase 27a: the hybrid product kernel at the largest merge of each block
+# preset of the benchmark, at its batches (preset, name, merge p1, batch G)
+HYBRID_CHECKS = ((KMS_32PARTY_BLOCK, "KMS32partyblock", 32, BATCH), (KMS_8PARTY_BLOCK, "KMS8partyblock", 8, BATCH),
+                 (KMS_8PARTY_BLOCK, "KMS8partyblock", 8, 8))
+
+
+def hybrid_bound(params, ctx, g: int, p1: int) -> dict:
+    """Least time of merge p1's hybrid product at batch g on the card.
+    Bytes: y read, u and v written, the keys (rd, the crs and p1 - 1 public
+    keys) and the twiddles read once each.  Operations, per gate, prime and
+    component: l lifted digits a word, l forward transforms in lazy
+    butterflies with one canonical reduction a digit, 2 l product terms and
+    two Barrett reductions a word; beside it the same counted in canonical
+    radix-2 arithmetic (carry-chain digits, canonical butterflies)."""
+    n, npr, l = ctx.n, ctx.nprimes, params.l_uni
+    nbytes = g * p1 * n * 8 + g * (p1 + 1) * npr * n * 4 + (p1 + 1) * l * npr * n * 4 + 2 * npr * n * 4
+    butterflies = l * n // 2 * (n.bit_length() - 1)
+    common = l * n * 2 * OPS_PRODUCT_TERM + 2 * n * OPS_BARRETT
+    lazy = l * n * (OPS_LIFTED_DIGIT + OPS_CANONICAL) + butterflies * OPS_CT_LAZY + common
+    canonical = l * n * OPS_DIGIT + butterflies * OPS_BUTTERFLY + common
+    units = g * npr * p1
+    return {**_bound(nbytes, units * lazy),
+            "bound_ms_canonical_radix2": _bound(nbytes, units * canonical)["bound_ms"]}
+
+
+def check_hybrid(gen, device, params, name: str, p1: int, g: int, usage: list[str]) -> dict:
+    """The hybrid product kernel vs its plain version (`kms._hybrid_product`,
+    its digits through B1 in chunks of parties) at merge p1 of the preset,
+    batch g, on uniform inputs with the extreme torus words in the first
+    component: u and v equal, tolerance 0, in one launch; the kernel's time
+    against its bound (`hybrid_bound`)."""
+    ctx = kms._ctx(params)
+    n, npr, l = ctx.n, ctx.nprimes, params.l_uni
+    y = torch.randint(-(1 << 63), (1 << 63) - 1, (g, p1, n), generator=gen, device=device)
+    y[0, 0, :4] = torch.tensor([-1, -(1 << 63), (1 << 63) - 1, 0], device=device)
+    rd, crs = _residues(gen, (l, npr, n), device), _residues(gen, (l, npr, n), device)
+    pub = _residues(gen, ((p1 - 1) * l, npr, n), device).reshape(p1 - 1, l, npr, n)
+    args = (y, rd, pub, crs, params, ctx)
+    khybrid.reset_launches()
+    u, v = khybrid.hybrid_product(*args)
+    torch.cuda.synchronize()
+    if khybrid.hybrid_product.launches != 1:
+        raise SystemExit(f"{name} merge {p1}: the hybrid product took {khybrid.hybrid_product.launches} launches")
+    held = {}
+    plain_ms = _sync_ms(lambda: held.setdefault("uv", kms._hybrid_product(*args, prime_column(npr, device))), 1)
+    want_u, want_v = held.pop("uv")
+    err = max(_max_abs_diff(u, want_u), _max_abs_diff(v, want_v))
+    if err > TOLERANCE:
+        raise SystemExit(f"{name} merge {p1} at G={g}: the hybrid product kernel disagrees with its plain "
+                         f"version: max |diff| {err}")
+    del u, v, want_u, want_v
+    khybrid.hybrid_product(*args)  # warm
+    out = {"preset": name, "p1": p1, "g": g, "err": err, "plain_ms": plain_ms,
+           "ms": _sync_ms(lambda: khybrid.hybrid_product(*args), 10),
+           "instance": instance_note(khybrid.hybrid_kernel(params, ctx), usage, must_not_spill=True),
+           **hybrid_bound(params, ctx, g, p1)}
+    khybrid.reset_launches()
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_ntt_at(gen, device, shape, rate) -> dict:
     """The natural NTT kernel vs its plain version at one large shape [rows,
     npr, N], both ways, bit-exact; the kernel's time against its bound."""
@@ -2026,24 +2091,26 @@ def check_ntt_at(gen, device, shape, rate) -> dict:
 
 def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> list[dict]:
     """Phase 27: KMS32partyblock at full width (k = 32, d = 203, ell = 3, N =
-    2048, 3 primes), NAND batch 128: B1 at the largest shape the path
-    launches (the digits of merge 32's hybrid product) against its plain
-    version; keygen on the card; one party's B2 sweep against its plain
+    2048, 3 primes), NAND batch 128: the hybrid product kernel against its
+    plain version (`HYBRID_CHECKS`: merge 32 here, merge 8 of KMS8partyblock
+    at batches 128 and 8), timed against its bound; keygen on the card; one party's B2 sweep against its plain
     version over all steps; a dependent chain of PARTY_CHAIN `bootstrap_mx3`
     after the first, every link decrypt-checked; `kms.bootstrap` once on the
     first input, bit-identical; the named-range split; launches of B2 and of
-    B1 by shape.  Returns the B2 row of the kernels line."""
+    B1 by shape.  Returns the B2 and hybrid product rows of the kernels
+    line."""
     params = KMS_32PARTY_BLOCK
     ctx = kms._ctx(params)
-    big = (BATCH * params.k * params.l_uni, ctx.nprimes, ctx.n)
-    ntt = check_ntt_at(gen, device, big, rate)
-    print(
-        f"[27a ntt at k=32] natural NTT kernel vs plain version at {list(big)} ({big[0] * big[1] * big[2]:,} "
-        f"words, the digits of merge 32's hybrid product): bit-exact both ways (tolerance {TOLERANCE}); fwd "
-        f"{ntt['fwd_ms']:.3f} ms (bound {ntt['fwd_bound']['bound_ms']:.3f} by {ntt['fwd_bound']['bound_by']}), "
-        f"inv {ntt['inv_ms']:.3f} ms (bound {ntt['inv_bound']['bound_ms']:.3f} by {ntt['inv_bound']['bound_by']}) "
-        f"({smi})"
-    )
+    hybrid = [check_hybrid(gen, device, p, name, p1, g, usage["hybrid_product"]) for p, name, p1, g in HYBRID_CHECKS]
+    for h in hybrid:
+        print(
+            f"[27a hybrid product] {h['preset']} merge {h['p1']} at G={h['g']}: kernel vs plain version "
+            f"(kms._hybrid_product) on uniform inputs, u and v bit-exact (max |diff| {h['err']}, tolerance "
+            f"{TOLERANCE}), one launch; kernel {h['ms']:.4f} ms vs plain {h['plain_ms']:.2f} ms, bound "
+            f"{h['bound_ms']:.4f} ms by {h['bound_by']} in the kernel's arithmetic ({h['bound_ms'] / h['ms']:.1%} "
+            f"of it), {h['bound_ms_canonical_radix2']:.4f} ms counted in canonical radix-2 arithmetic; through "
+            f"{h['instance']} ({smi})"
+        )
     keys = party_keygen_lean(gen, params, with_brk=True, mx=False)
     print(f"[27 keygen] " + keygen_note("KMS32partyblock", params, keys) + f" ({smi})")
     scheme, lwe_keys = keys["scheme"], keys["lwe_keys"]
@@ -2068,17 +2135,17 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
     launches = read_launches()
     shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
     runs = 1 + PARTY_CHAIN
-    fwd, inv = merge_launches(params, BATCH)
-    want = {"sweep": runs * params.k, "fwd": runs * (params.k + fwd), "inv": runs * inv}
+    fwd, inv = merge_launches(params)
+    want = {"sweep": runs * params.k, "hybrid": runs * params.k, "fwd": runs * (params.k + fwd), "inv": runs * inv}
     if {k: launches[k] for k in want} != want:
         raise SystemExit(f"KMS32partyblock bootstrap_mx3: expected {want} launches in {runs} bootstraps (phase 2's "
-                         f"hybrid product in chunks of {kms.hybrid_chunk(BATCH, params, ctx)} parties), got {launches}")
+                         f"hybrid product one kernel a merge), got {launches}")
     dt = boot["batch_s"]
     print(
         f"[27c bootstrap_mx3] KMS32partyblock NAND batch {BATCH}: decrypt OK x{runs} (every link of the chain); "
         f"first {boot['first_s']:.2f} s; chain of {PARTY_CHAIN}: {dt * 1e3:.1f} ms/batch = {BATCH / dt:.2f} "
         f"boots/s; peak allocated {above / 1e9:.2f} GB above the held keys and inputs (phase 2's hybrid product "
-        f"in chunks of {kms.hybrid_chunk(BATCH, params, ctx)} parties, the key switch a party at a time); "
+        f"one kernel a merge, the key switch a party at a time); "
         f"launches in {runs} bootstraps: B2 {launches['sweep']} "
         f"({launches['sweep'] // runs} a bootstrap, every one through {served_by(params)}), B1 fwd "
         f"{launches['fwd']} inv {launches['inv']} ({smi})"
@@ -2117,7 +2184,13 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
                      launches["sweep"], max(sweep["err"], sweep["whole_err"], sweep1["err"]), sweep["ms"],
                      sweep["plain_ms"], sweep)
     row.update(preset="KMS32partyblock", launches_per_bootstrap=launches["sweep"] // runs)
-    return [row]
+    big = hybrid[0]
+    hybrid_row = kernel_row("hybrid_product_block_k32", "hybrid_product.cu",
+                            "none: XLA in mktfhe_tpu/schemes/kms.py:305", launches["hybrid"],
+                            max(h["err"] for h in hybrid), big["ms"], big["plain_ms"], big)
+    hybrid_row.update(preset="KMS32partyblock", launches_per_bootstrap=launches["hybrid"] // runs,
+                      timed_at=[big["g"], big["p1"]])
+    return [row, hybrid_row]
 
 
 def timed_ranges(run) -> dict:
@@ -2448,9 +2521,9 @@ def run_bootstrap_bm(name: str, params, keys: dict, ct, want, clear, decrypt, bm
     one_s = time.time() - t0
     launches = {k: v for k, v in read_launches().items() if v}
     shapes = (dict(kntt.fwd_ntt_bm.shapes), dict(kntt.inv_ntt_bm.shapes))
-    fwd, inv = merge_launches(params, BATCH)
+    fwd, inv = merge_launches(params)
     steps = params.k * params.n
-    expect = {"fwd_bm": steps, "inv_bm": steps, "fwd": params.k + fwd, "inv": inv}
+    expect = {"fwd_bm": steps, "inv_bm": steps, "hybrid": params.k, "fwd": params.k + fwd, "inv": inv}
     if launches != expect or shapes != bm_shapes(params, BATCH):
         raise SystemExit(f"{name} kms.bootstrap_bm: expected launches {expect} by shape {bm_shapes(params, BATCH)}, "
                          f"got {launches} by shape {shapes}")
@@ -2671,12 +2744,11 @@ def sharded_record(state: dict, name: str, preset: str, world: int, backend: str
     })
 
 
-def merge_launches(params, g: int) -> tuple[int, int]:
-    """Natural NTT launches of phase 2's k merges at batch g: forward the LEV
-    digits, the hybrid product's digits in chunks of `kms.hybrid_chunk`
-    parties and v's digits; inverse y, v and the new accumulator."""
-    step = kms.hybrid_chunk(g, params, kms._ctx(params))
-    return sum(2 + -(-p1 // step) for p1 in range(1, params.k + 1)), 3 * params.k
+def merge_launches(params) -> tuple[int, int]:
+    """Natural NTT launches of phase 2's k merges: forward the LEV digits and
+    v's digits (the hybrid product transforms its digits inside its own
+    kernel, one launch a merge); inverse y, v and the new accumulator."""
+    return 2 * params.k, 3 * params.k
 
 
 def shard_launches(params, kp: int, engine: str) -> dict:
@@ -2684,14 +2756,15 @@ def shard_launches(params, kp: int, engine: str) -> dict:
     parties: phase 1 by engine (the mx sweep once a party; the batch-minor
     NTT once a step each way; the reference engine's natural NTT once a step
     each way), each party's lev key lifted by one forward natural NTT, and
-    phase 2's merges (`merge_launches`; one chunk a merge at KMS8)."""
+    phase 2's merges (`merge_launches`, and the hybrid product once a merge
+    on every rank)."""
     steps = params.n // (params.ell if isinstance(params, KmsBlockParams) else 1)
-    fwd, inv = merge_launches(params, BATCH)
+    fwd, inv = merge_launches(params)
     if engine == "mx2":
-        return {"mx": kp, "fwd": kp + fwd, "inv": inv}
+        return {"mx": kp, "hybrid": params.k, "fwd": kp + fwd, "inv": inv}
     if engine == "bm":
-        return {"fwd_bm": kp * steps, "inv_bm": kp * steps, "fwd": kp + fwd, "inv": inv}
-    return {"fwd": kp * steps + kp + fwd, "inv": kp * steps + inv}
+        return {"fwd_bm": kp * steps, "inv_bm": kp * steps, "hybrid": params.k, "fwd": kp + fwd, "inv": inv}
+    return {"fwd": kp * steps + kp + fwd, "inv": kp * steps + inv, "hybrid": params.k}
 
 
 def run_sharded(state: dict, binary: dict, paths: dict, smi: str) -> None:
@@ -2867,12 +2940,14 @@ def main() -> int:
 
     # 2. build
     t0 = time.time()
-    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE, fused_mx2.SOURCE, butterfly_rate.SOURCE]
+    sources = [kntt.SOURCE, fused_mx3.SOURCE, fused_step.SOURCE, fused_mx2.SOURCE, khybrid.SOURCE,
+               butterfly_rate.SOURCE]
     libs = _build.build_all(sources)
     kntt.load_library()
     fused_mx3.load_library()
     fused_step.load_library()
     fused_mx2.load_library()
+    khybrid.load_library()
     butterfly_rate.load_library()
     usage = {src.stem: _build.resource_usage(lib) for src, lib in zip(sources, libs)}
     said = "; ".join(f"{stem}.cu: {' | '.join(kernels)}" for stem, kernels in usage.items())

@@ -1,6 +1,7 @@
 // Modular arithmetic, NTT butterflies and passes, gadget digits and Garner
 // reconstruction over the 30-bit CRT primes, shared by the CUDA kernels of
-// this package (ntt.cu, cggi_step.cu, phase1_sweep.cu, mx_sweep.cu).
+// this package (ntt.cu, cggi_step.cu, phase1_sweep.cu, mx_sweep.cu,
+// hybrid_product.cu).
 //
 // Residues are canonical u32 values in [0, p) with p < 2^29.42, so 4p fits
 // 32 bits.  The arithmetic mirrors mktfhe_tpu_torch/ring/modring.py,
@@ -274,21 +275,21 @@ __device__ __forceinline__ void digit_task(uint32_t* rows, const T (&v)[8], int 
     }
 }
 
-// First pass of the forward transform of the 2l digit polynomials of the
-// accumulator acc [2, n] (T words; polynomial c * l + j: digit j of
-// component c) into dig [2l, n] (swizzled): the 3 widest stages, on digits
-// taken from the accumulator on the fly.  A thread reads its 8 accumulator
-// words once and runs its share of the l digit polynomials over them.
-// Called by all threads behind a barrier after the last read of `dig`; the
-// caller puts a barrier behind it.
+// First pass of the forward transform of the comps * l digit polynomials of
+// the accumulator acc [comps, n] (T words, in shared or device memory;
+// polynomial c * l + j: digit j of component c) into dig [comps * l, n]
+// (swizzled): the 3 widest stages, on digits taken from the accumulator on
+// the fly.  A thread reads its 8 accumulator words once and runs its share
+// of the l digit polynomials over them.  Called by all threads behind a
+// barrier after the last read of `dig`; the caller puts a barrier behind it.
 template <typename T>
-__device__ __forceinline__ void digits_first_pass(uint32_t* dig, const T* acc,
+__device__ __forceinline__ void digits_first_pass(uint32_t* dig, const T* acc, int comps,
                                                   const DigitShape<T>& g, int log_n, int tid,
                                                   int nthreads, const uint32_t* __restrict__ w,
                                                   const uint32_t* __restrict__ w_sh, uint32_t p) {
     const int n = 1 << log_n;
     const int s = log_n - 3;
-    const int items = 2 << s;  // (component, task)
+    const int items = comps << s;  // (component, task)
     const Twiddles<3> tw = load_twiddles<3>(1, w, w_sh);
     // where the threads outnumber the items they share an item's digits
     const int split = nthreads > items ? nthreads / items : 1;

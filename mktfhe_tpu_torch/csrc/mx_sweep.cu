@@ -162,7 +162,7 @@ mx_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ tildea
             const uint32_t* ti_q = tw_i + static_cast<size_t>(q) * n;
             const uint32_t* ti_q_sh = tw_i_sh + static_cast<size_t>(q) * n;
             if (s.tw_shared) stage_twiddles(tws, tw_q, tw_q_sh, ti_q, ti_q_sh, n, tid, nthreads);
-            digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+            digits_first_pass(dig, acc, 2, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
             __syncthreads();
             fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, s.tw_shared ? tws : tw_q,
                                   s.tw_shared ? tws + n : tw_q_sh, p);

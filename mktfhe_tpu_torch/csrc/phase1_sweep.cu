@@ -150,7 +150,7 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             const uint32_t* tw_q_sh = tw_f_sh + static_cast<size_t>(q) * n;
             stage_twiddles(tws, tw_q, tw_q_sh, tw_i + static_cast<size_t>(q) * n,
                            tw_i_sh + static_cast<size_t>(q) * n, n, tid, nthreads);
-            digits_first_pass(dig, acc, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
+            digits_first_pass(dig, acc, 2, gadget, log_n, tid, nthreads, tw_q, tw_q_sh, p);
             __syncthreads();
             fwd_ntt_passes<kLogN>(dig, terms, log_n, tid, nthreads, tws, tws + n, p);
 

@@ -53,6 +53,11 @@ host and cannot be captured, each run of segments between two collectives
 is a graph of its own, and a replay runs the collectives between them,
 from and into the buffers the graphs hold.  All graphs of one capture share
 one memory pool, captured in the order they replay.
+
+A capture's allocations are carved from one segment of its pool, as large
+as the eager warm-up's transients (its peak less what it leaves allocated;
+`_reserve_arena`): where they grow from step to step, as phase 2's merges
+do, each would otherwise reserve a segment of its own.
 """
 
 from __future__ import annotations
@@ -68,10 +73,11 @@ import torch.distributed as dist
 from .ciphertext.lwe import Lwe
 from .kernels import fused_mx2, fused_mx3, fused_step
 from .kernels import ntt as kntt
+from .kernels.hybrid_product import hybrid_product
 from .utils import profiling
 
 # the kernel wrappers whose `launches` (and, for the NTTs, `shapes`) count
-_COUNTED = (fused_mx3.phase1_sweep, fused_mx2.mx_sweep, fused_step.cggi_step,
+_COUNTED = (fused_mx3.phase1_sweep, fused_mx2.mx_sweep, fused_step.cggi_step, hybrid_product,
            kntt.fwd_ntt_nat, kntt.inv_ntt_nat, kntt.fwd_ntt_bm, kntt.inv_ntt_bm)
 
 
@@ -142,7 +148,10 @@ class _Graphed:
     graphs' static ciphertexts; `change`: each counted wrapper's launches a
     replay.  The capture's numbers: `warmup_s` (the eager warm-up call, to
     its end on the card), `warmup_peak_bytes` (the device's allocation peak
-    up to the warm-up's end), `capture_s`, `instantiate_s`, `pool_bytes`
+    during the warm-up, the peak statistics reset before it),
+    `warmup_transient_bytes` (that peak above what is still allocated
+    after the warm-up: its transients, not the tables and the output it
+    keeps), `capture_s`, `instantiate_s`, `pool_bytes`
     (device memory the capture reserved above what was held: the graphs'
     intermediates and outputs), `pool_peak_bytes` (the most of it allocated
     at once during the capture), `nodes` (of all its graphs) and
@@ -156,6 +165,7 @@ class _Graphed:
     warmup_out: Lwe | None = None
     warmup_s: float = 0.0
     warmup_peak_bytes: int = 0
+    warmup_transient_bytes: int = 0
     capture_s: float = 0.0
     instantiate_s: float = 0.0
     pool_bytes: int = 0
@@ -206,12 +216,15 @@ class _Graphed:
         back what the capture counted, instantiates the graphs and takes
         their numbers."""
         device = example_ct.b.device
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         with torch.cuda.stream(side):  # the stream the capture runs on (its cuBLAS workspace)
             self.warmup_out = warmup()
         torch.cuda.synchronize(device)
         self.warmup_s = time.perf_counter() - t0
         self.warmup_peak_bytes = torch.cuda.max_memory_allocated(device)
+        self.warmup_transient_bytes = self.warmup_peak_bytes - torch.cuda.memory_allocated(device)
         self.inputs = (example_ct.b.clone(), example_ct.a.clone())
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -233,6 +246,18 @@ class _Graphed:
         self.instantiate_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.nodes = sum(_graph_nodes(graph) for graph in graphs)
+
+
+def _reserve_arena(nbytes: int, device) -> None:
+    """Called first in a capture (the first graph of a pool): one block of
+    `nbytes` (`_Graphed.warmup_transient_bytes`) allocated in the graph's
+    pool and freed at once, so that the capture's allocations are carved
+    from one segment.  Without it a bootstrap whose transients grow from
+    step to step (phase 2's merges, a component more each) finds no freed
+    block large enough for the next step's and reserves a new segment each
+    time (at KMS32partyblock, batch 128, eight times its peak)."""
+    if nbytes > 0:
+        torch.empty(nbytes, dtype=torch.uint8, device=device)  # freed at once; its segment stays in the pool
 
 
 def _side_stream(device) -> torch.cuda.Stream:
@@ -280,10 +305,12 @@ def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra, ranges
     `example_ct`, captured into one CUDA graph after one eager warm-up call
     (which builds the kernels and their constant tables), on a side stream,
     into the graph's own memory pool (the device's peak-memory statistics
-    are reset to measure it).  ranges: the capture (not the warm-up) runs
-    with an external recorder active, so the graph holds a timing-event
-    pair at the edges of every named range (`range_ms`).  On a CPU
-    ciphertext: no graph, the eager function behind the same refusals."""
+    are reset to measure it), which the capture opens with one segment as
+    large as the warm-up's transients (`_reserve_arena`).  ranges: the
+    capture (not the warm-up) runs with an external recorder active, so the
+    graph holds a timing-event pair at the edges of every named range
+    (`range_ms`).  On a CPU ciphertext: no graph, the eager function behind
+    the same refusals."""
     device = example_ct.b.device
     graphed = GraphedBootstrap(
         bootstrap=bootstrap, scheme=scheme, extra=tuple(extra), params=params,
@@ -301,6 +328,7 @@ def capture_bootstrap(bootstrap, scheme, params, example_ct: Lwe, *extra, ranges
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             rec = profiling._Recorder(external=True) if ranges else None
             with torch.cuda.graph(graph, pool=pool, stream=side):
+                _reserve_arena(graphed.warmup_transient_bytes, device)
                 with profiling.recording(rec) if ranges else contextlib.nullcontext():
                     graphed.output = bootstrap(Lwe(*graphed.inputs), scheme, *extra, params)
             graphs.append(graph)
@@ -408,6 +436,8 @@ def capture_sharded(program, example_ct: Lwe, scheme, params, mesh, *extra,
                     graph = torch.cuda.CUDAGraph(keep_graph=True)
                     # thread_local: NCCL's watchdog thread may query its events meanwhile
                     with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+                        if not graphs:
+                            _reserve_arena(graphed.warmup_transient_bytes, device)
                         state = run_steps(run, state)
                     graphs.append(graph)
                     graphed.replay.append(graph)

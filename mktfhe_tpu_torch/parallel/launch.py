@@ -133,20 +133,22 @@ class Job:
 
 
 def _launches() -> dict:
-    from ..kernels import fused_mx2, fused_mx3
+    from ..kernels import fused_mx2, fused_mx3, hybrid_product
     from ..kernels import ntt as kntt
 
     return {
         "fwd": kntt.fwd_ntt_nat.launches, "inv": kntt.inv_ntt_nat.launches,
         "fwd_bm": kntt.fwd_ntt_bm.launches, "inv_bm": kntt.inv_ntt_bm.launches,
         "mx": fused_mx2.mx_sweep.launches, "sweep": fused_mx3.phase1_sweep.launches,
+        "hybrid": hybrid_product.hybrid_product.launches,
     }
 
 
 def _reset_launches() -> None:
-    from ..kernels import fused_mx2, fused_mx3
+    from ..kernels import fused_mx2, fused_mx3, hybrid_product
     from ..kernels import ntt as kntt
 
+    hybrid_product.reset_launches()
     kntt.reset_launches()
     fused_mx2.reset_launches()
     fused_mx3.reset_launches()

@@ -15,7 +15,9 @@ vmap over parties a loop over parties, which keeps the peak device memory
 to one party's temporaries.
 Phase 2 (sequential merge): per party, LEV-multiply the accumulator's
 digits by the lev key, relinearize through the party's rlk and public keys
-(hybrid product), and extend the accumulator by one mask component.
+(hybrid product: on the card one launch of csrc/hybrid_product.cu,
+kernels/hybrid_product.py), and extend the accumulator by one mask
+component.
 Key switch: modulus switch 2^64 -> 2^32, then the per-party int8-limb key
 switch (schemes/common.py).
 
@@ -49,6 +51,7 @@ from ..ciphertext.keys import (
 from ..ciphertext.lwe import Lwe
 from ..ciphertext.unienc import gen_b, sample_crs, unienc_encrypt
 from ..kernels.fused_mx3 import kms_phase1_mx3, phase1_sweep_plain
+from ..kernels.hybrid_product import hybrid_product
 from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
 from ..ring.modring import addmod, mulsum_mod, prime_column
@@ -97,9 +100,9 @@ class KmsScheme:
 AnyKmsParams = KmsParams | KmsBlockParams
 # top-level sampling streams consumed by keygen (ring/sampler.rng_streams)
 KEYGEN_STREAMS = 7
-# residues of one chunk of phase 2's hybrid-product digits (`hybrid_chunk`):
-# one chunk a merge at every preset up to k = 16 at batch 128, a transient
-# of about 2.5 GB at most
+# residues of one chunk of the plain hybrid product's digits (`hybrid_chunk`;
+# the kernel has no digit transients): one chunk a merge at every preset up
+# to k = 16 at batch 128, a transient of about 2.5 GB at most
 PHASE2_CHUNK_RESIDUES = 1 << 27
 # this engine's phase 1 is the sweep's loop in plain PyTorch with the NTT
 # kernel under its transforms
@@ -268,8 +271,10 @@ def _phase2_party_mat(acc, levkey, p1: int, rd, rf, pub_h, crs_hat, params: AnyK
     y = mulsum_mod(dhat, levkey[:, None, :, 1], -3, p)
     y_t = inv_to_torus(y, ctx)  # [G, p1, N]
 
-    # hybrid product of y with this party's rlk, over chunks of parties
-    u, v = _hybrid_product(y_t, rd, pub_h, crs_hat, params, ctx, p)
+    # hybrid product of y with this party's rlk: one kernel launch on the
+    # card, `_hybrid_product` on the CPU
+    with phase_range("mktfhe/phase2/hybrid"):
+        u, v = hybrid_product(y_t, rd, pub_h, crs_hat, params, ctx)
     v_t = inv_to_torus(v, ctx)  # [G, N]
 
     vhat = rlwe_decomp_hat(v_t, params.l_uni, params.log_b_uni, ctx, fwd_ntt_nat)  # [G, l, npr, N]
@@ -292,10 +297,12 @@ def hybrid_chunk(g: int, params: AnyKmsParams, ctx: RingCtx) -> int:
 
 
 def _hybrid_product(y_t, rd, pub_h, crs_hat, params: AnyKmsParams, ctx: RingCtx, p):
-    """The hybrid product of a merge: y_t [G, p1, N] torus, each party's
-    component decomposed and transformed, contracted against party p1's rlk
-    d-vector `rd` (u [G, p1, npr, N]) and against the crs (component 0) and
-    the earlier parties' public keys `pub_h` (v [G, npr, N], reduced).
+    """The hybrid product of a merge in plain PyTorch, the plain version of
+    csrc/hybrid_product.cu (kernels/hybrid_product.py runs it on CPU
+    tensors): y_t [G, p1, N] torus, each party's component decomposed and
+    transformed, contracted against party p1's rlk d-vector `rd`
+    (u [G, p1, npr, N]) and against the crs (component 0) and the earlier
+    parties' public keys `pub_h` (v [G, npr, N], reduced).
 
     The digits go through chunks of `hybrid_chunk` parties, so the
     transients of this contraction stop growing with p1 (about 9 GB at

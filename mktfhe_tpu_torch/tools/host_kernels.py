@@ -215,6 +215,28 @@ extern "C" void mktfhe_cggi_step_describe(int npr, int l, int log_n, int* out) {
 }
 """, {"host_cggi_step": ([_P] * 9 + [_U, _LL] + [_I] * 8, _I),
       "mktfhe_cggi_step_describe": ([_I] * 3 + [_P], None)}),
+    # the kernel that the source's dispatcher picks, or, with
+    # `run_time_shapes` set, the kernel with run-time shapes
+    "hybrid_product": (r"""
+extern "C" int host_hybrid_product(const void* y, const void* rd, const void* pub, const void* crs,
+        void* u, void* v, const void* tw_f, const void* tw_f_sh, const void* consts,
+        long long gates, int p1, int npr, int l, int log_b, int log_n, int run_time_shapes) {
+    const HybridPlan plan = hybrid_plan(log_n, l, npr);
+    const HybridKernel kernel = run_time_shapes ? &hybrid_product_kernel<0, 0, 0> : plan.kernel;
+    const HybridShape shape{p1, npr, l, log_b, log_n};
+    if (plan.shared_bytes > (int)kSmemBytes) return 2;
+    run_grid(gates * npr, plan.threads, [=]() {
+        kernel((const uint64_t*)y, (const uint32_t*)rd, (const uint32_t*)pub, (const uint32_t*)crs,
+               (uint32_t*)u, (uint32_t*)v, (const uint32_t*)tw_f, (const uint32_t*)tw_f_sh,
+               (const uint64_t*)consts, shape);
+    });
+    return 0;
+}
+extern "C" void mktfhe_hybrid_product_describe(int log_n, int l, int npr, int* out) {
+    describe_plan(log_n, l, npr, out);
+}
+""", {"host_hybrid_product": ([_P] * 9 + [_LL] + [_I] * 6, _I),
+      "mktfhe_hybrid_product_describe": ([_I] * 3 + [_P], None)}),
     "butterfly_rate": (r"""
 extern "C" void host_butterfly_rate(void* out, const void* tw, const void* tw_sh, unsigned int p,
         unsigned int seed, int rounds, int forward, int ctas, int threads) {

@@ -9,9 +9,10 @@ and inverse, at the shapes `bootstrap_mx3`, `bootstrap_mx2` and
 `cggi.bootstrap` launch (NTT_SHAPES), and the batch-minor one (B4) at the
 shapes the CGGI and KMS batch-minor engines launch (NTT_BM_SHAPES).
 `--stages`: for each KMS preset named, also the last merge of phase 2
-(`kms._phase2_party_mat` for party k) and the key switch (`kms._keyswitch`)
-at batch 128: device ms and the device memory each allocates at its peak
-above its inputs.  Each kernel is first held bit-exact against its plain
+(`kms._phase2_party_mat` for party k), its hybrid product by itself
+(`kernels/hybrid_product.py`) and the key switch (`kms._keyswitch`) at batch 128:
+device ms and the device memory each allocates at its peak above its
+inputs.  Each kernel is first held bit-exact against its plain
 version.  Keys and inputs are uniform residues: the kernels' time does not
 depend on them.  The short kernels are timed by their device time in
 torch.profiler, found by the instance name the source's dispatcher reports
@@ -21,14 +22,15 @@ torch.profiler, found by the instance name the source's dispatcher reports
 one (each package imported from its DIR, its kernels built there), in turns:
 this tree, the others, the others backwards, this tree, each in a process of
 its own, so that commits can be compared within one call on one card.  Only
-the wrappers' signatures, which are the same in every commit, are used.
+the wrappers' signatures, which are the same in every commit, are used;
+`--stages` takes trees that have `kernels/hybrid_product.py`.
 
 Usage (one CUDA card):
   python -m mktfhe_tpu_torch.tools.time_sweeps
   python -m mktfhe_tpu_torch.tools.time_sweeps --preset KMS32party --preset KMS16partyblock \
       --tree _probe/parent
   python -m mktfhe_tpu_torch.tools.time_sweeps --cggi --ntt --tree _probe/parent
-  python -m mktfhe_tpu_torch.tools.time_sweeps --stages --preset KMS32partyblock --tree _probe/parent
+  python -m mktfhe_tpu_torch.tools.time_sweeps --stages --preset KMS32partyblock
 Prints one JSON object per tree and turn, each with the card's name and
 power limit.
 """
@@ -207,11 +209,12 @@ def _peak(fn) -> int:
 
 
 def time_stages(params, device, gen) -> dict:
-    """Phase 2's last merge (party k onto components 0..k-1) and the key
-    switch at batch BATCH on uniform inputs of the preset's shapes: the
-    accumulator over all of 64 bits, lev key, rlk, public keys and crs as
-    residues, the key-switching tables as int8 limbs (time and memory do not
-    depend on the values)."""
+    """Phase 2's last merge (party k onto components 0..k-1), its hybrid
+    product alone and the key switch at batch BATCH on uniform inputs of
+    the preset's shapes: the accumulator over all of 64 bits, lev key, rlk,
+    public keys and crs as residues, the key-switching tables as int8 limbs
+    (time and memory do not depend on the values)."""
+    from mktfhe_tpu_torch.kernels.hybrid_product import hybrid_product
     from mktfhe_tpu_torch.schemes import kms
     from mktfhe_tpu_torch.schemes.common import NLIMB
     from mktfhe_tpu_torch.schemes.params import KmsBlockParams
@@ -240,11 +243,18 @@ def time_stages(params, device, gen) -> dict:
     def merge():
         return kms._phase2_party_mat(acc, levkey, k, rd, rf, pub, crs, params, ctx)
 
+    # the merge's hybrid product by itself, on its components y [G, k, N]
+    y = torch.randint(-(1 << 63), (1 << 63) - 1, (BATCH, k, n), generator=gen, device=device)
+
+    def hybrid():
+        return hybrid_product(y, rd, pub, crs, params, ctx)
+
     def keyswitch():
         return kms._keyswitch(acc, scheme, params)
 
     return {
         "merge_ms": _ms(merge, REPS), "merge_peak_gb": _peak(merge) / 1e9,
+        "hybrid_ms": _ms(hybrid, REPS), "hybrid_peak_gb": _peak(hybrid) / 1e9,
         "keyswitch_ms": _ms(keyswitch, REPS), "keyswitch_peak_gb": _peak(keyswitch) / 1e9,
     }
 

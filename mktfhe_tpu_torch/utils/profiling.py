@@ -15,6 +15,7 @@ stream at its edges:
   mktfhe/phase1/party{i}      KMS phase 1 of party i (0-based)
   mktfhe/levkey_lift          its lev key lifted into the primes and transformed
   mktfhe/phase2/merge{p1}     KMS phase-2 merge of party p1 (1-based)
+  mktfhe/phase2/hybrid        inside each merge, its hybrid product
   mktfhe/rotate               the blind rotation of CGGI, LMSS and CCS
   mktfhe/keyswitch            modulus switch to 2^32 (KMS) and key switch
 

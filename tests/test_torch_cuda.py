@@ -5,7 +5,10 @@ inverse, in the natural and the batch-minor layout (whole and ragged gate
 tiles); the phase-1 sweep kernel over ring sizes, prime counts, binary and
 block keys, row counts, gadgets and batch sizes, and at every KMS preset
 through its compiled instance over all of the preset's steps (the mx sweep
-too, at the binary presets); the mx sweep kernel over
+too, at the binary presets); phase 2's hybrid product kernel at the last
+merge of KMS8partyblock and KMS32partyblock and at merge 1 (the crs alone),
+replayed from a graph too, and launched once a merge by every KMS engine;
+the mx sweep kernel over
 ring sizes (nb = 1 to 16), the key's prime counts, row counts, gadgets and
 both homes of its power table; the fused CGGI step kernel
 over ring sizes, prime counts, gadgets (the 32-bit rounding carry live and
@@ -44,6 +47,7 @@ import torch
 from mktfhe_tpu_torch import bridge
 from mktfhe_tpu_torch.ciphertext.lwe import Lwe
 from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3, fused_step
+from mktfhe_tpu_torch.kernels import hybrid_product as khybrid
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
 from mktfhe_tpu_torch.ring.modring import prime_column
@@ -255,6 +259,116 @@ def test_sweep_wrapper_contract_on_cuda(device):
     assert fused_mx3.phase1_sweep.launches == 0
     empty = fused_mx3.phase1_sweep(ta[:0], brk, 2, mono, params, ctx)
     assert tuple(empty.shape) == (0, 2, 2, ctx.n) and fused_mx3.phase1_sweep.launches == 0
+
+
+
+# --- the hybrid product kernel (phase 2) ---------------------------------------
+
+HYBRID_PRESETS = {"KMS32partyblock": presets.KMS_32PARTY_BLOCK, "KMS8partyblock": presets.KMS_8PARTY_BLOCK}
+HYBRID_INSTANCE = {"KMS32partyblock": "hybrid_product_kernel<11,16,3>",
+                   "KMS8partyblock": "hybrid_product_kernel<11,8,4>"}
+
+
+def _hybrid_inputs(params, p1: int, g: int, device, seed: int = 7):
+    """A merge's inputs at the preset's shapes: y over all 64 bits, the
+    keys as residues."""
+    ctx = kms._ctx(params)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randint(-(1 << 63), (1 << 63) - 1, (g, p1, ctx.n), generator=gen, device=device)
+    y[0, 0, :4] = torch.tensor([-1, -(1 << 63), (1 << 63) - 1, 0], device=device)
+    l = params.l_uni
+    rd, pub, crs = (_residues(lead, ctx.nprimes, ctx.n, device, seed + i)
+                    for i, lead in enumerate(((l,), (p1 - 1, l), (l,))))
+    return ctx, y, rd, pub, crs
+
+
+@pytest.mark.parametrize("name,p1,g", [("KMS32partyblock", 32, 128), ("KMS32partyblock", 1, 128),
+                                       ("KMS8partyblock", 8, 128), ("KMS8partyblock", 1, 128),
+                                       ("KMS8partyblock", 8, 8)], ids=lambda c: str(c))
+def test_hybrid_kernel_matches_plain(device, name, p1, g):
+    """Merge p1 of the preset at batch g through the preset's instance, one
+    launch, against the plain version (its digits through B1 in chunks of
+    parties): the same residues, tolerance 0."""
+    params = HYBRID_PRESETS[name]
+    ctx, y, rd, pub, crs = _hybrid_inputs(params, p1, g, device)
+    assert khybrid.hybrid_kernel(params, ctx)["name"] == HYBRID_INSTANCE[name]
+    khybrid.reset_launches()
+    u, v = khybrid.hybrid_product(y, rd, pub, crs, params, ctx)
+    torch.cuda.synchronize()
+    assert khybrid.hybrid_product.launches == 1
+    assert u.dtype == v.dtype == torch.int32
+    assert tuple(u.shape) == (g, p1, ctx.nprimes, ctx.n) and tuple(v.shape) == (g, ctx.nprimes, ctx.n)
+    want_u, want_v = kms._hybrid_product(y, rd, pub, crs, params, ctx, prime_column(ctx.nprimes, device))
+    assert torch.equal(u.long(), want_u) and torch.equal(v.long(), want_v)
+
+
+@pytest.mark.parametrize("name", [*HYBRID_PRESETS, "run-time N=512"])
+def test_hybrid_kernel_is_built_as_described(device, name):
+    """What the dispatcher says of a shape names a kernel that ptxas built,
+    and its launch fits the card; the presets' instances do not spill."""
+    from mktfhe_tpu_torch.kernels import _build
+
+    params = HYBRID_PRESETS.get(name, dataclasses.replace(presets.KMS_8PARTY_BLOCK, big_n=512))
+    ctx = kms._ctx(params)
+    kernel = khybrid.hybrid_kernel(params, ctx)
+    said = [u for u in _build.resource_usage(_build.build(khybrid.SOURCE)) if u.startswith(kernel["name"] + ":")]
+    assert len(said) == 1
+    assert kernel["run_time_shapes"] == (name not in HYBRID_PRESETS)
+    assert kernel["run_time_shapes"] or ", 0 spill bytes" in said[0]
+    assert kernel["threads"] == min(ctx.n // 2, 512)
+    assert kernel["shared_bytes"] <= torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    # and the run-time kernel computes what the instance does
+    if name == "run-time N=512":
+        ctx, y, rd, pub, crs = _hybrid_inputs(params, 3, 4, device)
+        u, v = khybrid.hybrid_product(y, rd, pub, crs, params, ctx)
+        want_u, want_v = kms._hybrid_product(y, rd, pub, crs, params, ctx, prime_column(ctx.nprimes, device))
+        assert torch.equal(u.long(), want_u) and torch.equal(v.long(), want_v)
+
+
+def test_hybrid_kernel_replays_from_a_graph(device):
+    """Captured into a CUDA graph (its wrapper reads no value back), a
+    replay computes the eager residues, for the captured input and for a
+    new one copied into it."""
+    params = presets.KMS_8PARTY_BLOCK
+    ctx, y, rd, pub, crs = _hybrid_inputs(params, 8, 8, device)
+    want = khybrid.hybrid_product(y, rd, pub, crs, params, ctx)  # warm-up: the tables
+    static_y = y.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        u, v = khybrid.hybrid_product(static_y, rd, pub, crs, params, ctx)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(u, want[0]) and torch.equal(v, want[1])
+    y2 = _hybrid_inputs(params, 8, 8, device, seed=8)[1]
+    static_y.copy_(y2)
+    graph.replay()
+    torch.cuda.synchronize()
+    want2 = khybrid.hybrid_product(y2, rd, pub, crs, params, ctx)
+    assert torch.equal(u, want2[0]) and torch.equal(v, want2[1]) and not torch.equal(u, want[0])
+
+
+def test_hybrid_wrapper_contract_on_cuda(device):
+    params = presets.KMS_8PARTY_BLOCK
+    ctx, y, rd, pub, crs = _hybrid_inputs(params, 3, 4, device)
+    khybrid.reset_launches()
+    with pytest.raises(ValueError):  # a key on the CPU, y_t on the card
+        khybrid.hybrid_product(y, rd.cpu(), pub, crs, params, ctx)
+    with pytest.raises(ValueError):
+        khybrid.hybrid_product(y, rd, pub, crs.cpu(), params, ctx)
+    with pytest.raises(TypeError):
+        khybrid.hybrid_product(y.int(), rd, pub, crs, params, ctx)
+    with pytest.raises(TypeError):
+        khybrid.hybrid_product(y, rd, pub.long(), crs, params, ctx)
+    with pytest.raises(ValueError):  # one public key short of the merge
+        khybrid.hybrid_product(y, rd, pub[:-1], crs, params, ctx)
+    with pytest.raises(ValueError):
+        khybrid.hybrid_product(y.transpose(0, 1).contiguous().transpose(0, 1), rd, pub, crs, params, ctx)
+    with pytest.raises(ValueError):  # seventeen digits would overflow the unreduced sum
+        khybrid.hybrid_product(y, rd, pub, crs, dataclasses.replace(params, l_uni=17), ctx)
+    assert khybrid.hybrid_product.launches == 0
+    u, v = khybrid.hybrid_product(y[:0], rd, pub, crs, params, ctx)
+    assert tuple(u.shape) == (0, 3, ctx.nprimes, ctx.n) and tuple(v.shape) == (0, ctx.nprimes, ctx.n)
+    assert khybrid.hybrid_product.launches == 0
 
 
 # --- the mx sweep kernel -----------------------------------------------------
@@ -749,6 +863,7 @@ from test_torch_graphs import ENGINES, _messages, engine_case, refusals, run  # 
 
 def _reset_counts() -> None:
     kntt.reset_launches()
+    khybrid.reset_launches()
     fused_mx3.reset_launches()
     fused_mx2.reset_launches()
     fused_step.reset_launches()
@@ -801,6 +916,22 @@ def test_graph_counts_its_launches(device, name):
     for _ in range(3):
         graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
     assert graphs.launch_counts() == {w: (3 * n, {k: 3 * v for k, v in shapes.items()}) for w, (n, shapes) in eager.items()}
+
+
+@pytest.mark.parametrize("name", ["fused_mx3.bootstrap_mx3", "fused_mx3.bootstrap_mx3 block", "kms.bootstrap",
+                                  "fused_mx2.bootstrap_mx2", "kms.bootstrap_bm"])
+def test_hybrid_product_launches_once_a_merge(device, name):
+    """Every KMS engine's phase 2 launches the hybrid product kernel once a
+    merge, eager and in each replay of its graph."""
+    case = engine_case(name, device)
+    run(case)
+    khybrid.reset_launches()
+    run(case)
+    assert khybrid.hybrid_product.launches == case["params"].k
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    khybrid.reset_launches()
+    graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
+    assert khybrid.hybrid_product.launches == case["params"].k
 
 
 @pytest.mark.parametrize("name", ENGINES)
@@ -1070,6 +1201,20 @@ def test_external_events_in_a_graph_time_a_launch_as_eager(device):
     assert torch.equal(got, want)
     ratio = statistics.median(replayed) / statistics.median(eager)
     assert 0.9 <= ratio <= 1.1, (replayed, eager)
+
+
+def test_capture_carves_its_pool_from_one_segment(device):
+    """`bootstrap_mx3` at KMS2partyblock, batch 128, whose phase-2
+    transients grow from merge to merge: the capture opens its pool with
+    one segment of the warm-up's transient peak, and the pool reserves at
+    most twice its peak; the bits are the eager ones."""
+    ct, scheme, params = _device_bound_case(device)
+    want = fused_mx3.bootstrap_mx3(ct, scheme, params)
+    graphed = graphs.capture_bootstrap(fused_mx3.bootstrap_mx3, scheme, params, ct)
+    assert graphed.warmup_transient_bytes > 0
+    assert graphed.pool_peak_bytes >= graphed.warmup_transient_bytes
+    assert graphed.pool_bytes <= 2 * graphed.pool_peak_bytes, (graphed.pool_bytes, graphed.pool_peak_bytes)
+    assert _same(graphed(ct, scheme, params), want)
 
 
 def test_graph_ranges_split_a_device_bound_replay(device):

@@ -304,6 +304,8 @@ def test_sharded_ranges_are_the_bootstraps(ref, mesh, shard_phase2, tmp_path):
     want = ["mktfhe/mod_switch"]
     for party in range(PARAMS.k):
         want += [f"mktfhe/phase1/party{party}", "mktfhe/levkey_lift"]
-    want += [f"mktfhe/phase2/merge{p1}" for p1 in range(1, PARAMS.k + 1)] + ["mktfhe/keyswitch"]
+    for p1 in range(1, PARAMS.k + 1):
+        want += [f"mktfhe/phase2/merge{p1}", "mktfhe/phase2/hybrid"]
+    want += ["mktfhe/keyswitch"]
     assert names(lambda: kms.bootstrap(ct, scheme, TPARAMS)) == want
     assert names(lambda: shardmap.kms_bootstrap_shardmap(ct, scheme, TPARAMS, mesh, shard_phase2=shard_phase2)) == want

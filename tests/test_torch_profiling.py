@@ -69,7 +69,9 @@ def _kms_case():
     ranges = ["mktfhe/mod_switch"]
     for party in range(params.k):
         ranges += [f"mktfhe/phase1/party{party}", "mktfhe/levkey_lift"]
-    ranges += [f"mktfhe/phase2/merge{p1}" for p1 in range(1, params.k + 1)] + ["mktfhe/keyswitch"]
+    for p1 in range(1, params.k + 1):
+        ranges += [f"mktfhe/phase2/merge{p1}", "mktfhe/phase2/hybrid"]
+    ranges += ["mktfhe/keyswitch"]
     return kms.bootstrap, cts, scheme, params, ranges
 
 
