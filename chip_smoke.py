@@ -54,19 +54,20 @@ Phases, each printing one line; any failure exits non-zero:
      (the natural NTT kernel): all three outputs equal bit for bit; then one
      more `bootstrap_bm` under torch.profiler, and the batch-minor NTT's
      launches by shape with the time at each (14b);
- 15. mx-domain keys: `build_mx_kms_keys` on the KMS8party party keys of
-     phase 4 (and on the wide-gadget set's);
+ 15. mx-domain keys: `fused_mx2.setup` on the KMS8party party keys of
+     phase 4, a scheme without `brk_hat` holding the mx image (and
+     `build_mx_kms_keys` on the wide-gadget set's);
  16. hold the mx sweep kernel against its plain version on those keys,
      bit-exact, with 3 rows and with 1 row, on the wide-gadget set and the
      six-digit set, each through its template instance, and on a small set
      through the kernel with run-time shapes; time kernel and plain version
      at the full number of steps;
- 17. this slice's main path: `bootstrap_mx2` of a batch of NAND gates on
-     KMS8party, on a scheme without `brk_hat`, decrypt-checked, then a timed
-     data-dependent chain of two more; the mx sweep and NTT kernels must have
-     been launched; its output on the ciphertext of phase 8 must equal
-     `bootstrap_mx3`'s bit for bit; then one more under torch.profiler, and
-     the natural NTT's launches by shape (17c);
+ 17. this slice's main path: `bootstrap_mx2(ct, scheme, params)` of a batch
+     of NAND gates on KMS8party, on the scheme of phase 15, decrypt-checked,
+     then a timed data-dependent chain of two more; the mx sweep and NTT
+     kernels must have been launched; its output on the ciphertext of phase
+     8 must equal `bootstrap_mx3`'s bit for bit; then one more under
+     torch.profiler, and the natural NTT's launches by shape (17c);
  18. the KMS batch-minor engine on the same ciphertext: `kms.bootstrap_bm`
      (the batch-minor NTT kernel must have been launched), decrypt-checked,
      bit-identical to `bootstrap_mx2`; then one more under torch.profiler,
@@ -536,11 +537,11 @@ def by_shape_line(tag: str, rows: list[dict], profiled_ms: float, smi: str,
 
 def keygen(gen, params):
     """crs, party keygens and setup on the generator's device: the LWE keys,
-    the scheme and the party keys (torus domain)."""
+    the scheme, the party keys (torus domain) and the crs."""
     a = kms.crs(gen, params)
     parties = [kms.party_keygen(gen, a, params) for _ in range(params.k)]
     party_keys = [p[3] for p in parties]
-    return [p[0] for p in parties], kms.setup(a, party_keys, params), party_keys
+    return [p[0] for p in parties], kms.setup(a, party_keys, params), party_keys, a
 
 
 def sweep_step_ops(n: int, npr: int, l: int, per_position: int, accumulate: int, lazy: bool,
@@ -1135,21 +1136,23 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     `bootstrap_mx2` go into `state`."""
     params = KMS_8PARTY
     lwe_keys, party_keys = binary["lwe_keys"], binary["party_keys"]
-    # 15. mx-domain keys
+    # 15. the mx engine's set-up: a scheme without brk_hat, holding the mx
+    # image (the sharded path's MxKmsKeys view the same tensor)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     t0 = time.time()
-    mx_keys = fused_mx2.build_mx_kms_keys(party_keys, params)
+    mx_scheme = fused_mx2.setup(binary["crs"], party_keys, params)
     torch.cuda.synchronize()
     build_s = time.time() - t0
+    mx_keys = fused_mx2.MxKmsKeys(brk_mx=mx_scheme.brk_mx)
     wide_keys = fused_mx2.build_mx_kms_keys(binary["wide_party_keys"], WIDE_GADGET)
     crs = kms.crs(gen, SIX_DIGITS)
     six_keys = fused_mx2.build_mx_kms_keys(
         [kms.party_keygen(gen, crs, SIX_DIGITS)[3] for _ in range(SIX_DIGITS.k)], SIX_DIGITS, SIX_DIGITS_PRIMES,
     )
     print(
-        f"[15 mx keys] build_mx_kms_keys on the KMS8party party keys: brk_mx "
+        f"[15 mx keys] fused_mx2.setup on the KMS8party party keys: brk_mx "
         f"{list(mx_keys.brk_mx.shape)} int32 = {mx_keys.brk_mx.numel() * 4 / 1e9:.2f} GB, "
         f"{mx_keys.brk_mx.shape[2]} primes, in {build_s:.2f} s; peak allocated above what was held "
         f"before {(torch.cuda.max_memory_allocated() - before) / 1e9:.2f} GB; the wide-gadget set: "
@@ -1190,20 +1193,17 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     )
     del wide_keys, six_keys
 
-    # 17. this slice's main path, on a scheme without brk_hat: counts reset
-    # just before it, read just after
+    # 17. this slice's main path, on the scheme of phase 15 (no brk_hat):
+    # counts reset just before it, read just after
     lean = kms.drop_brk(binary["scheme"])
 
     def decrypt(out):
         return lwe_decrypt_bit_mk(out, lwe_keys)
 
-    def bootstrap_mx2(ct, scheme, params):
-        return fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params)
-
     ct, c2, m1, m2 = binary["ct"], binary["c2"], binary["m1"], binary["m2"]
     torch.cuda.synchronize()
     reset_launches()
-    boot = bootstrap_chain(bootstrap_mx2, ct, c2, m1, m2, params, decrypt, lean, CHAIN)
+    boot = bootstrap_chain(fused_mx2.bootstrap_mx2, ct, c2, m1, m2, params, decrypt, mx_scheme, CHAIN)
     launches = read_launches()
     shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
     if min(launches[k] for k in ("mx", "fwd", "inv")) == 0 or launches["sweep"] != 0:
@@ -1220,7 +1220,7 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
         f"inv {launches['inv']} ({smi})"
     )
     prof = profile_bootstrap(
-        bootstrap_mx2, ct, lean, params,
+        fused_mx2.bootstrap_mx2, ct, mx_scheme, params,
         {"mx sweep kernel": "mx_sweep_kernel", "NTT kernels": "ntt_nat_kernel"},
     )
     print(profile_line("17b profile", "bootstrap_mx2", prof, smi))
@@ -1229,10 +1229,10 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
     for row, d in zip(ntt_rows, ("fwd", "inv")):
         row["launches_by_shape"] += [
             {"path": r["path"], "shape": r["shape"], "launches": r[d], "ms": r[f"{d}_ms"]} for r in by_shape]
-    graph_path(state, "bootstrap_mx2", "KMS8party", fused_mx2.bootstrap_mx2, lean, params, ct, c2, m1, m2, decrypt,
-               {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {CHAIN}", "synced": CHAIN,
-                "busy_ms": prof["device_ms"]},
-               {"mx sweep kernel": "mx_sweep_kernel", "NTT kernels": "ntt_nat_kernel"}, smi, extra=(mx_keys,))
+    graph_path(state, "bootstrap_mx2", "KMS8party", fused_mx2.bootstrap_mx2, mx_scheme, params, ct, c2, m1, m2,
+               decrypt, {"out": boot["first"], "next": boot["second"], "ms": dt * 1e3, "how": f"eager chain of {CHAIN}",
+                         "synced": CHAIN, "busy_ms": prof["device_ms"]},
+               {"mx sweep kernel": "mx_sweep_kernel", "NTT kernels": "ntt_nat_kernel"}, smi)
 
     # 18. the KMS batch-minor engine on the same ciphertext: same bits
     t0 = time.time()
@@ -1265,8 +1265,8 @@ def run_mx2(gen, device, smi: str, binary: dict, usage: dict, rate: dict, ntt_ro
                {"out": boot["first"], "synced": 0},
                {"batch-minor NTT kernel": "ntt_bm_kernel", "NTT kernels": "ntt_nat_kernel"}, smi, extra=(bm_keys,),
                chain=1)
-    state["mx2"] = {"lean": lean, "mx_keys": mx_keys, "bm_keys": bm_keys, "out": boot["first"], "chain_s": dt,
-                    "sweeps_ms": prof["parts"]["mx sweep kernel"]}
+    state["mx2"] = {"lean": lean, "mx_keys": mx_keys, "mx_scheme": mx_scheme, "bm_keys": bm_keys,
+                    "out": boot["first"], "chain_s": dt, "sweeps_ms": prof["parts"]["mx sweep kernel"]}
     state["noise"].append(("bootstrap_mx2 [17]", "KMS8party", boot["first"], lwe_keys, ~(m1 & m2)))
 
     return [kernel_row(
@@ -1316,12 +1316,12 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
     params = KMS_8PARTY_BLOCK
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    lwe_keys, scheme, _ = keygen(gen, params)
+    lwe_keys, scheme, _, _ = keygen(gen, params)
     torch.cuda.synchronize()
     block_s = time.time() - t0
     t0 = time.time()
-    bin_keys, bin_scheme, bin_party_keys = keygen(gen, KMS_8PARTY)
-    _, wide_scheme, wide_party_keys = keygen(gen, WIDE_GADGET)
+    bin_keys, bin_scheme, bin_party_keys, bin_crs = keygen(gen, KMS_8PARTY)
+    _, wide_scheme, wide_party_keys, _ = keygen(gen, WIDE_GADGET)
     torch.cuda.synchronize()
     print(
         f"[4 keygen] KMS8partyblock (k={params.k}, n={params.n}, N={params.big_n}, "
@@ -1456,7 +1456,7 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
         )
     ]
     binary = {
-        "lwe_keys": bin_keys, "scheme": bin_scheme, "party_keys": bin_party_keys,
+        "lwe_keys": bin_keys, "scheme": bin_scheme, "party_keys": bin_party_keys, "crs": bin_crs,
         "wide_party_keys": wide_party_keys, "ct": bct, "c2": bc2, "m1": bm1, "m2": bm2,
         "mx3_out": mx3_out, "sweep_ms": sweep_bin["ms"],
     }
@@ -2285,13 +2285,11 @@ def run_k32_binary(gen, device, smi: str, usage: dict, rate: dict, state: dict) 
         raise SystemExit(f"KMS32party bootstrap_mx3: expected {params.k} B2 sweeps, got {mx3_launches}")
     keys["scheme"] = lean = kms.drop_brk(scheme)  # brk_hat freed
     del scheme
-
-    def bootstrap_mx2(ct, scheme, params):
-        return fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params)
+    mx_scheme = fused_mx2.mx_scheme(lean, mx_keys.brk_mx)
 
     reset_launches()
-    boot, above = with_peak(lambda: bootstrap_chain(bootstrap_mx2, ct, c2, m1, m2, params, decrypt, lean,
-                                                    PARTY_CHAIN))
+    boot, above = with_peak(lambda: bootstrap_chain(fused_mx2.bootstrap_mx2, ct, c2, m1, m2, params, decrypt,
+                                                    mx_scheme, PARTY_CHAIN))
     launches = read_launches()
     runs = 1 + PARTY_CHAIN
     if launches["mx"] != runs * params.k or launches["sweep"] != 0 or min(launches["fwd"], launches["inv"]) == 0:
@@ -2364,10 +2362,8 @@ def run_other_parties(gen, smi: str, state: dict) -> None:
         if block:
             engine, bootstrap, instance = "bootstrap_mx3", fused_mx3.bootstrap_mx3, served_by(params)
         else:
-            engine, instance = "bootstrap_mx2", served_by(params, mx_keys=mx_keys)
-
-            def bootstrap(ct, scheme, params):
-                return fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params)
+            engine, bootstrap, instance = "bootstrap_mx2", fused_mx2.bootstrap_mx2, served_by(params, mx_keys=mx_keys)
+            scheme = fused_mx2.mx_scheme(scheme, mx_keys.brk_mx)
 
         ct, c2, m1, m2 = gate_inputs(gen, params, lwe_keys, BATCH)
         reset_launches()
@@ -2590,8 +2586,9 @@ def fields_equal(got, want) -> bool:
 def run_serialization(state: dict, binary: dict, tmp: str, device, smi: str) -> dict:
     """Phase 23: the KMS8party scheme without `brk_hat`, its MxKmsKeys and the
     CGGI scheme saved (`utils.save`) and loaded back onto the card
-    (`utils.load`); `bootstrap_mx2` and `bootstrap_fused` on the loaded keys
-    must give phases 17's and 13's outputs bit for bit.  Then the files that
+    (`utils.load`); `bootstrap_mx2` (on the loaded scheme and keys joined by
+    `fused_mx2.mx_scheme`) and `bootstrap_fused` on the loaded keys must
+    give phases 17's and 13's outputs bit for bit.  Then the files that
     phase 26's ranks load: the KMS8party ciphertext, the batch-minor phase-1
     keys, the KMS8partyblock scheme and its ciphertext.  Returns the paths."""
     objs = {"kms8party_scheme": state["mx2"]["lean"], "kms8party_mx_keys": state["mx2"]["mx_keys"],
@@ -2609,7 +2606,8 @@ def run_serialization(state: dict, binary: dict, tmp: str, device, smi: str) -> 
         load_s[name] = time.time() - t0
         if not fields_equal(loaded[name], obj):
             raise SystemExit(f"{name}: the loaded object differs from the saved one")
-    out = fused_mx2.bootstrap_mx2(binary["ct"], loaded["kms8party_scheme"], loaded["kms8party_mx_keys"], KMS_8PARTY)
+    loaded_mx = fused_mx2.mx_scheme(loaded["kms8party_scheme"], loaded["kms8party_mx_keys"].brk_mx)
+    out = fused_mx2.bootstrap_mx2(binary["ct"], loaded_mx, KMS_8PARTY)
     want = state["mx2"]["out"]
     if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
         raise SystemExit("bootstrap_mx2 on the loaded keys differs from phase 17's output")
@@ -2618,7 +2616,7 @@ def run_serialization(state: dict, binary: dict, tmp: str, device, smi: str) -> 
     want = state["cggi"]["out"]
     if not (torch.equal(out.b, want.b) and torch.equal(out.a, want.a)):
         raise SystemExit("bootstrap_fused on the loaded CGGI scheme differs from phase 13's output")
-    del loaded, bm
+    del loaded, loaded_mx, bm
     print(
         "[23 serialization] save / load onto the card, every field equal: " + "; ".join(
             f"{name} {sizes[name] / 1e6:.1f} MB, save {save_s[name]:.2f} s, load {load_s[name]:.2f} s"
@@ -2662,12 +2660,11 @@ def run_named_ranges(state: dict, binary: dict, smi: str) -> None:
     PHASE1_OF_SWEEPS of the sweeps in 6b / 17b), beside the kernel records'
     total of one more under torch.profiler; then the cost model's summary
     against the H100's peaks at the chains' times of phases 6 and 17."""
-    mx_keys = state["mx2"]["mx_keys"]
     cases = (
         ("bootstrap_mx3", fused_mx3.bootstrap_mx3, state["block"]["ct"], state["block"]["scheme"],
          KMS_8PARTY_BLOCK, state["block"], "6b"),
-        ("bootstrap_mx2", lambda ct, scheme, params: fused_mx2.bootstrap_mx2(ct, scheme, mx_keys, params),
-         binary["ct"], state["mx2"]["lean"], KMS_8PARTY, state["mx2"], "17b"),
+        ("bootstrap_mx2", fused_mx2.bootstrap_mx2, binary["ct"], state["mx2"]["mx_scheme"], KMS_8PARTY,
+         state["mx2"], "17b"),
     )
     for what, bootstrap, ct, scheme, params, path, tag in cases:
         timed = timed_ranges(lambda: bootstrap(ct, scheme, params))
@@ -3005,7 +3002,7 @@ def main() -> int:
             # no later phase reads the keys of phases 4-21: their device memory
             # goes to phase 31's four ranks, which hold graph pools beside keys
             for held, names in ((binary, ("scheme", "party_keys", "wide_party_keys")), (state["block"], ("scheme",)),
-                                (state["mx2"], ("lean", "mx_keys", "bm_keys")), (state["cggi"], ("scheme",))):
+                                (state["mx2"], ("lean", "mx_keys", "mx_scheme", "bm_keys")), (state["cggi"], ("scheme",))):
                 for name in names:
                     del held[name]
             torch.cuda.empty_cache()

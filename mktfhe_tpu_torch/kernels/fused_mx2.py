@@ -9,6 +9,14 @@ rotation is ONE kernel launch (csrc/mx_sweep.cu) with the 2^64 RLEV
 accumulator resident, then the lev key goes through the NTT kernel into the
 scheme's own prime basis, then phase 2 and the key switch of schemes/kms.py.
 
+The engine's entry is the normal path's: `setup(crs, party_keys, params)`
+makes an `MxKmsScheme`, a `KmsScheme` without `brk_hat` that holds the mx
+image `brk_mx` instead, and `bootstrap_mx2(ct, scheme, params)` serves it,
+so `gates.gate`, the CLI and `graphs.capture_bootstrap` drive it as they
+drive `bootstrap_mx3`.  The sharded path holds the image apart
+(`MxKmsKeys`, `build_mx_kms_keys`) and runs the same phase 1
+(`kms_phase1_mx2`).
+
 The monomial.  mx position pos evaluates at psi^o with o odd
 (`mx_ntt.mx_odd_exponents`), so the image of X^a - 1 there is
 psi^(a o mod 2N) - 1.  The JAX package split that power into two factor rows
@@ -31,6 +39,7 @@ runs `mx_sweep_plain`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -43,7 +52,9 @@ from ..ring.context import RingCtx, make_ring_ctx, nprimes_monomial_weighted
 from ..ring.modring import PRIMES, _root_of_unity, mulsum_mod, prime_column
 from ..ring.ntt import fwd_ntt
 from ..ring.torus import from_crt
+from ..schemes import kms
 from ..schemes.params import KmsBlockParams, KmsParams
+from ..utils.profiling import phase_range
 from . import _build
 from .fused_mx3 import MAX_L_GSW, MAX_LOG_B, _sweep_consts, check_tildea_range, phase1_init
 from .mx_ntt import NK, mx_eval_index, mx_fwd_ref, mx_inv_ref, mx_odd_exponents
@@ -62,6 +73,16 @@ class MxKmsKeys:
     brk_mx: torch.Tensor
 
 
+@dataclass(frozen=True)
+class MxKmsScheme(kms.KmsScheme):
+    """The mx engine's scheme (`setup`): the `KmsScheme`'s phase-2 and
+    key-switch keys, an empty `brk_hat`, and the parties' phase-1 keys in
+    the mx domain, brk_mx [k, n, npr, 2*l_gsw, 2, N] int32 residues,
+    npr = `mx_nprimes`."""
+
+    brk_mx: torch.Tensor
+
+
 def mx_nprimes(params: KmsParams) -> int:
     """CRT primes of the mx keys: the evaluation-domain monomial doubles the
     range of the 2*l_gsw-term external product (3 at KMS8party, 4 at
@@ -75,11 +96,31 @@ def build_mx_kms_keys(party_keys, params: KmsParams, npr: int | None = None) -> 
     [n, 2, l, 2, N]) for the mx engine, one party at a time: lift, forward
     transform into the mx order, then [n, 2, l, 2, npr, N] ->
     [n, npr, 2l, 2, N].  `npr` overrides the prime count."""
-    from ..schemes import kms  # kms imports the kernels package
-
     npr = mx_nprimes(params) if npr is None else npr
     ctx = make_ring_ctx(params.big_n, params.ring_torus_bits, npr)
-    return MxKmsKeys(brk_mx=kms.phase1_key_image(party_keys, ctx, mx_fwd_ref))
+    with phase_range("mktfhe/setup/mx_keys"):
+        return MxKmsKeys(brk_mx=kms.phase1_key_image(party_keys, ctx, mx_fwd_ref))
+
+
+def setup(crs_polys: torch.Tensor, party_keys, params: KmsParams) -> MxKmsScheme:
+    """The evaluator's key set-up for `bootstrap_mx2`, on the CRS's device:
+    `kms.setup` without the `brk_hat` images, and the mx image of every
+    party's bootstrapping key, built party by party (`build_mx_kms_keys`,
+    in the named range mktfhe/setup/mx_keys; 1.76 GB at KMS8party).
+    Binary keys only."""
+    if isinstance(params, KmsBlockParams):
+        raise TypeError(BINARY_ONLY)
+    scheme = kms.setup(crs_polys, party_keys, params, with_brk=False)
+    return mx_scheme(scheme, build_mx_kms_keys(party_keys, params).brk_mx)
+
+
+def mx_scheme(scheme: kms.KmsScheme, brk_mx: torch.Tensor) -> MxKmsScheme:
+    """`scheme`'s phase-2 and key-switch keys (the tensors shared, its
+    `brk_hat` left out) with the mx image `brk_mx`: the last step of
+    `setup`, and the engine's scheme from the two objects the sharded path
+    holds apart (a `KmsScheme` and `MxKmsKeys`)."""
+    lean = kms.drop_brk(scheme)
+    return MxKmsScheme(**{f.name: getattr(lean, f.name) for f in dataclasses.fields(kms.KmsScheme)}, brk_mx=brk_mx)
 
 
 @functools.lru_cache(maxsize=None)
@@ -295,20 +336,19 @@ def kms_phase1_mx2(tildea_p, brk_mx_p, iter_rows: int, params: KmsParams, out_ct
     of the scheme's own prime basis `out_ctx`, [G, rows, 2, npr, N] int32.
     Bit-identical to kms.phase1.  A step of the bootstrap: tildea_p comes
     from `mod_switch_2n`, so its range is not read back."""
-    from ..schemes.kms import levkey_lift  # kms imports the kernels package
-
     ctx_p = make_ring_ctx(params.big_n, params.ring_torus_bits, brk_mx_p.shape[1])
-    return levkey_lift(_sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p), out_ctx)
+    return kms.levkey_lift(_sweep(tildea_p, brk_mx_p, iter_rows, params, ctx_p), out_ctx)
 
 
-def bootstrap_mx2(ct: Lwe, scheme, mx_keys: MxKmsKeys, params: KmsParams) -> Lwe:
-    """KMS multi-key gate bootstrap with the mx sweep kernel in phase 1;
-    phase 2 and the key switch as in schemes.kms.  Reads no `scheme.brk_hat`
-    (a scheme after `kms.drop_brk` will do).  Binary keys only;
-    bit-identical to kms.bootstrap and bootstrap_mx3.  Party 1 sweeps one
-    RLEV row (its phase 2 reads no other), the others l_lev."""
-    from ..schemes import kms  # kms imports the kernels package
-
+def bootstrap_mx2(ct: Lwe, scheme: MxKmsScheme, params: KmsParams) -> Lwe:
+    """KMS multi-key gate bootstrap with the mx sweep kernel in phase 1, on
+    the scheme's own mx image (`setup`); phase 2 and the key switch as in
+    schemes.kms.  Binary keys only; bit-identical to kms.bootstrap and
+    bootstrap_mx3.  Party 1 sweeps one RLEV row (its phase 2 reads no
+    other), the others l_lev."""
     if isinstance(params, KmsBlockParams):
         raise TypeError(BINARY_ONLY)
-    return kms.bootstrap_with_phase1(ct, scheme, params, "mx2", mx_keys)
+    if not isinstance(scheme, MxKmsScheme):
+        raise ValueError(f"bootstrap_mx2 reads the mx image brk_mx, which a {type(scheme).__name__} does not "
+                         f"hold; make the scheme with fused_mx2.setup")
+    return kms.bootstrap_with_phase1(ct, scheme, params, "mx2", scheme)

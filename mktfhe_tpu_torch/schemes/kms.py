@@ -22,9 +22,11 @@ Key switch: modulus switch 2^64 -> 2^32, then the per-party int8-limb key
 switch (schemes/common.py).
 
 `bootstrap_bm` runs phase 1 on the batch-minor engine's own keys
-(kernels/batchminor.py), `kernels/fused_mx2.py:bootstrap_mx2` on mx-domain
-keys; neither reads `KmsScheme.brk_hat`, so `setup(..., with_brk=False)` and
-`drop_brk` give them a scheme without it.
+(kernels/batchminor.py); `kernels/fused_mx2.py:bootstrap_mx2` on the
+mx-domain image that its own set-up, `fused_mx2.setup`, puts in the scheme
+(an `MxKmsScheme`) in place of `brk_hat`.  Neither reads
+`KmsScheme.brk_hat`; `setup(..., with_brk=False)` and `drop_brk` give a
+scheme without it.
 
 The scheme stores NTT-domain keys without Shoup companions: products of
 runtime residues are reduced with int64 `%`, which gives the same
@@ -175,7 +177,8 @@ def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKms
     The brk images (2.55 GB at KMS8partyblock) are written party by party
     into one preallocated tensor, so only one party's transform temporaries
     are alive at a time.  with_brk=False skips them (an empty `brk_hat`, as
-    after `drop_brk`): for the engines that carry their own phase-1 keys.
+    after `drop_brk`): for the engines that carry their own phase-1 keys
+    (`fused_mx2.setup` makes its scheme so, and adds its mx image).
     """
     ctx = _ctx(params)
     dev = crs_polys.device
@@ -210,9 +213,10 @@ def setup(crs_polys: torch.Tensor, party_keys: list[KmsPartyKey], params: AnyKms
 
 def drop_brk(scheme: KmsScheme) -> KmsScheme:
     """The scheme without its phase-1 keys (an empty `brk_hat`), for the
-    engines that carry their own: `fused_mx2.bootstrap_mx2` (`MxKmsKeys`) and
-    `bootstrap_bm` (`BmKmsPhase1`).  Phase 2 and the key switch never read
-    `brk_hat`; `bootstrap` and `bootstrap_mx3` do, and refuse such a scheme."""
+    engines that carry their own: `bootstrap_bm` (`BmKmsPhase1`) and the
+    sharded path's phase 1 (`MxKmsKeys`, `BmKmsPhase1`).  Phase 2 and the
+    key switch never read `brk_hat`; `bootstrap` and `bootstrap_mx3` do, and
+    refuse such a scheme."""
     empty = torch.zeros((0,), dtype=torch.int32, device=scheme.brk_hat.device)
     return dataclasses.replace(scheme, brk_hat=empty)
 
@@ -223,7 +227,8 @@ def require_brk(scheme: KmsScheme, engine: str) -> None:
     if scheme.brk_hat.numel() == 0:
         raise ValueError(
             f"{engine} reads scheme.brk_hat, which this scheme does not hold (setup with "
-            f"with_brk=False, or drop_brk); use bootstrap_mx2 or bootstrap_bm with their own keys"
+            f"with_brk=False, or drop_brk); use bootstrap_mx2 on a scheme of fused_mx2.setup, or bootstrap_bm "
+            f"with its own keys"
         )
 
 
@@ -381,7 +386,8 @@ def _levkeys(tildea: torch.Tensor, engine: str, scheme: KmsScheme, params: AnyKm
 
 def phase1_engine(phase1_keys) -> str:
     """The phase-1 engine that reads `phase1_keys`: None 'ref' (on
-    `scheme.brk_hat`), an MxKmsKeys 'mx2', a BmKmsPhase1 'bm'."""
+    `scheme.brk_hat`), an MxKmsKeys 'mx2', a BmKmsPhase1 'bm' (the sharded
+    path's forms)."""
     from ..kernels.batchminor import BmKmsPhase1  # both import this module
     from ..kernels.fused_mx2 import MxKmsKeys
 
@@ -399,9 +405,10 @@ def phase1_levkey(engine: str, party: int, tildea_p: torch.Tensor, rows: int, sc
     `phase1_block` on `scheme.brk_hat[party]`), 'mx3' (the sweep kernel,
     `kms_phase1_mx3`, on the same keys), 'bm' (`kms_phase1_bm` on
     `phase1_keys.brk_bm[party]`, a BmKmsPhase1) or 'mx2' (`kms_phase1_mx2`
-    on `phase1_keys.brk_mx[party]`, an MxKmsKeys).  `party` indexes the
-    tensors given, which may hold only some of the parties.  Returns the lev
-    key [G, rows, 2, npr, N] in the scheme's prime basis `ctx`."""
+    on `phase1_keys.brk_mx[party]`, an MxKmsKeys or an MxKmsScheme).
+    `party` indexes the tensors given, which may hold only some of the
+    parties.  Returns the lev key [G, rows, 2, npr, N] in the scheme's prime
+    basis `ctx`."""
     if engine == "ref":
         if isinstance(params, KmsBlockParams):
             return phase1_block(tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)

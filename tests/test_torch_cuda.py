@@ -31,7 +31,10 @@ a capture records none.  Then the ranges inside a graph captured with
 ranges=True: an external event pair times a B1 launch as eager events do,
 `range_ms()` names the eager ranges and adds up to the replay's event time,
 the bits are those of the graph without ranges, which holds no event node;
-and a replay's host spans.  Skips where there is no
+and a replay's host spans.  Last, KMS8party on the mx engine through the
+normal path: `fused_mx2.setup`'s scheme (no `brk_hat`), its set-up range,
+and a replay of `bootstrap_mx2` at G = 128 == eager `bootstrap_mx2` ==
+`bootstrap_mx3`, with its launch counts.  Skips where there is no
 CUDA card; this file imports no jax, so on a machine without it run it
 without the repository's conftest:
 
@@ -1294,3 +1297,63 @@ def test_replay_opens_its_host_spans(device, tmp_path):
     g0, g1 = spans[0][:2]
     assert all(g0 <= s0 <= s1 <= g1 for s0, s1, _ in spans[1:])
     assert all(spans[i][1] <= spans[i + 1][0] for i in range(1, 4))
+
+
+# --- KMS8party on the mx engine, through the normal path ----------------------
+
+
+@pytest.fixture(scope="module")
+def kms8party():
+    """KMS8party keys from the port's keygen on the card, both schemes (with
+    `brk_hat`, and `fused_mx2.setup`'s, timed by its named ranges) and a
+    batch of 128 NAND gates of parties 0 and 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    device = torch.device("cuda", 0)
+    params = presets.KMS_8PARTY
+    gen = torch.Generator(device=device).manual_seed(8)
+    a = kms.crs(gen, params)
+    parties = [kms.party_keygen(gen, a, params) for _ in range(params.k)]
+    lwe_keys, party_keys = [p[0] for p in parties], [p[3] for p in parties]
+    del parties
+    with profiling.event_ranges() as setup_ms:
+        mx_scheme = fused_mx2.setup(a, party_keys, params)
+    full = kms.setup(a, party_keys, params)
+    m1, m2 = (torch.randint(0, 2, (128,), generator=gen, device=device).bool() for _ in range(2))
+    cts = [gates.lwe_ith_encrypt_bit(gen, m, i, lwe_keys[i], params.alpha, params.k, (128,))
+           for i, m in enumerate((m1, m2))]
+    return dict(params=params, lwe_keys=lwe_keys, mx_scheme=mx_scheme, full=full, setup_ms=setup_ms, inputs=cts,
+                ct=gates.gate_affine(gates.GATE_IDS["NAND"], *cts), clear=~(m1 & m2))
+
+
+def test_kms8party_mx2_replay_equals_eager(kms8party):
+    """At KMS8party, G = 128: `bootstrap_mx2(ct, scheme, params)` on the
+    scheme of `fused_mx2.setup` (its `brk_hat` empty) captured by
+    `capture_bootstrap` with no extra argument; a replay under `gates.gate`
+    equals the eager `bootstrap_mx2` and `bootstrap_mx3` (on the scheme with
+    `brk_hat`) bit for bit, decrypts to the NANDs, and launches B5 k times,
+    B2 never and the hybrid product kernel k times, as the eager call
+    does."""
+    c = kms8party
+    params, scheme, ct = c["params"], c["mx_scheme"], c["ct"]
+    assert scheme.brk_hat.numel() == 0
+    eager = fused_mx2.bootstrap_mx2(ct, scheme, params)
+    assert _same(eager, fused_mx3.bootstrap_mx3(ct, c["full"], params))
+    _reset_counts()
+    fused_mx2.bootstrap_mx2(ct, scheme, params)
+    counts = {w: n for w, (n, _) in graphs.launch_counts().items()}
+    assert counts["mx_sweep"] == params.k and counts["phase1_sweep"] == 0 and counts["hybrid_product"] == params.k
+    graphed = graphs.capture_bootstrap(fused_mx2.bootstrap_mx2, scheme, params, ct)
+    assert graphed.extra == ()
+    _reset_counts()
+    got = gates.gate("NAND", *c["inputs"], lambda x: graphed(x, scheme, params))
+    assert {w: n for w, (n, _) in graphs.launch_counts().items()} == counts
+    assert _same(got, eager)
+    assert torch.equal(gates.lwe_decrypt_bit_mk(got, c["lwe_keys"]), c["clear"])
+
+
+def test_kms8party_mx_keys_range_at_setup(kms8party):
+    """The mx image's build is timed by the named range mktfhe/setup/mx_keys,
+    and `fused_mx2.setup` opens no other range."""
+    assert list(kms8party["setup_ms"]) == ["mktfhe/setup/mx_keys"]
+    assert kms8party["setup_ms"]["mktfhe/setup/mx_keys"] > 0

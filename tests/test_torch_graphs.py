@@ -55,7 +55,8 @@ def _single_key(params, setup, device, seed):
     return scheme, gates.gate_affine(gates.GATE_IDS["NAND"], ct1, ct2), ct2, lambda out: gates.lwe_decrypt_bit(out, lwe_key)
 
 
-def _multi_key(mod, params, device, seed):
+def _multi_key(mod, params, device, seed, setup=None):
+    """Keys of `mod`'s keygen and the scheme of its set-up (or of `setup`)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     a = mod.crs(gen, params)
     parties = [mod.party_keygen(gen, a, params) for _ in range(params.k)]
@@ -64,7 +65,7 @@ def _multi_key(mod, params, device, seed):
     ct1, ct2 = (gates.lwe_ith_encrypt_bit(gen, m, i, keys[i], params.alpha, params.k, (BATCH,))
                 for i, m in enumerate((m1, m2)))
     ct = gates.gate_affine(gates.GATE_IDS["NAND"], ct1, ct2)
-    return mod.setup(a, [p[-1] for p in parties], params), [p[-1] for p in parties], ct, ct2, \
+    return (setup or mod.setup)(a, [p[-1] for p in parties], params), [p[-1] for p in parties], ct, ct2, \
         lambda out: gates.lwe_decrypt_bit_mk(out, keys)
 
 
@@ -90,11 +91,10 @@ def engine_case(name: str, device, seed: int = 3) -> dict:
     # the mx engine needs N % 128 == 0: TinyKMS2partyMX is TinyKMS2party at N = 128
     params = {"fused_mx3.bootstrap_mx3 block": KMS_TINY_BLOCK,
               "fused_mx2.bootstrap_mx2": TEST_PRESETS["TinyKMS2partyMX"]}.get(name, TEST_PRESETS["TinyKMS2party"])
-    scheme, party_keys, ct, c2, decrypt = _multi_key(kms, params, device, seed)
+    setup = fused_mx2.setup if name == "fused_mx2.bootstrap_mx2" else None
+    scheme, party_keys, ct, c2, decrypt = _multi_key(kms, params, device, seed, setup)
     extra = ()
-    if name == "fused_mx2.bootstrap_mx2":
-        extra = (fused_mx2.build_mx_kms_keys(party_keys, params),)
-    elif name == "kms.bootstrap_bm":
+    if name == "kms.bootstrap_bm":
         extra = (batchminor.build_bm_kms_phase1(party_keys, params),)
     if extra:
         scheme = kms.drop_brk(scheme)
@@ -231,7 +231,7 @@ def refusals(case: dict) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", ["fused_mx2.bootstrap_mx2", "fused_step.bootstrap_fused"])
+@pytest.mark.parametrize("name", ["fused_mx2.bootstrap_mx2", "fused_step.bootstrap_fused", "kms.bootstrap_bm"])
 def test_graphed_refuses_what_it_does_not_hold(name):
     case = engine_case(name, CPU)
     graphed = capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])

@@ -62,6 +62,7 @@ def reference_case(params):
         "want": want,
         "ct": bridge.lwe(ct, CPU),
         "party_keys": pkeys,
+        "crs": bridge.from_numpy(a, CPU),
         "scheme": kms.setup(bridge.from_numpy(a, CPU), pkeys, tparams),
     }
 
@@ -76,8 +77,7 @@ def port_output(case, engine: str):
     if engine == "kms.bootstrap_bm":
         bm_keys = batchminor.build_bm_kms_phase1(case["party_keys"], tparams)
         return kms.bootstrap_bm(ct, kms.drop_brk(scheme), bm_keys, tparams)
-    mx_keys = fused_mx2.build_mx_kms_keys(case["party_keys"], tparams)
-    return fused_mx2.bootstrap_mx2(ct, kms.drop_brk(scheme), mx_keys, tparams)
+    return fused_mx2.bootstrap_mx2(ct, fused_mx2.setup(case["crs"], case["party_keys"], tparams), tparams)
 
 
 def assert_same(got, want) -> None:
@@ -123,8 +123,8 @@ def test_bootstrap_matches_reference(case, engine):
 
 
 def test_bootstrap_mx2_matches_reference(binary):
-    """The mx engine (binary keys only), on its own keys built from the
-    bridged party keys and a scheme without `brk_hat`."""
+    """The mx engine (binary keys only), on the scheme of its own set-up
+    from the bridged party keys: no `brk_hat`, the mx image in its place."""
     assert_same(port_output(binary, "bootstrap_mx2"), binary["want"])
 
 

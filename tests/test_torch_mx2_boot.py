@@ -5,7 +5,8 @@ the NTT kernel's) against the JAX package's `bootstrap_mx2` with its Pallas
 sweep interpreted (`interpret=True, g_tile=4`), on the reference's own keys
 and gate ciphertexts bridged as numpy, at TinyKMS2partyMX; tolerance 0.  Also
 the KMS golden digest through `bootstrap_mx2`, the port's three KMS engines
-against each other, a scheme without `brk_hat`, and the refusals.
+against each other, the scheme of `fused_mx2.setup` (no `brk_hat`, the mx
+image in its place), and the refusals.
 """
 
 import hashlib
@@ -55,7 +56,7 @@ def keys():
         "parties": parties,
         "tparams": tparams,
         "scheme": kms.setup(bridge.from_numpy(a, CPU), pkeys, tparams),
-        "lean": kms.setup(bridge.from_numpy(a, CPU), pkeys, tparams, with_brk=False),
+        "mx_scheme": fused_mx2.setup(bridge.from_numpy(a, CPU), pkeys, tparams),
         "mx_keys": fused_mx2.build_mx_kms_keys(pkeys, tparams),
     }
 
@@ -67,7 +68,7 @@ def gates(keys):
     m1 = rng.integers(0, 2, size=4).astype(bool)
     m2 = rng.integers(0, 2, size=4).astype(bool)
     ct = _gate_ct(keys["parties"], m1, m2, jnp.array([0, 2, 4, 5], dtype=jnp.int32))
-    got = fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), keys["scheme"], keys["mx_keys"], keys["tparams"])
+    got = fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), keys["mx_scheme"], keys["tparams"])
     return ct, got
 
 
@@ -86,7 +87,7 @@ def test_bootstrap_mx2_golden_digest(keys):
     reference-made keys and ciphertexts."""
     m = np.array([True, False, True, True])
     ct = _gate_ct(keys["parties"], m, ~m, 0)
-    out = fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), keys["scheme"], keys["mx_keys"], keys["tparams"])
+    out = fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), keys["mx_scheme"], keys["tparams"])
     h = hashlib.sha256()
     for x in (out.b, out.a):
         h.update(np.ascontiguousarray(bridge.to_numpy(x)).tobytes())
@@ -102,12 +103,21 @@ def test_bootstrap_mx2_matches_port_engines(keys, gates, engine):
 
 @pytest.mark.parametrize("how", ["drop_brk", "setup_without_brk"])
 def test_bootstrap_mx2_runs_without_brk_hat(keys, gates, how):
+    """The scheme of `fused_mx2.setup`, and a scheme with `brk_hat` joined to
+    the mx image by `mx_scheme` (which drops it), hold no `brk_hat`, the
+    phase-2 and key-switch keys of `kms.setup` and the mx image of
+    `build_mx_kms_keys`."""
     ct, got = gates
-    lean = kms.drop_brk(keys["scheme"]) if how == "drop_brk" else keys["lean"]
+    if how == "drop_brk":
+        lean = fused_mx2.mx_scheme(keys["scheme"], keys["mx_keys"].brk_mx)
+    else:
+        lean = keys["mx_scheme"]
+    assert isinstance(lean, fused_mx2.MxKmsScheme)
     assert lean.brk_hat.numel() == 0 and lean.brk_hat.dtype == torch.int32
     assert torch.equal(lean.rlk_f_hat, keys["scheme"].rlk_f_hat)
     assert torch.equal(lean.ksk_a, keys["scheme"].ksk_a)
-    assert _same(got, fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), lean, keys["mx_keys"], keys["tparams"]))
+    assert torch.equal(lean.brk_mx, keys["mx_keys"].brk_mx)
+    assert _same(got, fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), lean, keys["tparams"]))
 
 
 @pytest.mark.parametrize("engine", ["kms.bootstrap", "bootstrap_mx3"])
@@ -125,4 +135,5 @@ def test_bootstrap_mx2_refuses_block_parameters(keys, gates):
         l_gsw=3, log_b_gsw=8, l_lev=2, log_b_lev=8, l_uni=3, log_b_uni=8, k=2,
     )
     with pytest.raises(TypeError, match="the mx phase-1 kernel implements the binary-key rotation"):
-        fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), keys["scheme"], keys["mx_keys"], block)
+        fused_mx2.bootstrap_mx2(bridge.lwe(ct, CPU), keys["mx_scheme"], block)
+
