@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import heapq
 import importlib
 import importlib.util
 import json
@@ -211,7 +212,11 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float, f
     # set-up: the libraries, the evaluator's key set-up, the input pool, the
     # capture.  The benchmark's own work is off its clock: the parties' keys,
     # made by the reference on the card from the seed as each party makes its
-    # own, and the host store of the window's outputs.
+    # own, and the host store of the window's outputs.  The keys come from
+    # the radix-2 ring (`ExactRing`), whose transients leave the allocator as
+    # the program's key set-up has always found it: what that set-up reserves
+    # is part of `device_reserved_gb`.  The checks use the faster `MatrixRing`
+    # (the same words), after the window.
     if device.type == "cuda":
         ad.build()
         torch.zeros(1, device=device)  # the context, on the set-up clock
@@ -324,7 +329,8 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float, f
         x = y
         if t_done >= deadline:
             break
-    window_s = time.perf_counter() - start
+    window_end = time.perf_counter()
+    window_s = window_end - start
     if prof is not None:
         window_range.__exit__(None, None, None)
         prof.__exit__(None, None, None)
@@ -342,9 +348,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float, f
     if trace:
         if marks:
             readings.layer_busy_ms = [a.elapsed_time(b) for a, b in marks]
+        ts = time.perf_counter()
         readings.phase_ms, readings.tildea = _eager_split(ref, ad, engine, scheme, port_params,
                                                           ad.affine(ops[0], pool[0], pool[1]), params)
+        tp = time.perf_counter()
         busy, breakdown = _profile_summary(prof, window_s)
+        log(f"[bench] traced: the profiler stopped in {ts - window_end:.1f} s, the eager split {tp - ts:.1f} s, "
+            f"the profile's summary {time.perf_counter() - tp:.1f} s", file=sys.stderr)
     del graphed, call, scheme, boot
     gc.collect()
     if device.type == "cuda":
@@ -352,13 +362,17 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float, f
 
     # the checks, once the window is closed and the program's state freed
     tc = time.perf_counter()
-    wrong, failed = _decrypt_check(ref, outs, ops, pool, bits, secrets, pool_batches)
+    clear = _clear_chain(ref, ops, bits, layers, pool_batches)
+    tcl = time.perf_counter() - tc
+    wrong, failed = _decrypt_check(ref, outs, clear, secrets, pool[0].b.device)
     td = time.perf_counter() - tc
     sample = _sample(seed, layers, width, traffic["check_lanes"], ref)
-    mismatch, bad = _reference_check(ref, ring, params, seed, crs, sample, outs, ops, pool, pool_batches)
+    mismatch, bad = _reference_check(ref, params, seed, crs, sample, outs, ops, pool, pool_batches)
     failed |= bad
-    log(f"[bench] checks {time.perf_counter() - tc:.1f} s: {layers * width} gates decrypted ({td:.1f} s), "
-        f"{len(sample)} bootstrapped again by the reference", file=sys.stderr)
+    tr = time.perf_counter() - tc - td
+    log(f"[bench] checks {time.perf_counter() - tc:.1f} s: {layers * width} gates decrypted ({td:.1f} s, the clear "
+        f"circuit {tcl:.1f} s of it), {len(sample)} bootstrapped again by the reference ({tr:.1f} s, "
+        f"{tr / max(1, len(sample)):.3f} s a gate)", file=sys.stderr)
 
     gates_done = layers * width
     values = {
@@ -391,6 +405,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float, f
             result["breakdown"] = breakdown
     result["checks"] = checks
     lines = [f"check {name}: {c['value']} (limit {c['limit']})" for name, c in checks.items()]
+    log(f"[bench] from the window's end to the result {time.perf_counter() - window_end:.1f} s", file=sys.stderr)
     return result, lines
 
 
@@ -445,19 +460,38 @@ def _profile_summary(prof, window_s: float):
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    host.sort()
     idle: dict[str, float] = {}
-    for g0, g1 in gaps:
-        name = "host outside the bench ranges"
-        for h0, h1, hname in host:
-            if h0 > g0:
-                break
-            if g0 <= h1:
-                name = hname
+    for (g0, g1), name in zip(gaps, _gap_owners(gaps, host)):
         idle[name] = idle.get(name, 0.0) + (g1 - g0) / 1e9
     top = [(_short(n), t) for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]]
     gap_list = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
     return busy / 1e9, {"device_ops": [[n, s] for n, s in top], "idle_gaps": [[n, s] for n, s in gap_list]}
+
+
+OUTSIDE = "host outside the bench ranges"
+
+
+def _gap_owners(gaps: list, host: list) -> list[str]:
+    """The host range each idle gap (start, end) goes to: of the ranges
+    (start, end, name) that began at or before the gap's start and ended at
+    or after it, the last in the order of (start, end, name); else OUTSIDE.
+    Gaps and ranges are each sorted once and walked together: a heap holds
+    the ranges begun so far by their rank in that order, and a range that
+    ended before a gap's start is dropped for good, since no later gap
+    starts earlier."""
+    host = sorted(host)
+    order = sorted(range(len(gaps)), key=lambda i: gaps[i][0])
+    owners, begun, nxt = [OUTSIDE] * len(gaps), [], 0
+    for i in order:
+        g0 = gaps[i][0]
+        while nxt < len(host) and host[nxt][0] <= g0:
+            heapq.heappush(begun, -nxt)
+            nxt += 1
+        while begun and host[-begun[0]][1] < g0:
+            heapq.heappop(begun)
+        if begun:
+            owners[i] = host[-begun[0]][2]
+    return owners
 
 
 def _short(name: str, width: int = 120) -> str:
@@ -476,11 +510,9 @@ def _clear_chain(ref, ops, bits, layers: int, pool_batches: int) -> torch.Tensor
     return torch.stack(out)
 
 
-def _decrypt_check(ref, outs: _Outputs, ops, pool, bits, secrets, pool_batches):
-    """Every output decrypted against the clear circuit: (wrong bits, the
-    set of (layer, gate) that failed)."""
-    clear = _clear_chain(ref, ops, bits, len(outs), pool_batches)
-    dev = pool[0].b.device
+def _decrypt_check(ref, outs: _Outputs, clear: torch.Tensor, secrets, dev):
+    """Every output decrypted against the clear circuit [layers, W]: (wrong
+    bits, the set of (layer, gate) that failed)."""
     failed = set()
     for i in range(len(outs)):
         got = ref.decrypt(outs.b[i].to(dev), outs.a[i].to(dev), secrets).cpu()
@@ -499,10 +531,11 @@ def _sample(seed: int, layers: int, width: int, lanes: int, ref) -> list[tuple[i
     return [(l, g) for g in sorted(gates) for l in range(layers)]
 
 
-def _reference_check(ref, ring, params, seed, crs, sample, outs: _Outputs, ops, pool, pool_batches):
+def _reference_check(ref, params, seed, crs, sample, outs: _Outputs, ops, pool, pool_batches):
     """The sampled gates bootstrapped by the plain reference from the same
     inputs, `REF_BLOCK` at a time: words that differ from the program's."""
     dev = pool[0].b.device
+    ring = ref.MatrixRing(params.big_n, dev)
     mismatch, bad = 0, set()
     for s0 in range(0, len(sample), REF_BLOCK):
         block = sample[s0:s0 + REF_BLOCK]

@@ -23,10 +23,12 @@ polynomial.  `ExactRing` computes it by a negacyclic number-theoretic
 transform over four primes below 2^30 (their product, about 2^119.6, covers
 four times the largest integer any contraction reaches, which `check_range`
 asserts), then a balanced CRT reconstruction mod 2^64: the exact result.
-`F64Ring` computes the same products by a float64 complex FFT, the
-precision of the scheme's original Julia implementation (a 53-bit mantissa
-for 64-bit torus values): the benchmark's control, which must fail the
-exact comparison.
+`MatrixRing` computes the same residues and words with fewer passes over
+memory (each transform as two float64 products of exact integers below
+2^53): the bootstraps of the benchmark's check.  `F64Ring` computes the
+same products by a float64 complex FFT, the precision of the scheme's
+original Julia implementation (a 53-bit mantissa for 64-bit torus values):
+the benchmark's control, which must fail the exact comparison.
 """
 
 from __future__ import annotations
@@ -272,6 +274,8 @@ class ExactRing:
     below 2^30.  A transformed polynomial ("hat") is int64 residues
     [..., P, N]; products of two residues stay below 2^60."""
 
+    exact = True  # its words are the exact result (F64Ring's are not)
+
     def __init__(self, n: int, device):
         self.n, self.device = n, device
         ps = ntt_primes(n)
@@ -364,8 +368,168 @@ class ExactRing:
         if negative, before the [P, N] axes)."""
         return a.sum(dim if dim >= 0 else dim - 2) % self.p
 
-    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return (a + b) % self.p
+    def mulsum(self, a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum over the batch axis `dim` (as `sum`) of the products of two
+        broadcast hats."""
+        return self.sum(self.mul(a, b), dim)
+
+
+LIMB = 1 << 15  # the float64 products' operands are cut into limbs below 2^15
+
+
+class MatrixRing(ExactRing):
+    """ExactRing's ring (its primes, residues and results, word for word)
+    with fewer passes over memory: each transform is two float64 matrix
+    products, a contraction runs in place.
+
+    N = N1 N2 (N1 <= N2 <= 64).  The forward transform evaluates at the odd
+    powers of psi, hat[k] = sum_j x_j psi^(j (2k + 1)) mod p, k = k1 + N1 k2,
+    stored as [k1][k2]: with j = j1 N2 + j2, psi^(j (2k + 1)) =
+    psi^(j1 N2 (2 k1 + 1)) psi^(j2 (2k + 1)), so a product over j1 (the
+    same N1 x N1 matrix for every j2 and every prime's columns side by side)
+    and then, for each (prime, k1), one over j2.  The inverse is the same
+    two products backwards, with psi^-1 and 1/N.  Every product is of
+    integers: its operands below 2^16 and 2^30, at most 128 terms, so each
+    partial sum stays below 2^53 and float64 holds it exactly; a residue
+    (below 2^30) enters as two 15-bit limbs, the high one against the matrix
+    times 2^15 mod p, side by side along the contracted axis.  Torus inputs
+    enter as four balanced 16-bit limbs, transformed together and summed
+    with weights 2^16i mod p.  The CRT reconstruction is Garner's with one
+    remainder a prime.  Hats are in another order than ExactRing's: the two
+    rings' hats do not mix."""
+
+    def __init__(self, n: int, device):
+        super().__init__(n, device)
+        n1 = 1 << ((n.bit_length() - 1) // 2)
+        n2 = n // n1
+        if n2 > 64:
+            raise ValueError(f"N = {n}: the matrix products' sums would pass 2^53")
+        self.n1, self.n2 = n1, n2
+        ps = self.primes
+        f64 = dict(dtype=torch.float64, device=device)
+        self.pf = torch.tensor(ps, **f64)
+        roots = [_root_2n(q, n) for q in ps]
+        psi = torch.tensor([[pow(r, e, q) for e in range(2 * n)] for r, q in zip(roots, ps)],
+                           dtype=torch.int64, device=device)  # [P, 2N]: psi^e
+        ninv = torch.tensor([pow(n, -1, q) for q in ps], dtype=torch.int64, device=device)
+        i1 = torch.arange(n1, device=device)
+        i2 = torch.arange(n2, device=device)
+
+        def powers(e):  # psi^e of each prime for exponents e [...]: [P, ...]
+            return psi[:, torch.remainder(e, 2 * n).reshape(-1)].reshape(len(ps), *e.shape)
+
+        def limbed(m, axis):  # m and 2^15 m mod p side by side along `axis`, float64
+            p = self.p.view(-1, *[1] * (m.dim() - 1))
+            return torch.cat([m, m * LIMB % p], dim=axis).to(torch.float64)
+
+        odd1 = 2 * i1 + 1
+        odd = odd1[:, None] + 2 * n1 * i2  # [k1, k2]: 2k + 1
+        # forward: [j1, (P, k1)]; [P, k1, (limb, j2), k2]
+        self.f1 = powers(n2 * i1[:, None] * odd1).permute(1, 0, 2).reshape(n1, -1).to(torch.float64)
+        self.f2 = limbed(powers(i2[None, :, None] * odd[:, None, :]), 2)
+        # inverse: [P, k1, (limb, k2), j2], 1/N in it; [P, (limb, k1), j1]
+        self.g2 = limbed(powers(-i2[None, None, :] * odd[:, :, None]) * ninv[:, None, None, None]
+                         % self.p[:, :, None, None], 2)
+        self.g1 = limbed(powers(-n2 * i1[None, :] * odd1[:, None]), 1)
+        self.limb_w = torch.tensor([[pow(2, 16 * i, q) for q in ps] for i in range(4)], dtype=torch.int64,
+                                   device=device)[:, :, None]  # [4, P, 1]: 2^16i mod p
+        prefix = [math.prod(ps[:j]) for j in range(len(ps))]
+        self.garner_c = []  # t_i = r_i c_ii + sum_j<i t_j c_ij mod p_i
+        for i, q in enumerate(ps):
+            c = pow(prefix[i], -1, q)
+            self.garner_c.append([(-prefix[j] * c) % q for j in range(i)] + [c])
+
+    def fwd(self, x: torch.Tensor) -> torch.Tensor:
+        """Integer polynomials int64 [..., N] (signed) -> hat [..., P, N]."""
+        x = x.long()
+        lo, hi = x.aminmax() if x.numel() else (0, 0)
+        if -(1 << 16) <= lo and hi <= 1 << 16:
+            return self._fwd_small(x)
+        limbs = []  # x = sum_i c_i 2^16i, c_i in [-2^15, 2^15] (the top one takes what is left)
+        for _ in range(3):
+            c = ((x + LIMB) & 0xFFFF) - LIMB
+            limbs.append(c)
+            x = (x >> 16) + (c < 0).long()
+        limbs.append(x)
+        h = self._fwd_small(torch.stack(limbs))  # [4, ..., P, N]
+        w = self.limb_w.reshape(4, *[1] * (h.dim() - 3), len(self.primes), 1)
+        out = h[0]
+        for i in range(1, 4):
+            out.addcmul_(h[i], w[i])
+        return out.remainder_(self.p)
+
+    def _fwd_small(self, x: torch.Tensor) -> torch.Tensor:
+        """fwd of coefficients of magnitude at most 2^16."""
+        n, n1, n2, npr = self.n, self.n1, self.n2, len(self.primes)
+        lead = x.shape[:-1]
+        m = math.prod(lead)
+        xt = torch.empty((m, n2, n1), dtype=torch.float64, device=x.device)
+        xt.copy_(x.reshape(m, n1, n2).transpose(1, 2))
+        y = (xt.view(m * n2, n1) @ self.f1).view(m, n2, npr, n1)  # [m, j2, P, k1]
+        del xt
+        y = torch.remainder(y, self.pf[:, None])
+        z = self._product(y.permute(2, 3, 0, 1), self.f2)  # [P, k1, m, k2]
+        del y
+        out = torch.empty((m, npr, n1, n2), dtype=torch.int64, device=x.device)
+        out.copy_(z.permute(2, 0, 1, 3))
+        return out.view(*lead, npr, n)
+
+    def _product(self, r: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+        """Residues r [P, B, m, K] (float64 or int64, below 2^30) contracted
+        with mat [P, B, 2K, C] (the matrix and its 2^15 multiple): the
+        residues float64 [P, B, m, C]."""
+        npr, b, m, k = r.shape
+        limbs = torch.empty((npr, b, m, 2 * k), dtype=torch.float64, device=r.device)
+        lo, hi = limbs[..., :k], limbs[..., k:]
+        lo.copy_(r)
+        torch.div(lo, float(LIMB), rounding_mode="floor", out=hi)
+        lo.add_(hi, alpha=-float(LIMB))
+        z = torch.bmm(limbs.view(npr * b, m, 2 * k), mat.reshape(npr * b, 2 * k, -1)).view(npr, b * m, -1)
+        del limbs
+        return torch.remainder(z, self.pf[:, None, None], out=z).view(npr, b, m, -1)
+
+    def inv(self, a: torch.Tensor) -> torch.Tensor:
+        """hat [..., P, N] (residues in [0, p)) -> torus int64 [..., N]."""
+        n, n1, n2, ps = self.n, self.n1, self.n2, self.primes
+        npr = len(ps)
+        lead = a.shape[:-2]
+        m = math.prod(lead)
+        z = self._product(a.reshape(m, npr, n1, n2).permute(1, 2, 0, 3), self.g2)  # [P, k1, m, j2]
+        x = self._product(z.permute(0, 2, 3, 1).reshape(npr, 1, m * n2, n1), self.g1[:, None])  # [P, 1, m j2, j1]
+        del z
+        r = torch.empty((npr, m, n1, n2), dtype=torch.int64, device=a.device)
+        r.copy_(x.view(npr, m, n2, n1).transpose(-1, -2))
+        del x
+        t = []
+        for i, q in enumerate(ps):
+            c = self.garner_c[i]
+            u = r[i] * c[i]
+            for j in range(i):
+                u.add_(t[j], alpha=c[j])
+            t.append(u.remainder_(q))
+        x = t[-1]
+        for i in range(npr - 2, -1, -1):
+            x = torch.add(t[i], x, alpha=ps[i])
+        x = torch.where(t[-1] >= ps[-1] // 2, x - self.prod64, x)
+        return x.view(*lead, n)
+
+    def mulsum(self, a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+        """As ExactRing.mulsum, accumulated in place term by term: residues
+        below 2^30, so a remainder after every seven products keeps the sum
+        below 2^63."""
+        d = dim if dim >= 0 else dim - 2
+        terms = max(a.shape[d], b.shape[d])
+        out = None
+        for i in range(terms):
+            ai = a.select(d, i if a.shape[d] > 1 else 0)
+            bi = b.select(d, i if b.shape[d] > 1 else 0)
+            if out is None:
+                out = ai * bi
+            else:
+                out.addcmul_(ai, bi)
+            if i % 7 == 6:
+                out.remainder_(self.p)
+        return out.remainder_(self.p)
 
 
 class F64Ring:
@@ -399,14 +563,8 @@ class F64Ring:
     def sum(self, a: torch.Tensor, dim: int) -> torch.Tensor:
         return a.sum(dim if dim >= 0 else dim - 1)
 
-    def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return a + b
-
-
-def mulsum(ring, a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
-    """sum over the batch axis `dim` (negative, before the hat axes) of the
-    products of two broadcast hats."""
-    return ring.sum(ring.mul(a, b), dim)
+    exact = False
+    mulsum = ExactRing.mulsum
 
 
 # --- keys --------------------------------------------------------------------
@@ -609,13 +767,9 @@ def phase1(ring, params: KmsSet, tildea: torch.Tensor, brk_hat: torch.Tensor) ->
         dig = decomp(acc, l, params.log_b_gsw, 64)  # [q, S, rows, 2, N, l]
         dhat = ring.fwd(dig.movedim(-1, -2).reshape(q, s, rows, 2 * l, n))  # [q, S, rows, 2l, *hat]
         mono = ring.fwd(monomial_minus_one(amounts[:, :, step], n))  # [q, S, mem, *hat]
-        tacc = None
-        for m in range(mem):
-            key = brk_hat[:, step * mem + m]  # [q, 2l, 2, *hat]
-            e = mulsum(ring, dhat[:, :, :, :, None], key[:, None, None], -2)  # [q, S, rows, 2, *hat]
-            e = ring.mul(e, mono[:, :, m, None, None])
-            tacc = e if tacc is None else ring.add(tacc, e)
-        acc = acc + ring.inv(tacc)
+        # the step's key rows, each weighted by its monomial: sum_m (X^{a_m} - 1) brk_m
+        key = ring.mulsum(mono[:, :, :, None, None], brk_hat[:, None, step * mem:(step + 1) * mem], -3)
+        acc = acc + ring.inv(ring.mulsum(dhat[:, :, :, :, None], key[:, :, None], -2))  # key [q, S, 2l, 2, *hat]
     return acc
 
 
@@ -645,20 +799,20 @@ def phase2(ring, params: KmsSet, tildeb: torch.Tensor, levkeys: torch.Tensor, ke
         lev_hat = ring.fwd(levkeys[p1 - 1][:, :rows])  # [S, rows, 2, *hat]
         dig = decomp(acc[:, :p1], params.l_lev, params.log_b_lev, 64)[..., :rows]  # [S, p1, N, rows]
         dhat = ring.fwd(dig.movedim(-1, -2))  # [S, p1, rows, *hat]
-        x = ring.inv(mulsum(ring, dhat, lev_hat[:, None, :, 0], -1))  # [S, p1, N]
-        y = ring.inv(mulsum(ring, dhat, lev_hat[:, None, :, 1], -1))
+        x = ring.inv(ring.mulsum(dhat, lev_hat[:, None, :, 0], -1))  # [S, p1, N]
+        y = ring.inv(ring.mulsum(dhat, lev_hat[:, None, :, 1], -1))
         # hybrid product of y with party p1's relinearisation key
         yhat = ring.fwd(decomp(y, params.l_uni, params.log_b_uni, 64).movedim(-1, -2))  # [S, p1, l_uni, *hat]
-        u = ring.inv(mulsum(ring, yhat, ring.fwd(pk.rlk_d), -1))  # [S, p1, N]
-        v = mulsum(ring, yhat[:, 0], crs_hat, -1)  # component 0 against the CRS, negated
+        u = ring.inv(ring.mulsum(yhat, ring.fwd(pk.rlk_d), -1))  # [S, p1, N]
+        v = ring.mulsum(yhat[:, 0], crs_hat, -1)  # component 0 against the CRS, negated
         v = ring.inv(v)
         v = -v
         if p1 > 1:  # component c against party c's public key
-            v = v + ring.inv(ring.sum(mulsum(ring, yhat[:, 1:], pub_hat[: p1 - 1], -1), -1))
+            v = v + ring.inv(ring.sum(ring.mulsum(yhat[:, 1:], pub_hat[: p1 - 1], -1), -1))
         vhat = ring.fwd(decomp(v, params.l_uni, params.log_b_uni, 64).movedim(-1, -2))  # [S, l_uni, *hat]
         f_hat = ring.fwd(pk.rlk_f)  # [l_uni, 2, *hat]
-        w_b = ring.inv(mulsum(ring, vhat, f_hat[:, 0], -1))
-        w_a = ring.inv(mulsum(ring, vhat, f_hat[:, 1], -1))
+        w_b = ring.inv(ring.mulsum(vhat, f_hat[:, 0], -1))
+        w_a = ring.inv(ring.mulsum(vhat, f_hat[:, 1], -1))
         new = x + u
         new[:, 0] += w_b
         acc = torch.zeros_like(acc)
@@ -701,14 +855,15 @@ def keyswitch(params: KmsSet, acc: torch.Tensor, keys: list[PartyKeys], chunk: i
 def bootstrap(ring, params: KmsSet, b: torch.Tensor, a: torch.Tensor, seed: int, crs_polys: torch.Tensor,
               party_chunk: int = 8) -> tuple[torch.Tensor, torch.Tensor]:
     """The gate bootstrap of S ciphertexts (b [S], a [S, k*n] int32, after
-    the gate's affine step), on keys made again from the seed: phase 1 in
+    the gate's affine step), on keys made again from the seed (by `ring`
+    where it is exact, else by a `MatrixRing`): phase 1 in
     chunks of parties (their keys made, transformed, used and dropped),
     phase 2, key switch.  Returns (b [S], a [S, k*n]) int32."""
     check_ranges(ring, params)
     n, k = params.big_n, params.k
     tildeb = mod_switch(b, n)
     tildea = mod_switch(a, n).reshape(a.shape[0], k, params.n).movedim(1, 0)  # [k, S, n]
-    exact = ExactRing(n, b.device) if not isinstance(ring, ExactRing) else ring
+    exact = ring if ring.exact else MatrixRing(n, b.device)
     levkeys = []
     for p0 in range(0, k, party_chunk):
         chunk = range(p0, min(k, p0 + party_chunk))
