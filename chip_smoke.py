@@ -21,11 +21,15 @@ Phases, each printing one line; any failure exits non-zero:
      through the template instance compiled for its shape (named with its
      threads, shared memory, registers and spills), and small block and
      binary sets through the kernel with run-time shapes; time kernel and
-     plain version at the full number of steps;
+     plain version at the full number of steps; then every party's sweep in
+     one launch at G = 8 (5b) against the plain version party by party and
+     against one launch a party, bit-exact, timed beside both and against
+     the k sweeps' bound;
   6. the main path: `bootstrap_mx3` of a batch of NAND gates on
      KMS8partyblock, decrypt-checked, then a timed data-dependent chain of
-     two more (decrypt-checked too); the sweep and NTT kernels must have
-     been launched; then one more under torch.profiler for the device time
+     two more (decrypt-checked too); the sweep (one launch of k parties a
+     bootstrap) and NTT kernels must have been launched; then one more under
+     torch.profiler for the device time
      by kernel; the natural NTT's launches by shape with the time at each
      (6c), which must add up to its share of the profile;
   7. the earlier path: one `kms.bootstrap` of the same ciphertext,
@@ -92,10 +96,14 @@ Phases, each printing one line; any failure exits non-zero:
      the hybrid product kernel against its plain version at merge 32 (and at
      KMS8partyblock's merge 8, batches 128 and 8), bit-exact, timed against
      its bound; keygen on the card; one party's sweep against its plain
-     version over all steps; a dependent chain of `bootstrap_mx3`, every link
-     decrypt-checked, launches held to one hybrid product a merge;
+     version over all steps; every party's sweep in one launch at G = 8 as
+     in 5b (27b); a dependent chain of `bootstrap_mx3`, every link
+     decrypt-checked, launches held to one sweep launch of k parties a
+     bootstrap and one hybrid product a merge;
      `kms.bootstrap` once on the same input, bit-identical; the named-range
-     split of 32 merges by CUDA events, as in 25;
+     split of 32 merges by CUDA events, as in 25, phase 1 held to the sweep
+     kernel's record in a profile of the same path (taken again if a profile
+     lost it, and said);
  28. KMS32party: both key images and the batch-minor image on the card; B2
      and B5 against their plain versions over all steps; `bootstrap_mx3` once,
      then a dependent chain of `bootstrap_mx2` on the scheme without
@@ -198,6 +206,7 @@ from mktfhe_tpu_torch.ring.modring import prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.ring.sampler import uniform_torus
 from mktfhe_tpu_torch.schemes import ccs, cggi, kms, lmss
+from mktfhe_tpu_torch.schemes.common import mod_switch_2n
 from mktfhe_tpu_torch.schemes.gates import (
     GATE_IDS,
     gate_affine,
@@ -643,6 +652,74 @@ def check_sweep(gen, params, scheme, party: int, g: int, rows: int, timed: bool,
     return out
 
 
+SWEEPS_GATES = 8  # the narrow layer at which every party's sweep in one launch fills the card's waves
+
+
+def sweeps_bound(params, ctx, g: int, tildea: torch.Tensor, rate: dict) -> dict:
+    """The least time of every party's sweep: the k parties' bounds
+    (`sweep_bound`; party 1 one row, the others l_lev) added up."""
+    tild = tildea.reshape(g, params.k, params.n)
+    parts = [sweep_bound(params, ctx, g, 1 if p == 0 else params.l_lev, tild[:, p], rate) for p in range(params.k)]
+    out = {k: sum(b[k] for b in parts) for k in ("bound_ms", "bound_ms_canonical_radix2", "butterflies_only_ms")}
+    return {**out, "bound_by": parts[-1]["bound_by"]}
+
+
+def check_sweeps(gen, params, scheme, g: int, rate: dict) -> dict:
+    """Every party's sweep in one launch (`phase1_sweeps`) on the scheme's
+    keys and uniform rotation amounts at G = g, all steps: one launch of k
+    parties; each party's accumulator == `phase1_sweep_plain` on that
+    party's columns and keys, and == its own `phase1_sweep` launch, bit for
+    bit; the one launch timed beside the plain version and beside the k
+    launches it replaces (both without the public wrappers' range read),
+    against the k sweeps' bound."""
+    device = scheme.crs_hat.device
+    ctx = kms._ctx(params)
+    tildea = torch.randint(0, 2 * ctx.n, (g, params.k * params.n), generator=gen, device=device, dtype=torch.int32)
+    tild = tildea.reshape(g, params.k, params.n)
+    args = (tildea, scheme.brk_hat, params.l_lev, scheme.mono_hat, params, ctx)
+    singles = [(tild[:, p].contiguous(), scheme.brk_hat[p], 1 if p == 0 else params.l_lev, scheme.mono_hat, params, ctx)
+               for p in range(params.k)]
+    before = (fused_mx3.phase1_sweep.launches, fused_mx3.phase1_sweep.parties)
+    got = fused_mx3.phase1_sweeps(*args)
+    served = (fused_mx3.phase1_sweep.launches - before[0], fused_mx3.phase1_sweep.parties - before[1])
+    if served != (1, params.k):
+        raise SystemExit(f"phase1_sweeps ({type(params).__name__}, k={params.k}): (launches, parties) {served}, "
+                         f"expected (1, {params.k})")
+    held = {}
+    plain_ms = _sync_ms(lambda: held.setdefault("want", [fused_mx3.phase1_sweep_plain(*one) for one in singles]), 1)
+    err = max(_max_abs_diff(got[p], want) for p, want in enumerate(held["want"]))
+    if err > TOLERANCE or not all(torch.equal(got[p], want) for p, want in enumerate(held["want"])):
+        raise SystemExit(f"phase1_sweeps disagrees with phase1_sweep_plain party by party (k={params.k}): "
+                         f"max |diff| {err}")
+    if not all(torch.equal(got[p], fused_mx3.phase1_sweep(*one)) for p, one in enumerate(singles)):
+        raise SystemExit(f"phase1_sweeps disagrees with one launch a party (k={params.k})")
+    return {
+        "err": err,
+        "ms": _sync_ms(lambda: fused_mx3.kms_phase1_sweeps(*args), 3),
+        "plain_ms": plain_ms,
+        "one_launch_a_party_ms": _sync_ms(lambda: [fused_mx3._sweep(*one) for one in singles], 3),
+        **sweeps_bound(params, ctx, g, tildea, rate),
+    }
+
+
+def sweeps_note(res: dict, params) -> str:
+    return (f"every party's B2 sweep in one launch ({SWEEPS_GATES} + {params.k - 1} x {SWEEPS_GATES * params.l_lev} "
+            f"CTAs), G={SWEEPS_GATES}, all steps: bit-exact vs phase1_sweep_plain party by party (max |diff| "
+            f"{res['err']}) and vs one launch a party; {res['ms']:.2f} ms vs {res['one_launch_a_party_ms']:.2f} ms "
+            f"in {params.k} launches, plain version {res['plain_ms']:.1f} ms; {bounds_note(res)}")
+
+
+def sweeps_row(name: str, preset: str, res: dict, launches: dict, runs: int) -> dict:
+    """The kernels-line row of the multi-party launch: `launches` holds the
+    counts read after the main path's `runs` bootstraps (phase 6 / 27c)."""
+    row = kernel_row(name, "phase1_sweep.cu", "mktfhe_tpu/kernels/fused_mx3.py:226", launches["sweep"], res["err"],
+                     res["ms"], res["plain_ms"], res)
+    row.update(preset=preset, timed_at=[SWEEPS_GATES], one_launch_a_party_ms=res["one_launch_a_party_ms"],
+               parties=launches["parties"], launches_per_bootstrap=launches["sweep"] // runs,
+               parties_per_launch=launches["parties"] // launches["sweep"])
+    return row
+
+
 def timed_whole(kernel, plain, args: tuple, what: str) -> dict:
     """A sweep kernel's device time at the full shape (after a warm-up), and,
     if `plain` is given, its plain version's time on the same arguments,
@@ -765,6 +842,7 @@ def read_launches() -> dict:
         "step": fused_step.cggi_step.launches,
         "mx": fused_mx2.mx_sweep.launches,
         "hybrid": khybrid.hybrid_product.launches,
+        "parties": fused_mx3.phase1_sweep.parties,
     }
 
 
@@ -1336,6 +1414,7 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
     sweep_block1 = check_sweep(gen, params, scheme, 0, BATCH, 1, timed=True, plain=False, rate=rate)
     sweep_bin1 = check_sweep(gen, KMS_8PARTY, bin_scheme, 0, BATCH, 1, timed=True, plain=False, rate=rate)
     sweep_wide = check_sweep(gen, WIDE_GADGET, wide_scheme, 1, 5, WIDE_GADGET.l_lev, timed=False)
+    sweeps = check_sweeps(gen, params, scheme, SWEEPS_GATES, rate)
     err_run_time = check_run_time_shapes(gen, device)
     notes = [
         instance_note(fused_mx3.sweep_kernel(p, kms._ctx(p)), usage["phase1_sweep"],
@@ -1357,6 +1436,7 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
         f"({bounds_note(sweep_bin)}), rows=1 kernel "
         f"{sweep_bin1['ms']:.2f} ms ({smi})"
     )
+    print(f"[5b sweeps] KMS8partyblock, {sweeps_note(sweeps, params)} ({smi})")
     del wide_scheme
 
     # 6. the KMS main path: counts reset just before it, read just after
@@ -1372,13 +1452,15 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
     shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
     if min(launches[k] for k in ("sweep", "fwd", "inv")) == 0:
         raise SystemExit(f"bootstrap_mx3 did not launch every kernel of its path: {launches}")
+    if (launches["sweep"], launches["parties"]) != (1 + CHAIN, (1 + CHAIN) * params.k):
+        raise SystemExit(f"bootstrap_mx3: expected one sweep launch of {params.k} parties a bootstrap, got {launches}")
     dt = boot["batch_s"]
     print(
         f"[6 bootstrap_mx3] KMS8partyblock NAND batch {BATCH}: decrypt OK x{1 + CHAIN}; first "
         f"{boot['first_s']:.2f} s; chain {dt * 1e3:.1f} ms/batch = {BATCH / dt:.2f} boots/s; "
         f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches in "
-        f"{1 + CHAIN} bootstraps: sweep {launches['sweep']}, NTT fwd {launches['fwd']} "
-        f"inv {launches['inv']} ({smi})"
+        f"{1 + CHAIN} bootstraps: sweep {launches['sweep']} ({launches['parties']} parties), NTT fwd "
+        f"{launches['fwd']} inv {launches['inv']} ({smi})"
     )
     prof = profile_bootstrap(
         fused_mx3.bootstrap_mx3, ct, scheme, params,
@@ -1423,6 +1505,9 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
     bin_launches = read_launches()
     if min(bin_launches[k] for k in ("sweep", "fwd", "inv")) == 0:
         raise SystemExit(f"KMS8party bootstrap_mx3 did not launch every kernel of its path: {bin_launches}")
+    if (bin_launches["sweep"], bin_launches["parties"]) != (1, KMS_8PARTY.k):
+        raise SystemExit(f"KMS8party bootstrap_mx3: expected one sweep launch of {KMS_8PARTY.k} parties, "
+                         f"got {bin_launches}")
     print(
         f"[8 bootstrap_mx3 binary] KMS8party NAND batch {BATCH}: decrypt OK; {bin_s * 1e3:.1f} ms "
         f"(one bootstrap, host clock to the decrypted bits); launches: sweep "
@@ -1455,6 +1540,7 @@ def run_kms(gen, device, smi: str, usage: dict, rate: dict, state: dict) -> tupl
             ("phase1_sweep_binary", sweep_bin, sweep_bin1, bin_launches["sweep"]),
         )
     ]
+    rows.append(sweeps_row("phase1_sweeps_block", "KMS8partyblock", sweeps, launches, 1 + CHAIN))
     binary = {
         "lwe_keys": bin_keys, "scheme": bin_scheme, "party_keys": bin_party_keys, "crs": bin_crs,
         "wide_party_keys": wide_party_keys, "ct": bct, "c2": bc2, "m1": bm1, "m2": bm2,
@@ -2117,6 +2203,7 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
 
     sweep = check_sweep(gen, params, scheme, 1, BATCH, params.l_lev, timed=True, rate=rate)
     sweep1 = check_sweep(gen, params, scheme, 0, BATCH, 1, timed=True, plain=False, rate=rate)
+    sweeps = check_sweeps(gen, params, scheme, SWEEPS_GATES, rate)
     note = instance_note(fused_mx3.sweep_kernel(params, ctx), usage["phase1_sweep"], must_not_spill=True)
     print(
         f"[27b sweep] KMS32partyblock, one party's B2 sweep at G={BATCH}, rows=3, all {params.d} steps: kernel "
@@ -2124,6 +2211,7 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
         f"{sweep['whole_err']}) and over {CHECK_STEPS} steps from the LEV rows at rows=1 too; rows=1 kernel "
         f"{sweep1['ms']:.2f} ms; through {note}; {bounds_note(sweep)} ({smi})"
     )
+    print(f"[27b sweeps] KMS32partyblock, {sweeps_note(sweeps, params)} ({smi})")
 
     def decrypt(out):
         return lwe_decrypt_bit_mk(out, lwe_keys)
@@ -2136,10 +2224,11 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
     shapes = (dict(kntt.fwd_ntt_nat.shapes), dict(kntt.inv_ntt_nat.shapes))
     runs = 1 + PARTY_CHAIN
     fwd, inv = merge_launches(params)
-    want = {"sweep": runs * params.k, "hybrid": runs * params.k, "fwd": runs * (params.k + fwd), "inv": runs * inv}
+    want = {"sweep": runs, "parties": runs * params.k, "hybrid": runs * params.k, "fwd": runs * (params.k + fwd),
+            "inv": runs * inv}
     if {k: launches[k] for k in want} != want:
-        raise SystemExit(f"KMS32partyblock bootstrap_mx3: expected {want} launches in {runs} bootstraps (phase 2's "
-                         f"hybrid product one kernel a merge), got {launches}")
+        raise SystemExit(f"KMS32partyblock bootstrap_mx3: expected {want} launches in {runs} bootstraps (every "
+                         f"party's sweep in one launch, phase 2's hybrid product one kernel a merge), got {launches}")
     dt = boot["batch_s"]
     print(
         f"[27c bootstrap_mx3] KMS32partyblock NAND batch {BATCH}: decrypt OK x{runs} (every link of the chain); "
@@ -2147,7 +2236,8 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
         f"boots/s; peak allocated {above / 1e9:.2f} GB above the held keys and inputs (phase 2's hybrid product "
         f"one kernel a merge, the key switch a party at a time); "
         f"launches in {runs} bootstraps: B2 {launches['sweep']} "
-        f"({launches['sweep'] // runs} a bootstrap, every one through {served_by(params)}), B1 fwd "
+        f"({launches['sweep'] // runs} a bootstrap of {launches['parties'] // runs} parties, every one through "
+        f"{served_by(params)}), B1 fwd "
         f"{launches['fwd']} inv {launches['inv']} ({smi})"
     )
     print(f"[27d ntt by shape] B1 per KMS32partyblock bootstrap_mx3, [rows, npr, N]: "
@@ -2174,9 +2264,27 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
     del ref
 
     timed = timed_ranges(lambda: fused_mx3.bootstrap_mx3(ct, scheme, params))
-    prof = profile_bootstrap(fused_mx3.bootstrap_mx3, ct, scheme, params, {"sweep kernel": "phase1_sweep_kernel"})
-    print(ranges_line("27f named ranges", "bootstrap_mx3 KMS32partyblock", params, timed, prof,
-                      (prof["parts"]["sweep kernel"], "the sweep kernels of the same profile")) + f" ({smi})")
+    # phase 1 is one sweep launch, and profiles after those of 10^5 events
+    # lose kernel records now and then (phase 33): a profile without the
+    # launch's record is taken again, up to PROFILE_TRIES in all, and what
+    # each lost is said; only if every one lost it is the launch on the same
+    # input timed alone by CUDA events
+    lost = []
+    for _ in range(PROFILE_TRIES):
+        prof = profile_bootstrap(fused_mx3.bootstrap_mx3, ct, scheme, params, {"sweep kernel": "phase1_sweep_kernel"})
+        if prof["parts"]["sweep kernel"] > 0:
+            break
+        lost.append(f"{prof['events']} device records ({prof['device_ms']:.2f} ms), none of the sweep kernel")
+    if prof["parts"]["sweep kernel"] > 0:
+        yardstick = (prof["parts"]["sweep kernel"], "the sweep kernel of the same profile")
+    else:
+        _, tildea = mod_switch_2n(ct, params.big_n)
+        alone = _sync_ms(lambda: fused_mx3.kms_phase1_sweeps(tildea, scheme.brk_hat, params.l_lev, scheme.mono_hat,
+                                                              params, ctx), 1)
+        yardstick = (alone, "the sweep launch on the same input timed alone by CUDA events")
+    said = f"; profiles that lost the sweep's record first: {len(lost)} ({'; '.join(lost)})" if lost else ""
+    print(ranges_line("27f named ranges", "bootstrap_mx3 KMS32partyblock", params, timed, prof, yardstick)
+          + f"{said} ({smi})")
     state["noise"].append(("bootstrap_mx3 [27]", "KMS32partyblock", boot["first"], lwe_keys, ~(m1 & m2)))
     state["parties"].append(
         preset_record("KMS32partyblock", "bootstrap_mx3", keys, dt * 1e3, above, served_by(params)))
@@ -2184,13 +2292,14 @@ def run_k32_block(gen, device, smi: str, usage: dict, rate: dict, state: dict) -
                      launches["sweep"], max(sweep["err"], sweep["whole_err"], sweep1["err"]), sweep["ms"],
                      sweep["plain_ms"], sweep)
     row.update(preset="KMS32partyblock", launches_per_bootstrap=launches["sweep"] // runs)
+    sweeps_k32 = sweeps_row("phase1_sweeps_block_k32", "KMS32partyblock", sweeps, launches, runs)
     big = hybrid[0]
     hybrid_row = kernel_row("hybrid_product_block_k32", "hybrid_product.cu",
                             "none: XLA in mktfhe_tpu/schemes/kms.py:305", launches["hybrid"],
                             max(h["err"] for h in hybrid), big["ms"], big["plain_ms"], big)
     hybrid_row.update(preset="KMS32partyblock", launches_per_bootstrap=launches["hybrid"] // runs,
                       timed_at=[big["g"], big["p1"]])
-    return [row, hybrid_row]
+    return [row, sweeps_k32, hybrid_row]
 
 
 def timed_ranges(run) -> dict:
@@ -2224,6 +2333,8 @@ def ranges_line(tag: str, what: str, params, timed: dict, prof: dict, sweeps: tu
     merges = [v for k, v in ms.items() if k.startswith("mktfhe/phase2/")]
     check = ""
     if sweeps is not None:
+        if sweeps[0] <= 0:
+            raise SystemExit(f"{what}: {sweeps[1]} hold no device time to hold phase 1 to")
         if phase1 < PHASE1_OF_SWEEPS * sweeps[0]:
             raise SystemExit(f"{what}: phase 1 reads {phase1:.2f} ms by events, under {PHASE1_OF_SWEEPS} of "
                              f"{sweeps[1]}'s {sweeps[0]:.2f} ms")
@@ -2281,8 +2392,8 @@ def run_k32_binary(gen, device, smi: str, usage: dict, rate: dict, state: dict) 
         fused_mx3.bootstrap_mx3, ct, ~(m1 & m2), scheme, params, decrypt, "KMS32party bootstrap_mx3"))
     mx3_s = time.time() - t0
     mx3_launches = read_launches()
-    if mx3_launches["sweep"] != params.k or mx3_launches["mx"] != 0:
-        raise SystemExit(f"KMS32party bootstrap_mx3: expected {params.k} B2 sweeps, got {mx3_launches}")
+    if (mx3_launches["sweep"], mx3_launches["parties"], mx3_launches["mx"]) != (1, params.k, 0):
+        raise SystemExit(f"KMS32party bootstrap_mx3: expected one B2 launch of {params.k} parties, got {mx3_launches}")
     keys["scheme"] = lean = kms.drop_brk(scheme)  # brk_hat freed
     del scheme
     mx_scheme = fused_mx2.mx_scheme(lean, mx_keys.brk_mx)
@@ -2369,8 +2480,8 @@ def run_other_parties(gen, smi: str, state: dict) -> None:
         reset_launches()
         boot, above = with_peak(lambda: bootstrap_chain(bootstrap, ct, c2, m1, m2, params, decrypt, scheme, 1))
         launches = read_launches()
-        sweeps = launches["sweep" if block else "mx"]
-        if sweeps != 2 * params.k or launches["mx" if block else "sweep"] != 0:
+        sweeps = launches["parties" if block else "mx"]
+        if sweeps != 2 * params.k or launches["sweep"] != (2 if block else 0) or (not block and launches["parties"]):
             raise SystemExit(f"{name} {engine}: expected {params.k} sweeps a bootstrap, got {launches}")
         dt = boot["batch_s"]
         print(

@@ -1,9 +1,11 @@
-// KMS phase-1 sweep: one party's whole blind rotation over an RLEV
-// accumulator on the 2^64 torus, for Hopper (sm_90a).
+// KMS phase-1 sweep: the parties' whole blind rotations over their RLEV
+// accumulators on the 2^64 torus, every party in one launch, for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel
-// mktfhe_tpu/kernels/fused_mx3.py:make_mx3_sweep_kernel (reached through
-// kms_phase1_mx3 / bootstrap_mx3).  Plain PyTorch version of the same
+// mktfhe_tpu/kernels/fused_mx3.py:make_mx3_sweep_kernel (reached there
+// through kms_phase1_mx3 / bootstrap_mx3; here through kms_phase1_sweeps /
+// phase1_sweep of kernels/fused_mx3.py).  Plain PyTorch version of the same
 // function: mktfhe_tpu_torch/kernels/fused_mx3.py:phase1_sweep_plain; the
 // output is bit-identical to it (the arithmetic is exact).
 //
@@ -25,19 +27,25 @@
 //
 // What bounds it on this card.  Not device memory: a step does about 0.9 M
 // modular multiplies per CTA at KMS8partyblock widths while its key rows
-// (1.57 MB) are shared by all CTAs, which advance nearly in step, and come
-// from L2.  The state of one (gate, row) fills most of an SM's shared
-// memory (192 KB at N = 2048, l = 4, 4 primes), so one CTA runs per SM and
+// (1.57 MB a party) are shared by all CTAs of the party, which advance nearly
+// in step, and come from L2.  The state of one (gate, row) fills most of an
+// SM's shared memory (192 KB at N = 2048, l = 4, 4 primes), so one CTA runs per SM and
 // whatever makes its warps wait idles the SM.  Integer operations set the
 // floor; above it, measured on an H100 with builds that left one part out:
 // the key rows from L2 (a quarter of the block variant's time, a tenth of the
 // binary variant's: 132 SMs ask for the same 123 GB per party sweep within
 // the pointwise stages), and the barriers between the passes (8%).
 //
-// Design.  One CTA per (gate, row); the loop over steps runs inside the CTA,
-// where the TPU kernel had a sequential grid dimension with the accumulator
-// in VMEM scratch.  Rows and gates never interact, so there is no grid-wide
-// synchronisation and one launch does a party's whole rotation.  All state
+// Design.  One CTA per (party, gate, row); the loop over steps runs inside
+// the CTA, where the TPU kernel had a sequential grid dimension with the
+// accumulator in VMEM scratch.  Parties, rows and gates never interact, so
+// there is no grid-wide synchronisation and one launch does every party's
+// whole rotation.  The parties share one grid because one party's fills a
+// wave of 132 SMs only at wide batches: at 8 gates a party of 3 rows is 24
+// CTAs, and k launches of a partial wave each take a CTA's whole sweep,
+// where one grid of all k parties takes ceil(sum) <= sum(ceil) waves.  The
+// first party of a launch may run fewer rows (KMS party 1 needs one), so
+// it owns CTAs [0, G rows_1) and every later party G rows after them.  All state
 // lives in shared memory: the accumulator (16 N bytes), the 2l transformed
 // digit polynomials of the current prime (8 l N bytes; primes run one after
 // the other and reuse it), the inverse-transformed residues of every prime
@@ -86,13 +94,18 @@ using namespace mktfhe;
 constexpr int kMaxThreads = 512;  // threads of a CTA at N >= 1024
 constexpr int kMaxTerms = 12;  // 2 l_gsw digit polynomials, l_gsw <= 6
 
+// gates and rows of a launch: the first party `first_rows` rows a gate, each
+// of the other parties - 1 parties `rows`
 struct SweepShape {
-    int rows, n_steps, ell, npr, l, log_b, log_n;
+    int gates, parties, first_rows, rows, n_steps, ell, npr, l, log_b, log_n;
 };
 
-// acc:    [ctas, 2, n] u64, in and out; cta = gate * rows + row
-// tildea: [gates, n_steps * ell] rotation amounts in [0, 2n)
-// brk:    [n_steps * ell, 2l, 2, npr, n] residues (key row = step * ell + member)
+// acc:    [ctas, 2, n] u64, in and out; party 0's CTAs first, then party 1's,
+//         ...; within a party cta = gate * rows + row
+// tildea: [gates, parties * n_steps * ell] rotation amounts in [0, 2n), a
+//         party's after the party before it
+// brk:    [parties, n_steps * ell, 2l, 2, npr, n] residues (key row = step * ell
+//         + member)
 // mono:   [2n, npr, n] images of X^a - 1 (block variant only)
 // tw_*:   [npr, n] bit-reversed psi / psi^-1 tables with Shoup companions
 // consts: [npr, kConstCols]
@@ -125,9 +138,15 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     uint64_t* etor = reinterpret_cast<uint64_t*>(dig);
     uint32_t* tws = res + static_cast<size_t>(npr) * 2 * n;  // [4, n]: the prime's twiddles
 
+    // the CTA's party, and its gate within the party's grid
     const long long cta = blockIdx.x;
-    const long long gate = cta / s.rows;
-    const int32_t* ta = tildea + gate * (static_cast<long long>(s.n_steps) * ell);
+    const long long lead = static_cast<long long>(s.gates) * s.first_rows;
+    const long long later = cta - lead;
+    const long long party_ctas = static_cast<long long>(s.gates) * s.rows;
+    const int party = later < 0 ? 0 : 1 + static_cast<int>(later / party_ctas);
+    const long long gate = later < 0 ? cta / s.first_rows : (later % party_ctas) / s.rows;
+    const long long key_rows = static_cast<long long>(s.n_steps) * ell;
+    const int32_t* ta = tildea + (gate * s.parties + party) * key_rows;
     uint64_t* acc_io = acc_g + cta * 2 * n;
 
     for (int i = tid; i < npr * kConstCols; i += nthreads) sc[i] = consts[i];
@@ -137,9 +156,10 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
     // one (term, cout) key row
     const size_t poly_stride = static_cast<size_t>(npr) * n;
     const size_t member_stride = static_cast<size_t>(terms) * 2 * poly_stride;
+    const uint32_t* brk_p = brk + static_cast<size_t>(party) * key_rows * member_stride;
 
     for (int step = 0; step < s.n_steps; ++step) {
-        const uint32_t* brk_s = brk + static_cast<size_t>(step) * ell * member_stride;
+        const uint32_t* brk_s = brk_p + static_cast<size_t>(step) * ell * member_stride;
         for (int q = 0; q < npr; ++q) {
             const uint32_t p = static_cast<uint32_t>(sc[q * kConstCols + kColP]);
             const uint64_t mu = sc[q * kConstCols + kColMu];
@@ -159,7 +179,8 @@ phase1_sweep_kernel(uint64_t* __restrict__ acc_g, const int32_t* __restrict__ ti
             uint32_t* out = res + static_cast<size_t>(q) * 2 * n;
             // binary variant: neighbouring CTAs start their walk n / 32 positions
             // apart, so that the SMs, which advance nearly in step, do not all
-            // ask the same L2 lines at once
+            // ask the same L2 lines at once (the launch's CTA index: it only
+            // reorders the positions)
             const int first = kBlock ? 0 : (static_cast<int>(cta) & 31) * (n / 32);
             for (int i0 = tid; i0 < n; i0 += nthreads) {
                 const int i = (i0 + first) & (n - 1);
@@ -313,7 +334,7 @@ inline SweepPlan sweep_plan(bool block, const SweepShape& s) {
 // What `sweep_plan` says of a shape, for the wrapper's notes: out[0..4] the
 // template arguments, out[5] threads per CTA, out[6] dynamic shared bytes.
 inline void describe_plan(int block, int ell, int npr, int l, int log_n, int* out) {
-    const SweepPlan plan = sweep_plan(block != 0, SweepShape{1, 0, ell, npr, l, 1, log_n});
+    const SweepPlan plan = sweep_plan(block != 0, SweepShape{1, 1, 1, 1, 0, ell, npr, l, 1, log_n});
     for (int i = 0; i < 5; ++i) out[i] = plan.targs[i];
     out[5] = plan.threads;
     out[6] = plan.shared_bytes;
@@ -321,14 +342,15 @@ inline void describe_plan(int block, int ell, int npr, int l, int log_n, int* ou
 
 }  // namespace
 
-// `mono` is null for binary keys and selects the variant.
+// `mono` is null for binary keys and selects the variant.  `ctas`: gates *
+// (first_rows + (parties - 1) * rows), which the caller keeps below 2^31.
 extern "C" int mktfhe_phase1_sweep(void* acc, const void* tildea, const void* brk,
                                    const void* mono, const void* tw_f, const void* tw_f_sh,
                                    const void* tw_i, const void* tw_i_sh, const void* consts,
-                                   unsigned long long prod_mod64, long long ctas, int rows,
-                                   int n_steps, int ell, int npr, int l, int log_b, int log_n,
-                                   void* stream) {
-    const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
+                                   unsigned long long prod_mod64, long long ctas, int gates,
+                                   int parties, int first_rows, int rows, int n_steps, int ell,
+                                   int npr, int l, int log_b, int log_n, void* stream) {
+    const SweepShape shape{gates, parties, first_rows, rows, n_steps, ell, npr, l, log_b, log_n};
     const SweepPlan plan = sweep_plan(mono != nullptr, shape);
     const cudaError_t attr = cudaFuncSetAttribute(
         plan.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.shared_bytes);

@@ -79,33 +79,44 @@ from .utils import profiling
 # the kernel wrappers whose `launches` (and, for the NTTs, `shapes`) count
 _COUNTED = (fused_mx3.phase1_sweep, fused_mx2.mx_sweep, fused_step.cggi_step, hybrid_product,
            kntt.fwd_ntt_nat, kntt.inv_ntt_nat, kntt.fwd_ntt_bm, kntt.inv_ntt_bm)
+# counters beside a wrapper's launches: the party sweeps the sweep's launches served
+_SERVED = ((fused_mx3.phase1_sweep, "parties"),)
 
 
 def _counts() -> dict:
-    return {w: (w.launches, dict(getattr(w, "shapes", {}))) for w in _COUNTED}
+    counts = {(w, "launches"): (w.launches, dict(getattr(w, "shapes", {}))) for w in _COUNTED}
+    counts.update({(w, attr): (getattr(w, attr), {}) for w, attr in _SERVED})
+    return counts
+
+
+def _name(counter: tuple) -> str:
+    w, attr = counter
+    return w.__name__ if attr == "launches" else f"{w.__name__}.{attr}"
 
 
 def launch_counts() -> dict:
     """Each counted wrapper's launches since its reset, in all and by shape:
-    name -> (launches, {shape: launches})."""
-    return {w.__name__: counts for w, counts in _counts().items()}
+    name -> (launches, {shape: launches}); and the counters beside them
+    (`phase1_sweep.parties`: the party sweeps served) as name.counter ->
+    (count, {})."""
+    return {_name(c): counts for c, counts in _counts().items()}
 
 
 def _change(before: dict, after: dict) -> dict:
-    """What a call added to each wrapper's counts: wrapper -> (launches,
+    """What a call added to each counter: (wrapper, counter) -> (count,
     {shape: launches})."""
     out = {}
-    for w, (n0, s0) in before.items():
-        n1, s1 = after[w]
+    for c, (n0, s0) in before.items():
+        n1, s1 = after[c]
         shapes = {k: v - s0.get(k, 0) for k, v in s1.items() if v != s0.get(k, 0)}
         if n1 != n0 or shapes:
-            out[w] = (n1 - n0, shapes)
+            out[c] = (n1 - n0, shapes)
     return out
 
 
 def _add(change: dict, sign: int = 1) -> None:
-    for w, (n, shapes) in change.items():
-        w.launches += sign * n
+    for (w, attr), (n, shapes) in change.items():
+        setattr(w, attr, getattr(w, attr) + sign * n)
         for k, v in shapes.items():
             left = w.shapes.get(k, 0) + sign * v
             if left:
@@ -178,7 +189,7 @@ class _Graphed:
 
     @property
     def launches(self) -> dict:
-        return {w.__name__: n for w, (n, _) in self.change.items()}
+        return {_name(c): n for c, (n, _) in self.change.items()}
 
     def _refuse(self, ct: Lwe, scheme, rest: tuple, held: tuple) -> None:
         """Refuse a call whose scheme or other arguments are not the captured

@@ -1,10 +1,12 @@
 """KMS phase-1 sweep and the bootstrap built on it.
 
 Port of mktfhe_tpu/kernels/fused_mx3.py (`make_mx3_sweep_kernel`,
-`kms_phase1_mx3`, `bootstrap_mx3`): one party's whole phase-1 blind
-rotation as ONE kernel launch with the 2^64 RLEV accumulator resident over
-all steps (csrc/phase1_sweep.cu), then the lev key through the NTT kernel,
-then phase 2 and the key switch of schemes/kms.py unchanged.
+`kms_phase1_mx3`, `bootstrap_mx3`): every party's whole phase-1 blind
+rotation as ONE kernel launch with the 2^64 RLEV accumulators resident over
+all steps (csrc/phase1_sweep.cu; `kms_phase1_sweeps`, or one party's,
+`phase1_sweep`), then each party's lev key through the NTT kernel
+(`schemes/kms.py:levkey_lift`), then phase 2 and the key switch of
+schemes/kms.py unchanged.
 
 The edge of the kernel is the torus accumulator [G, rows, 2, N], and the
 arithmetic is exact, so its output is bit-identical to `phase1_sweep_plain`
@@ -17,8 +19,8 @@ container `MxKmsKeys` and `build_mx3_kms_keys` do not exist in the port:
 the sweep reads `KmsScheme.brk_hat` and `KmsScheme.mono_hat` as `kms.setup`
 stores them, so there is no second image of the keys.
 
-On a CUDA tensor `phase1_sweep` launches the kernel or raises; on a CPU
-tensor it runs the plain version.
+On CUDA tensors `phase1_sweep` and `phase1_sweeps` launch the kernel or
+raise; on CPU tensors they run the plain version.
 """
 
 from __future__ import annotations
@@ -115,7 +117,7 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mktfhe_phase1_sweep.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_ulonglong, ctypes.c_longlong,
-        i32, i32, i32, i32, i32, i32, i32, ptr,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, ptr,
     ]
     lib.mktfhe_phase1_sweep.restype = ctypes.c_int
     return lib
@@ -153,8 +155,10 @@ def sweep_kernel(params, ctx: RingCtx, lib=None) -> dict:
     }
 
 
-def _check(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> None:
-    """Refuse what the kernel does not take."""
+def _check(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0, parties=None) -> None:
+    """Refuse what the kernel does not take: one party's tildea [G, n] and
+    brk_hat [n, 2, l, 2, npr, N], or with `parties` every party's, tildea
+    [G, parties * n] and brk_hat [parties, n, 2, l, 2, npr, N]."""
     if not isinstance(params, (KmsParams, KmsBlockParams)):
         raise TypeError(f"the sweep takes KmsParams or KmsBlockParams, got {type(params).__name__}")
     n, npr, ell = ctx.n, ctx.nprimes, _ell(params)
@@ -173,13 +177,16 @@ def _check(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> None:
         raise ValueError(f"iter_rows must lie in 1..l_lev = {params.l_lev}, got {iter_rows}")
     if tildea_p.dtype != torch.int32:
         raise TypeError(f"tildea must be int32, got {tildea_p.dtype}")
-    if tildea_p.dim() != 2 or tildea_p.shape[1] != params.n:
-        raise ValueError(f"tildea must be [G, {params.n}], got {tuple(tildea_p.shape)}")
+    lead = () if parties is None else (parties,)
+    if parties is not None and parties < 1:
+        raise ValueError(f"the sweeps take at least one party, got {parties}")
+    if tildea_p.dim() != 2 or tildea_p.shape[1] != params.n * (parties or 1):
+        raise ValueError(f"tildea must be [G, {params.n * (parties or 1)}], got {tuple(tildea_p.shape)}")
     if brk_hat_p.dtype != torch.int32:
         raise TypeError(f"brk_hat must be int32 residues, got {brk_hat_p.dtype}")
-    if tuple(brk_hat_p.shape) != (params.n, 2, l, 2, npr, n):
-        raise ValueError(f"brk_hat must be [{params.n}, 2, {l}, 2, {npr}, {n}], "
-                         f"got {tuple(brk_hat_p.shape)}")
+    if tuple(brk_hat_p.shape) != (*lead, params.n, 2, l, 2, npr, n):
+        raise ValueError(f"brk_hat must be {[*lead, params.n, 2, l, 2, npr, n]}, "
+                         f"got {list(brk_hat_p.shape)}")
     tensors = {"tildea": tildea_p, "brk_hat": brk_hat_p}
     if isinstance(params, KmsBlockParams):
         if mono_hat.dtype != torch.int32:
@@ -214,17 +221,18 @@ def check_tildea_range(tildea: torch.Tensor, n: int) -> None:
             raise ValueError(f"tildea must lie in [0, {2 * n}), got [{int(lo)}, {int(hi)}]")
 
 
-def _launch(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> torch.Tensor:
+def _launch(acc, tildea, brk_hat, parties, first_rows, rows, mono_hat, params, ctx) -> None:
+    """One launch of the kernel over `parties` parties' sweeps, `acc`
+    ([G (first_rows + (parties - 1) rows), 2, N], updated in place) party
+    after party; the first party runs `first_rows` rows, the others `rows`."""
     n, npr, ell = ctx.n, ctx.nprimes, _ell(params)
-    dev = tildea_p.device
-    g = tildea_p.shape[0]
-    ctas = g * iter_rows
+    dev = tildea.device
+    g = tildea.shape[0]
+    ctas = acc.shape[0]
     if ctas >= 1 << 31:
-        raise ValueError(f"{ctas} (gate, row) pairs exceed the kernel's grid")
-    # the kernel updates its accumulator in place: give it its own copy
-    acc = phase1_init(iter_rows, params, ctx, g, dev) if acc0 is None else acc0.clone()
+        raise ValueError(f"{ctas} (party, gate, row) triples exceed the kernel's grid")
     if ctas == 0:
-        return acc
+        return
     lib = load_library()
     tw_f, tw_f_sh, _ = _kernel_tables(n, npr, True, dev)
     tw_i, tw_i_sh, _ = _kernel_tables(n, npr, False, dev)
@@ -233,15 +241,15 @@ def _launch(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> torc
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mktfhe_phase1_sweep(
-            acc.data_ptr(), tildea_p.data_ptr(), brk_hat_p.data_ptr(),
+            acc.data_ptr(), tildea.data_ptr(), brk_hat.data_ptr(),
             mono_hat.data_ptr() if block else None,
             tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
-            consts.data_ptr(), ctx.crt.prod_mod64, ctas, iter_rows, params.n // ell, ell, npr,
-            params.l_gsw, params.log_b_gsw, n.bit_length() - 1, stream,
+            consts.data_ptr(), ctx.crt.prod_mod64, ctas, g, parties, first_rows, rows, params.n // ell,
+            ell, npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1, stream,
         )
     _build.check_launch(lib, err, "phase-1 sweep kernel")
     phase1_sweep.launches += 1
-    return acc
+    phase1_sweep.parties += parties
 
 
 def phase1_sweep(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ctx: RingCtx,
@@ -267,25 +275,77 @@ def _run(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0) -> torch.T
         return phase1_sweep_plain(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
     if tildea_p.device.type != "cuda":
         raise ValueError(f"no phase-1 sweep for device {tildea_p.device}")
-    return _launch(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx, acc0)
+    # the kernel updates its accumulator in place: give it its own copy
+    g = tildea_p.shape[0]
+    acc = phase1_init(iter_rows, params, ctx, g, tildea_p.device) if acc0 is None else acc0.clone()
+    _launch(acc.view(g * iter_rows, 2, ctx.n), tildea_p, brk_hat_p, 1, iter_rows, iter_rows, mono_hat, params, ctx)
+    return acc
 
 
-# kernel launches since the last reset (CPU calls run the plain version and do not count)
+def phase1_sweeps_init(g: int, parties: int, rows: int, params, ctx: RingCtx, device) -> torch.Tensor:
+    """The accumulators of `parties` parties' sweeps as one buffer
+    [G (1 + (parties - 1) rows), 2, N]: party 1's G one-row accumulators,
+    then each later party's [G, rows], each from `phase1_init`."""
+    acc = torch.empty((g * (1 + (parties - 1) * rows), 2, ctx.n), dtype=ctx.dtype, device=device)
+    acc[:g].copy_(phase1_init(1, params, ctx, g, device).view(g, 2, ctx.n))
+    acc[g:].view(parties - 1, g, rows, 2, ctx.n).copy_(phase1_init(rows, params, ctx, g, device))
+    return acc
+
+
+def _party_views(acc: torch.Tensor, g: int, parties: int, rows: int) -> list[torch.Tensor]:
+    """Each party's accumulator [G, rows, 2, N] (party 1: one row) as a view
+    of the buffer of `phase1_sweeps_init`."""
+    n = acc.shape[-1]
+    later = acc[g:].view(parties - 1, g, rows, 2, n)
+    return [acc[:g].view(g, 1, 2, n), *later.unbind(0)]
+
+
+def phase1_sweeps(tildea, brk_hat, l_lev: int, mono_hat, params, ctx: RingCtx) -> list[torch.Tensor]:
+    """Every party's phase-1 rotation: tildea [G, k n] int32 (party i's
+    amounts in columns [i n, (i + 1) n)), brk_hat [k, n, 2, l, 2, npr, N]
+    (`KmsScheme.brk_hat`).  Party 1 sweeps one RLEV row, the others `l_lev`.
+    Returns each party's torus accumulator [G, rows, 2, N] int64, views of
+    one buffer (`phase1_sweeps_init`): on CUDA tensors ONE launch of the
+    kernel over (party, gate, row), bit for bit k launches of
+    `phase1_sweep`; on CPU tensors `phase1_sweep_plain` party by party."""
+    _check(tildea, brk_hat, l_lev, mono_hat, params, ctx, None, parties=brk_hat.shape[0])
+    check_tildea_range(tildea, ctx.n)
+    return _run_sweeps(tildea, brk_hat, l_lev, mono_hat, params, ctx)
+
+
+def kms_phase1_sweeps(tildea, brk_hat, l_lev: int, mono_hat, params, ctx: RingCtx) -> list[torch.Tensor]:
+    """`phase1_sweeps` as a step of the bootstrap: tildea comes from
+    `mod_switch_2n`, so its range is not read back (`check_tildea_range`);
+    every other check is made."""
+    _check(tildea, brk_hat, l_lev, mono_hat, params, ctx, None, parties=brk_hat.shape[0])
+    return _run_sweeps(tildea, brk_hat, l_lev, mono_hat, params, ctx)
+
+
+def _run_sweeps(tildea, brk_hat, rows, mono_hat, params, ctx) -> list[torch.Tensor]:
+    dev = tildea.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no phase-1 sweep for device {dev}")
+    g, parties = tildea.shape[0], brk_hat.shape[0]
+    acc = phase1_sweeps_init(g, parties, rows, params, ctx, dev)
+    views = _party_views(acc, g, parties, rows)
+    if dev.type == "cuda":
+        _launch(acc, tildea, brk_hat, parties, 1, rows, mono_hat, params, ctx)
+        return views
+    tild = tildea.reshape(g, parties, params.n)
+    for party, view in enumerate(views):
+        view.copy_(phase1_sweep_plain(tild[:, party], brk_hat[party], view.shape[1], mono_hat, params, ctx, view))
+    return views
+
+
+# kernel launches, and the party sweeps they served, since the last reset
+# (CPU calls run the plain version and do not count)
 phase1_sweep.launches = 0
+phase1_sweep.parties = 0
 
 
 def reset_launches() -> None:
     phase1_sweep.launches = 0
-
-
-def kms_phase1_mx3(tildea_p, brk_hat_p, iter_rows: int, mono_hat, params, ctx: RingCtx) -> torch.Tensor:
-    """Phase 1 for one party: the sweep, then the lev key in the NTT domain,
-    [G, rows, 2, npr, N] int32.  Bit-identical to kms.phase1 /
-    kms.phase1_block.  A step of the bootstrap: tildea_p comes from
-    `mod_switch_2n`, so its range is not read back (`check_tildea_range`)."""
-    from ..schemes.kms import levkey_lift  # kms imports this module
-
-    return levkey_lift(_sweep(tildea_p, brk_hat_p, iter_rows, mono_hat, params, ctx), ctx)
+    phase1_sweep.parties = 0
 
 
 def bootstrap_mx3(ct: Lwe, scheme, params) -> Lwe:

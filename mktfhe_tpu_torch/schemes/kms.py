@@ -12,7 +12,9 @@ in the NTT domain.  The reference's `lax.scan` over key bits is a Python
 loop here (kernels/fused_mx3.py:phase1_sweep_plain, which is also the plain
 version of the sweep kernel that `bootstrap_mx3` launches instead), and its
 vmap over parties a loop over parties, which keeps the peak device memory
-to one party's temporaries.
+to one party's temporaries; `bootstrap_mx3` sweeps every party in one
+launch (kernels/fused_mx3.py:kms_phase1_sweeps), then lifts each party's
+lev key.
 Phase 2 (sequential merge): per party, LEV-multiply the accumulator's
 digits by the lev key, relinearize through the party's rlk and public keys
 (hybrid product: on the card one launch of csrc/hybrid_product.cu,
@@ -52,7 +54,7 @@ from ..ciphertext.keys import (
 )
 from ..ciphertext.lwe import Lwe
 from ..ciphertext.unienc import gen_b, sample_crs, unienc_encrypt
-from ..kernels.fused_mx3 import kms_phase1_mx3, phase1_sweep_plain
+from ..kernels.fused_mx3 import kms_phase1_sweeps, phase1_sweep_plain
 from ..kernels.hybrid_product import hybrid_product
 from ..kernels.ntt import fwd_ntt_nat, inv_ntt_nat
 from ..ring.context import RingCtx, make_ring_ctx
@@ -367,13 +369,22 @@ def phase1_key_image(party_keys: list[KmsPartyKey], ctx: RingCtx, transform) -> 
 
 
 def _levkeys(tildea: torch.Tensor, engine: str, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx, phase1_keys) -> list[torch.Tensor]:
-    """Phase 1 of every party on `engine` (`phase1_levkey`).  tildea:
-    [G, k*n].  Returns each party's lev key [G, rows, 2, npr, N].
+    """Phase 1 of every party on `engine`: 'mx3' (the sweep kernel on
+    `scheme.brk_hat`) or an engine of `phase1_levkey`.  tildea: [G, k*n].
+    Returns each party's lev key [G, rows, 2, npr, N].
 
     Party 1's phase 2 reads only row 0 of its lev key, so its phase 1 runs
     one RLEV row (the reference's iter=1 case); rows never mix, so that
     row is bit-identical to the JAX engine's uniform l_lev-row sweep.
+
+    On 'mx3' every party's sweep is one call (`kms_phase1_sweeps`: one
+    kernel launch on the card) in the range mktfhe/phase1/sweeps, then each
+    party's lift; the other engines run party by party.
     """
+    if engine == "mx3":
+        with phase_range("mktfhe/phase1/sweeps"):
+            accs = kms_phase1_sweeps(tildea.contiguous(), scheme.brk_hat, params.l_lev, scheme.mono_hat, params, ctx)
+        return [levkey_lift(acc, ctx) for acc in accs]
     tild = tildea.reshape(tildea.shape[0], params.k, params.n)
     levkeys = []
     for party in range(params.k):
@@ -402,8 +413,7 @@ def phase1_engine(phase1_keys) -> str:
 
 def phase1_levkey(engine: str, party: int, tildea_p: torch.Tensor, rows: int, scheme: KmsScheme, params: AnyKmsParams, ctx: RingCtx, phase1_keys=None) -> torch.Tensor:
     """One party's phase 1 on the named engine: 'ref' (`phase1` /
-    `phase1_block` on `scheme.brk_hat[party]`), 'mx3' (the sweep kernel,
-    `kms_phase1_mx3`, on the same keys), 'bm' (`kms_phase1_bm` on
+    `phase1_block` on `scheme.brk_hat[party]`), 'bm' (`kms_phase1_bm` on
     `phase1_keys.brk_bm[party]`, a BmKmsPhase1) or 'mx2' (`kms_phase1_mx2`
     on `phase1_keys.brk_mx[party]`, an MxKmsKeys or an MxKmsScheme).
     `party` indexes the tensors given, which may hold only some of the
@@ -413,8 +423,6 @@ def phase1_levkey(engine: str, party: int, tildea_p: torch.Tensor, rows: int, sc
         if isinstance(params, KmsBlockParams):
             return phase1_block(tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
         return phase1(tildea_p, scheme.brk_hat[party], rows, params, ctx)
-    if engine == "mx3":
-        return kms_phase1_mx3(tildea_p, scheme.brk_hat[party], rows, scheme.mono_hat, params, ctx)
     if engine == "bm":
         from ..kernels.batchminor import kms_phase1_bm  # batchminor imports this module
 

@@ -111,9 +111,10 @@ ENTRIES = {
     "phase1_sweep": (r"""
 extern "C" int host_phase1_sweep(void* acc, const void* tildea, const void* brk, const void* mono,
         const void* tw_f, const void* tw_f_sh, const void* tw_i, const void* tw_i_sh,
-        const void* consts, unsigned long long prod_mod64, long long ctas, int rows, int n_steps,
-        int ell, int npr, int l, int log_b, int log_n, int run_time_shapes) {
-    const SweepShape shape{rows, n_steps, ell, npr, l, log_b, log_n};
+        const void* consts, unsigned long long prod_mod64, long long ctas, int gates, int parties,
+        int first_rows, int rows, int n_steps, int ell, int npr, int l, int log_b, int log_n,
+        int run_time_shapes) {
+    const SweepShape shape{gates, parties, first_rows, rows, n_steps, ell, npr, l, log_b, log_n};
     const SweepPlan plan = sweep_plan(mono != nullptr, shape);
     const SweepKernel kernel = !run_time_shapes ? plan.kernel
         : mono != nullptr ? &phase1_sweep_kernel<true, 0, 0, 0, 0> : &phase1_sweep_kernel<false, 0, 0, 0, 1>;
@@ -129,7 +130,7 @@ extern "C" void mktfhe_phase1_sweep_describe(int block, int ell, int npr, int l,
                                              int* out) {
     describe_plan(block, ell, npr, l, log_n, out);
 }
-""", {"host_phase1_sweep": ([_P] * 9 + [_ULL, _LL] + [_I] * 8, _I),
+""", {"host_phase1_sweep": ([_P] * 9 + [_ULL, _LL] + [_I] * 11, _I),
       "mktfhe_phase1_sweep_describe": ([_I] * 5 + [_P], None)}),
     # `pow_shared` < 0: the kernel that the source's dispatcher picks for the
     # shape; 0 / 1: the kernel with run-time shapes with the power table in

@@ -13,6 +13,8 @@ stream at its edges:
 
   mktfhe/mod_switch           modulus switch of the input to Z_2N
   mktfhe/phase1/party{i}      KMS phase 1 of party i (0-based)
+  mktfhe/phase1/sweeps        KMS phase 1's sweeps of every party in one call
+                              (`bootstrap_mx3`), their lifts after it
   mktfhe/levkey_lift          its lev key lifted into the primes and transformed
   mktfhe/phase2/merge{p1}     KMS phase-2 merge of party p1 (1-based)
   mktfhe/phase2/hybrid        inside each merge, its hybrid product

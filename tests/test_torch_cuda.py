@@ -5,7 +5,10 @@ inverse, in the natural and the batch-minor layout (whole and ragged gate
 tiles); the phase-1 sweep kernel over ring sizes, prime counts, binary and
 block keys, row counts, gadgets and batch sizes, and at every KMS preset
 through its compiled instance over all of the preset's steps (the mx sweep
-too, at the binary presets); phase 2's hybrid product kernel at the last
+too, at the binary presets); every party's sweep in one launch
+(`phase1_sweeps`) against k one-party launches at KMS8partyblock and
+KMS32partyblock, G = 8, and `bootstrap_mx3`'s one sweep launch of k
+parties; phase 2's hybrid product kernel at the last
 merge of KMS8partyblock and KMS32partyblock and at merge 1 (the crs alone),
 replayed from a graph too, and launched once a merge by every KMS engine;
 the mx sweep kernel over
@@ -53,7 +56,7 @@ from mktfhe_tpu_torch.kernels import fused_mx2, fused_mx3, fused_step
 from mktfhe_tpu_torch.kernels import hybrid_product as khybrid
 from mktfhe_tpu_torch.kernels import ntt as kntt
 from mktfhe_tpu_torch.ring.context import make_ring_ctx
-from mktfhe_tpu_torch.ring.modring import prime_column
+from mktfhe_tpu_torch.ring.modring import PRIMES, prime_column
 from mktfhe_tpu_torch.ring.ntt import fwd_ntt, inv_ntt, make_plan
 from mktfhe_tpu_torch.schemes import ccs, gates, kms, lmss, presets
 from mktfhe_tpu_torch.parallel.launch import Job, bootstrap_jobs, run_ranks
@@ -220,7 +223,7 @@ def test_sweep_kernel_matches_plain(device, shape):
     # from the LEV gadget rows, and on through the NTT kernel to the lev key
     fresh = fused_mx3.phase1_sweep(ta, brk, rows, mono, params, ctx)
     assert torch.equal(fresh, fused_mx3.phase1_sweep_plain(ta, brk, rows, mono, params, ctx))
-    levkey = fused_mx3.kms_phase1_mx3(ta, brk, rows, mono, params, ctx)
+    levkey = kms.levkey_lift(fused_mx3._sweep(ta, brk, rows, mono, params, ctx), ctx)
     assert tuple(levkey.shape) == (g, rows, 2, npr, n) and levkey.dtype == torch.int32
     assert fused_mx3.phase1_sweep.launches == 3
 
@@ -525,6 +528,44 @@ def test_sweep_kernel_whole_preset(device, name):
     got = fused_mx3.phase1_sweep(ta, brk, params.l_lev, mono, params, ctx)
     assert fused_mx3.phase1_sweep.launches == 1
     assert torch.equal(got, fused_mx3.phase1_sweep_plain(ta, brk, params.l_lev, mono, params, ctx))
+
+
+def _party_keys(params, ctx, device, seed) -> torch.Tensor:
+    """Every party's brk_hat [k, n, 2, l, 2, npr, N] of random residues
+    below each prime, drawn a (party, prime) at a time."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (params.k, params.n, 2, params.l_gsw, 2, ctx.nprimes, ctx.n)
+    keys = torch.empty(shape, dtype=torch.int32, device=device)
+    for party in range(params.k):
+        for q, p in enumerate(PRIMES[: ctx.nprimes]):
+            keys[party, :, :, :, :, q] = torch.randint(0, p, (*shape[1:5], ctx.n), generator=gen, device=device,
+                                                       dtype=torch.int32)
+    return keys
+
+
+@pytest.mark.parametrize("name", ["KMS_8PARTY_BLOCK", "KMS_32PARTY_BLOCK"])
+def test_multi_party_sweep_equals_one_launch_a_party(device, name):
+    """Every party's sweep in one launch over (party, gate, row), party 1
+    one row, the others l_lev, at G = 8 through the preset's instance: each
+    party's accumulator == its own `phase1_sweep` launch, bit for bit, and
+    the launch counts one launch of k parties."""
+    params = KMS_FULL[name]
+    ctx = kms._ctx(params)
+    brk = _party_keys(params, ctx, device, seed=params.k + 2)
+    gen = torch.Generator(device=device).manual_seed(params.k + 3)
+    ta = torch.randint(0, 2 * ctx.n, (WHOLE_GATES, params.k * params.n), generator=gen, device=device,
+                       dtype=torch.int32)
+    ta[0, 0], ta[-1, -1] = 0, 2 * ctx.n - 1
+    mono = kms.monomial_table(ctx, device)
+    fused_mx3.reset_launches()
+    got = fused_mx3.phase1_sweeps(ta, brk, params.l_lev, mono, params, ctx)
+    assert (fused_mx3.phase1_sweep.launches, fused_mx3.phase1_sweep.parties) == (1, params.k)
+    tild = ta.reshape(WHOLE_GATES, params.k, params.n)
+    for party in range(params.k):
+        rows = 1 if party == 0 else params.l_lev
+        want = fused_mx3.phase1_sweep(tild[:, party].contiguous(), brk[party], rows, mono, params, ctx)
+        assert torch.equal(got[party], want), f"party {party + 1}"
+    assert (fused_mx3.phase1_sweep.launches, fused_mx3.phase1_sweep.parties) == (1 + params.k, 2 * params.k)
 
 
 @pytest.mark.parametrize("name", sorted(n for n, p in KMS_FULL.items() if not isinstance(p, KmsBlockParams)))
@@ -937,6 +978,24 @@ def test_hybrid_product_launches_once_a_merge(device, name):
     assert khybrid.hybrid_product.launches == case["params"].k
 
 
+@pytest.mark.parametrize("name", ["fused_mx3.bootstrap_mx3", "fused_mx3.bootstrap_mx3 block"])
+def test_bootstrap_mx3_sweeps_every_party_in_one_launch(device, name):
+    """`bootstrap_mx3` launches the sweep kernel once for all k parties,
+    eager and in each replay of its graph."""
+    case = engine_case(name, device)
+    run(case)
+    _reset_counts()
+    run(case)
+    want = {"phase1_sweep": (1, {}), "phase1_sweep.parties": (case["params"].k, {})}
+    counts = graphs.launch_counts()
+    assert {w: counts[w] for w in want} == want
+    graphed = graphs.capture_bootstrap(case["bootstrap"], case["scheme"], case["params"], case["ct"], *case["extra"])
+    _reset_counts()
+    graphed(case["ct"], case["scheme"], *case["extra"], case["params"])
+    counts = graphs.launch_counts()
+    assert {w: counts[w] for w in want} == want
+
+
 @pytest.mark.parametrize("name", ENGINES)
 def test_bootstrap_makes_no_sync(device, name):
     """An eager bootstrap (after one that made the constant tables) under
@@ -958,6 +1017,12 @@ def test_public_wrappers_sync_on_the_range_read(device):
     with pytest.raises(RuntimeError):
         graphs.without_sync(fused_mx3.phase1_sweep, *args)
     assert torch.equal(graphs.without_sync(fused_mx3._sweep, *args), fused_mx3.phase1_sweep(*args))
+    every = (ta.repeat(1, params.k), scheme.brk_hat, 1, scheme.mono_hat, params, kms._ctx(params))
+    fused_mx3.phase1_sweeps(*every)
+    with pytest.raises(RuntimeError):
+        graphs.without_sync(fused_mx3.phase1_sweeps, *every)
+    got = graphs.without_sync(fused_mx3.kms_phase1_sweeps, *every)
+    assert all(torch.equal(x, y) for x, y in zip(got, fused_mx3.phase1_sweeps(*every)))
 
 
 @pytest.mark.parametrize("name", ENGINES)

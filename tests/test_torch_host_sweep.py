@@ -1,7 +1,9 @@
 """csrc/phase1_sweep.cu (B2), its device code run on the CPU.
 
 Every template instance of the phase-1 sweep and the kernel with run-time
-shapes, block and binary keys, against `fused_mx3.phase1_sweep_plain`.
+shapes, block and binary keys, against `fused_mx3.phase1_sweep_plain`; and
+one launch over several parties (`fused_mx3.phase1_sweeps`' grid) against
+the plain version party by party.
 The device code is compiled for the host with g++
 (mktfhe_tpu_torch/tools/host_kernels.py: one std::thread per CUDA thread, a
 std::barrier for `__syncthreads()`) and held bit for bit against the plain
@@ -35,14 +37,12 @@ def sweep_lib(tmp_path_factory):
         pytest.skip(str(err))
 
 
-def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, run_time_shapes=False):
-    """The wrapper's launch (fused_mx3._launch), on the host library, through
-    the kernel the source's dispatcher picks, or through the kernel with
-    run-time shapes."""
-    fused_mx3._check(ta, brk, rows, mono, params, ctx, acc0)
+def _host_launch(lib, acc, ta, brk, parties, first_rows, rows, mono, params, ctx, run_time_shapes=False):
+    """The wrapper's launch (fused_mx3._launch) on the host library, into
+    `acc` in place, through the kernel the source's dispatcher picks, or
+    through the kernel with run-time shapes."""
     n, npr = ctx.n, ctx.nprimes
     ell = params.ell if isinstance(params, KmsBlockParams) else 1
-    acc = acc0.clone()
     tw_f, tw_f_sh, _ = kntt._kernel_tables(n, npr, True, CPU)
     tw_i, tw_i_sh, _ = kntt._kernel_tables(n, npr, False, CPU)
     consts = fused_mx3._sweep_consts(n, npr, CPU)
@@ -50,10 +50,18 @@ def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, run_time_shapes=Fal
         acc.data_ptr(), ta.data_ptr(), brk.data_ptr(),
         mono.data_ptr() if isinstance(params, KmsBlockParams) else None,
         tw_f.data_ptr(), tw_f_sh.data_ptr(), tw_i.data_ptr(), tw_i_sh.data_ptr(),
-        consts.data_ptr(), ctx.crt.prod_mod64, ta.shape[0] * rows, rows, params.n // ell, ell,
-        npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1, int(run_time_shapes),
+        consts.data_ptr(), ctx.crt.prod_mod64, acc.shape[0], ta.shape[0], parties, first_rows, rows,
+        params.n // ell, ell, npr, params.l_gsw, params.log_b_gsw, n.bit_length() - 1, int(run_time_shapes),
     )
     assert err == 0
+
+
+def _host_sweep(lib, ta, brk, rows, mono, params, ctx, acc0, run_time_shapes=False):
+    """One party's sweep (`fused_mx3.phase1_sweep`'s launch) on the host
+    library."""
+    fused_mx3._check(ta, brk, rows, mono, params, ctx, acc0)
+    acc = acc0.clone()
+    _host_launch(lib, acc.view(-1, 2, ctx.n), ta, brk, 1, rows, rows, mono, params, ctx, run_time_shapes)
     return acc
 
 
@@ -136,3 +144,40 @@ def test_sweep_kernel_source_matches_plain(sweep_lib, name):
     assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
     if not kernel["run_time_shapes"] and n < 2048:  # the same shape through the kernel with run-time shapes
         assert torch.equal(_host_sweep(sweep_lib, ta, brk, rows, mono, params, ctx, acc0, True), want)
+
+
+# (parameters, primes, gates, parties, rows of parties 2..k)
+SWEEPS_CASES = {
+    "binary": (dataclasses.replace(BINARY, n=3), 3, 2, 3, 2),
+    "block": (dataclasses.replace(BLOCK, d=1, big_n=128), 3, 2, 3, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(SWEEPS_CASES))
+def test_multi_party_sweep_matches_plain_party_by_party(sweep_lib, name):
+    """One launch over (party, gate, row), as `fused_mx3.phase1_sweeps`
+    makes it (party 1 one row, the others `rows`), from the buffer of
+    `phase1_sweeps_init`: every party's accumulator == `phase1_sweep_plain`
+    on that party's tildea columns and keys."""
+    params, npr, g, parties, rows = SWEEPS_CASES[name]
+    params = dataclasses.replace(params, k=parties, l_lev=rows)
+    ctx = make_ring_ctx(params.big_n, 64, npr)
+    n = ctx.n
+    rng = np.random.default_rng(7 + len(name))
+    p = np.array(PRIMES[:npr], dtype=np.int64)[:, None]
+    brk = rng.integers(0, 1 << 62, size=(parties, params.n, 2, params.l_gsw, 2, npr, n)) % p
+    brk = torch.from_numpy(brk.astype(np.int32))
+    ta = torch.from_numpy(rng.integers(0, 2 * n, size=(g, parties * params.n)).astype(np.int32))
+    mono = _monomial_table(n, npr) if isinstance(params, KmsBlockParams) else None
+    fused_mx3._check(ta, brk, rows, mono, params, ctx, None, parties=parties)
+    acc = fused_mx3.phase1_sweeps_init(g, parties, rows, params, ctx, CPU)
+    _host_launch(sweep_lib, acc, ta, brk, parties, 1, rows, mono, params, ctx)
+    got = fused_mx3._party_views(acc, g, parties, rows)
+    want = fused_mx3.phase1_sweeps(ta, brk, rows, mono, params, ctx)
+    tild = ta.reshape(g, parties, params.n)
+    for party in range(parties):
+        party_rows = 1 if party == 0 else rows
+        plain = fused_mx3.phase1_sweep_plain(tild[:, party].contiguous(), brk[party], party_rows, mono, params, ctx)
+        assert tuple(got[party].shape) == (g, party_rows, 2, n)
+        assert torch.equal(got[party], plain), f"party {party + 1}"
+        assert torch.equal(want[party], plain), f"party {party + 1}"

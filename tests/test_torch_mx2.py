@@ -102,7 +102,8 @@ def test_phase1_matches_port_mx3(case):
     tparams, party = case["tparams"], 1
     ctx = kms._ctx(tparams)
     brk_hat = fwd_ntt(lift(bridge.party_key(case["parties"][party][3], CPU).brk, ctx.crt), ctx.plan)
-    want = fused_mx3.kms_phase1_mx3(torch.from_numpy(case["tildea"]), brk_hat, tparams.l_lev, None, tparams, ctx)
+    acc = fused_mx3.phase1_sweep(torch.from_numpy(case["tildea"]), brk_hat, tparams.l_lev, None, tparams, ctx)
+    want = kms.levkey_lift(acc, ctx)
     np.testing.assert_array_equal(_port_levkey(case, party), bridge.to_numpy(want))
 
 

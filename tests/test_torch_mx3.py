@@ -1,6 +1,7 @@
 """Port parity of the phase-1 sweep (mktfhe_tpu_torch/kernels/fused_mx3.py).
 
-`kms_phase1_mx3` of the port against the reference engine `kms.phase1` /
+The port's phase 1 (`kms_phase1_sweeps`, every party's sweep in one call,
+then each party's `kms.levkey_lift`) against the reference engine `kms.phase1` /
 `kms.phase1_block` of the JAX package, on the reference's own keys (bridged
 as numpy) and numpy-seeded rotation amounts, at the cases of
 tests/test_fused_mx3.py; tolerance 0 (the arithmetic is exact).  On CPU
@@ -82,17 +83,19 @@ def case(request):
 
 
 def _port_levkey(case, party):
-    """The port's lev key for `party` (rows 1 for party 0, l_lev otherwise),
-    computed once per case."""
-    if party not in case["got"]:
+    """The port's lev key for `party` (rows 1 for party 0, l_lev otherwise):
+    every party's sweep in one `kms_phase1_sweeps` call, each party on the
+    case's rotation amounts, then each party's lift; computed once per
+    case."""
+    if not case["got"]:
         tparams, scheme = case["tparams"], case["scheme"]
-        rows = 1 if party == 0 else tparams.l_lev
-        out = fused_mx3.kms_phase1_mx3(
-            torch.from_numpy(case["tildea"]), scheme.brk_hat[party], rows, scheme.mono_hat,
-            tparams, kms._ctx(tparams),
-        )
-        assert out.dtype == torch.int32
-        case["got"][party] = bridge.to_numpy(out)
+        ctx = kms._ctx(tparams)
+        tildea = torch.from_numpy(np.tile(case["tildea"], (1, tparams.k)))
+        accs = fused_mx3.kms_phase1_sweeps(tildea, scheme.brk_hat, tparams.l_lev, scheme.mono_hat, tparams, ctx)
+        for p, acc in enumerate(accs):
+            out = kms.levkey_lift(acc, ctx)
+            assert out.dtype == torch.int32
+            case["got"][p] = bridge.to_numpy(out)
     return case["got"][party]
 
 
@@ -281,3 +284,52 @@ def test_wrapper_refuses_ranges(small):
         fused_mx3.phase1_sweep(ta, brk, 2, mono, small_ring, kms._ctx(small_ring))
     with pytest.raises(TypeError):  # parameters of another scheme
         fused_mx3.phase1_sweep(ta, brk, 2, mono, object(), ctx)
+
+
+# --- every party's sweep in one call (`phase1_sweeps`) -----------------------
+
+
+@pytest.fixture(scope="module")
+def small_parties(small):
+    """`small`'s inputs for two parties: the second party's keys and
+    amounts differ from the first's."""
+    params, ctx, ta, brk, mono = small
+    ta2 = torch.cat([ta, torch.flip(ta, (0,))], 1)
+    brk2 = torch.stack([brk, torch.roll(brk, 1, 0)])
+    return params, ctx, ta2, brk2, mono
+
+
+def test_sweeps_wrapper_on_cpu_runs_plain_party_by_party(small_parties):
+    """Party 1 one row, party 2 `rows`, each == `phase1_sweep_plain` on its
+    columns and keys; the accumulators are views of one buffer."""
+    params, ctx, ta, brk, mono = small_parties
+    fused_mx3.reset_launches()
+    got = fused_mx3.phase1_sweeps(ta, brk, 2, mono, params, ctx)
+    assert [tuple(a.shape) for a in got] == [(G, 1, 2, ctx.n), (G, 2, 2, ctx.n)]
+    assert got[1].untyped_storage().data_ptr() == got[0].untyped_storage().data_ptr()
+    for party, rows in enumerate((1, 2)):
+        cols = ta[:, party * params.n : (party + 1) * params.n].contiguous()
+        assert torch.equal(got[party], fused_mx3.phase1_sweep_plain(cols, brk[party], rows, mono, params, ctx))
+    assert (fused_mx3.phase1_sweep.launches, fused_mx3.phase1_sweep.parties) == (0, 0)
+
+
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_sweeps_wrapper_refuses_tensors(small_parties, name):
+    params, ctx, ta, brk, mono = small_parties
+    change, error = REFUSALS[name]
+    ta, brk, mono = change(ta, brk, mono)
+    with pytest.raises(error):
+        fused_mx3.phase1_sweeps(ta, brk, 2, mono, params, ctx)
+
+
+def test_sweeps_wrapper_refuses_one_partys_keys(small_parties):
+    """One party's brk_hat (no party axis), or none, is not every party's."""
+    params, ctx, ta, brk, mono = small_parties
+    with pytest.raises(ValueError):
+        fused_mx3.phase1_sweeps(ta, brk[0], 2, mono, params, ctx)
+    with pytest.raises(ValueError):
+        fused_mx3.phase1_sweeps(ta[:, : params.n].contiguous(), brk, 2, mono, params, ctx)
+    with pytest.raises(ValueError):
+        fused_mx3.phase1_sweeps(ta[:, :0].contiguous(), brk[:0], 2, mono, params, ctx)
+    with pytest.raises(ValueError):  # rows beyond l_lev
+        fused_mx3.phase1_sweeps(ta, brk, params.l_lev + 1, mono, params, ctx)

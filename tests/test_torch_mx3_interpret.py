@@ -1,6 +1,7 @@
 """Port parity of the phase-1 sweep against the JAX package's own sweep.
 
-`kms_phase1_mx3` of the port (on CPU: the kernel's plain version) against
+The port's phase 1 (`kms_phase1_sweeps`, then `kms.levkey_lift`; on CPU:
+the kernel's plain version party by party) against
 the JAX package's `kms_phase1_mx3` with its Pallas kernel in interpret mode
 (`interpret=True, g_tile=4`, as tests/test_fused_mx3.py runs it), at the
 cases and on the keys of tests/test_torch_mx3.py; tolerance 0.

@@ -2,8 +2,9 @@
 
 The cost model's counts equal the JAX package's as integers for every
 preset and engine; `summary` takes no device's peaks by default; `trace`
-on the CPU records the bootstraps' named phase ranges in order and leaves
-their output bits unchanged, and `gates.gate` opens its host spans before
+on the CPU records the bootstraps' named phase ranges in order (KMS phase 1
+party by party on `kms.bootstrap`, every party's sweeps in one range on
+`bootstrap_mx3`) and leaves their output bits unchanged, and `gates.gate` opens its host spans before
 them; `_Recorder.exclusive_ms` charges nested ranges exclusively;
 `capture_bootstrap(..., ranges=True)` on the CPU is the eager function and
 reads no range; `charge_gaps` and `idle_by_span` put each idle gap of the
@@ -20,6 +21,7 @@ from mktfhe_tpu.schemes import params as jparams
 from mktfhe_tpu.schemes.presets import ALL_PRESETS
 from mktfhe_tpu.utils import profiling as jprof
 from mktfhe_tpu_torch import bridge, graphs
+from mktfhe_tpu_torch.kernels import fused_mx3
 from mktfhe_tpu_torch.schemes import cggi, gates, kms
 from mktfhe_tpu_torch.schemes.gates import gate_affine, lwe_encrypt_bit, lwe_ith_encrypt_bit
 from mktfhe_tpu_torch.schemes.presets import TEST_PRESETS
@@ -58,7 +60,7 @@ def test_summary_takes_the_peaks_from_the_caller():
     assert got == pytest.approx(want, rel=1e-12)
 
 
-def _kms_case():
+def _kms_inputs():
     params = TEST_PRESETS["TinyKMS2party"]
     gen = torch.Generator().manual_seed(5)
     a = kms.crs(gen, params)
@@ -66,13 +68,30 @@ def _kms_case():
     scheme = kms.setup(a, [p[3] for p in parties], params)
     m = torch.tensor([True, False, True])
     cts = [lwe_ith_encrypt_bit(gen, m, i, parties[i][0], params.alpha, params.k, (3,)) for i in range(2)]
+    return cts, scheme, params
+
+
+def _phase2_ranges(params) -> list[str]:
+    ranges = []
+    for p1 in range(1, params.k + 1):
+        ranges += [f"mktfhe/phase2/merge{p1}", "mktfhe/phase2/hybrid"]
+    return [*ranges, "mktfhe/keyswitch"]
+
+
+def _kms_case():
+    cts, scheme, params = _kms_inputs()
     ranges = ["mktfhe/mod_switch"]
     for party in range(params.k):
         ranges += [f"mktfhe/phase1/party{party}", "mktfhe/levkey_lift"]
-    for p1 in range(1, params.k + 1):
-        ranges += [f"mktfhe/phase2/merge{p1}", "mktfhe/phase2/hybrid"]
-    ranges += ["mktfhe/keyswitch"]
-    return kms.bootstrap, cts, scheme, params, ranges
+    return kms.bootstrap, cts, scheme, params, ranges + _phase2_ranges(params)
+
+
+def _kms_mx3_case():
+    """`bootstrap_mx3`: every party's sweeps in one range, then each
+    party's lift."""
+    cts, scheme, params = _kms_inputs()
+    ranges = ["mktfhe/mod_switch", "mktfhe/phase1/sweeps", *["mktfhe/levkey_lift"] * params.k]
+    return fused_mx3.bootstrap_mx3, cts, scheme, params, ranges + _phase2_ranges(params)
 
 
 def _cggi_case():
@@ -95,7 +114,7 @@ def _range_names(prof) -> list[str]:
     return [name for _, _, name in _spans(prof)]
 
 
-CASES = pytest.mark.parametrize("case", [_kms_case, _cggi_case], ids=["kms", "cggi"])
+CASES = pytest.mark.parametrize("case", [_kms_case, _kms_mx3_case, _cggi_case], ids=["kms", "kms_mx3", "cggi"])
 
 
 @CASES

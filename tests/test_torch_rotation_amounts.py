@@ -1,7 +1,7 @@
 """Rotation amounts outside [0, 2N): X^(a + 2N) = X^a in Z_q[X]/(X^N + 1).
 
 The public kernel wrappers refuse such amounts, but the bootstrap steps
-(`kms_phase1_mx3`, `kms_phase1_mx2`, `bootstrap_fused`) do not read them
+(`kms_phase1_sweeps`, `kms_phase1_mx2`, `bootstrap_fused`) do not read them
 back, so every kernel and its plain twin must give the ring's answer for any
 int32 amount: the twin of the phase-1 sweep (block and binary keys), the
 twin of the CGGI step and `fused_mx2.mx_mono_rows` at amounts 2N, 2N + 5,
